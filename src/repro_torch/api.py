@@ -1,0 +1,130 @@
+"""Layered public API of the PyTorch / CUDA port.
+
+Three composable layers, as in the reference package:
+
+    GraphStore  — app-independent; DBG relabeling, dst-range
+                  partitioning, Little/Big brick blockings (host numpy).
+                  Built once per (graph, Geometry); memoizes blockings
+                  and plans.
+    Planner     — per PlanConfig; classifies partitions with the perf
+                  model and builds the lane schedule. Cached on the store.
+    Executor    — per (plan, app, device); device payloads and the eager
+                  iteration loop (run / time_iteration / time_lanes).
+
+Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
+with no CUDA device and no ``device="cpu"`` the entry points raise.
+
+Quickstart::
+
+    from repro_torch import api
+    from repro_torch.graphs.rmat import rmat
+
+    compiled = api.compile(rmat(12, 16, seed=7), "pagerank", n_lanes=8)
+    props, meta = compiled.run()
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+from .core.executor import Executor
+from .core.gas import (BUILTIN_APPS, GASApp, SCATTER_OPS, make_bfs,
+                       make_closeness, make_pagerank, make_sssp, make_wcc)
+from .core.perf_model import DEFAULT_HW, HW
+from .core.planner import PlanBundle, PlanConfig, Planner
+from .core.store import GraphStore
+from .core.types import Geometry, SchedulePlan
+from .graphs.formats import Graph, fingerprint as graph_fingerprint
+from .obs import DriftAccumulator, Span, SpanContext, Tracer
+
+__all__ = [
+    "BUILTIN_APPS", "CompiledApp", "DEFAULT_HW", "DriftAccumulator",
+    "Executor", "GASApp", "Geometry", "Graph", "GraphStore", "HW",
+    "PlanBundle", "PlanConfig", "Planner", "SCATTER_OPS", "SchedulePlan",
+    "Span", "SpanContext", "Tracer", "compile", "graph_fingerprint",
+    "make_bfs", "make_closeness", "make_pagerank", "make_sssp", "make_wcc",
+]
+
+
+@dataclasses.dataclass
+class CompiledApp:
+    """The result of :func:`compile`: one app bound to a (possibly
+    shared) GraphStore and a cached plan, ready to run."""
+
+    store: GraphStore
+    executor: Executor
+
+    @property
+    def app(self) -> GASApp:
+        return self.executor.app
+
+    @property
+    def config(self) -> PlanConfig:
+        return self.executor.bundle.config
+
+    @property
+    def plan(self) -> SchedulePlan:
+        return self.executor.plan
+
+    def run(self, max_iters: Optional[int] = None, collect_history=False):
+        return self.executor.run(max_iters=max_iters,
+                                 collect_history=collect_history)
+
+    def time_iteration(self, repeats: int = 5) -> float:
+        return self.executor.time_iteration(repeats=repeats)
+
+    def time_lanes(self, repeats: int = 3):
+        return self.executor.time_lanes(repeats=repeats)
+
+    def stats(self) -> dict:
+        return self.executor.stats()
+
+
+def compile(
+    graph: Optional[Graph],
+    app: Union[GASApp, str],
+    *,
+    geom: Optional[Geometry] = None,
+    config: Optional[PlanConfig] = None,
+    store: Optional[GraphStore] = None,
+    path: Optional[str] = None,
+    use_dbg: Optional[bool] = None,
+    fuse_lanes: bool = True,
+    device=None,
+    **cfg,
+) -> CompiledApp:
+    """Push-button entry point: prepare (or reuse) a GraphStore, plan,
+    and materialize an executor for one app on ``device`` (default
+    ``cuda``; raises when there is none and ``device="cpu"`` was not
+    passed).
+
+    ``app`` may be a :class:`GASApp` or a builtin name ("pagerank",
+    "bfs", "sssp", "wcc", "closeness"). Extra keyword arguments become
+    :class:`PlanConfig` fields (``n_lanes``, ``mode``, ``hw``,
+    ``forced_little``, ``forced_big``). Pass ``store=`` to amortize
+    preprocessing across apps; ``graph`` may then be None. ``path`` is
+    "cuda" (the GAS kernel) or "ref" (the plain PyTorch version);
+    ``fuse_lanes=False`` launches once per plan entry instead of once
+    per packed lane (bit-identical results).
+    """
+    if isinstance(app, str):
+        if app not in BUILTIN_APPS:
+            raise ValueError(f"unknown builtin app {app!r}; available: "
+                             f"{sorted(BUILTIN_APPS)}")
+        app = BUILTIN_APPS[app]()
+    if config is not None and cfg:
+        raise ValueError("pass either config= or PlanConfig kwargs, not both")
+    if config is None:
+        config = PlanConfig(**cfg)
+    if store is None:
+        if graph is None:
+            raise ValueError("compile() needs a graph when no store= given")
+        store = GraphStore(graph, geom=geom or Geometry(),
+                           use_dbg=use_dbg if use_dbg is not None else True)
+    else:
+        # a shared store fixes graph/geometry/DBG — reject contradictions
+        store.validate_compatible(graph=graph, geom=geom, use_dbg=use_dbg)
+    return CompiledApp(store=store,
+                       executor=store.executor(app, config, path=path,
+                                               fuse_lanes=fuse_lanes,
+                                               device=device))

@@ -1,0 +1,289 @@
+"""GraphStore — the app-independent preparation layer (paper §IV-A).
+
+Everything that depends only on ``(graph, Geometry)`` lives here and is
+computed exactly once: the DBG permutation, dst-range partitioning (the
+pristine :class:`PartitionInfo` stats plus partition-sorted edge arrays),
+and the Little/Big brick blockings. Blockings are built lazily and
+memoized, so running all five builtin apps against one store pays for
+preprocessing once. Plans are cached per :class:`~.planner.PlanConfig`.
+
+The store itself is host numpy; only ``aux`` (out-degrees etc.) and the
+plans' payloads live on a device, memoized per device.
+
+Layering (see repro_torch/api.py):
+
+    GraphStore  — per (graph, geometry); owns edges + blockings
+      Planner   — per PlanConfig; classification + lane schedule (cheap)
+        Executor — per (plan, app, device); payloads + eager run loop
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import obs
+from ..graphs.formats import Graph, relabel
+from . import partition as part
+from .types import BlockedEdges, Geometry, PartitionInfo
+
+
+class GraphStore:
+    """App-independent graph state, built once and shared by many plans.
+
+    Parameters
+    ----------
+    graph:   input COO graph (original vertex ids).
+    geom:    blocking geometry; one store serves exactly one geometry.
+    use_dbg: apply degree-based grouping before partitioning (paper §II-A).
+    max_plans: bound on the per-store plan LRU (cached PlanBundles pin
+             their device payloads; the least-recently-used bundle is
+             dropped once the bound is hit).
+    perm:    explicit vertex relabeling (``perm[old_id] = new_id``),
+             overriding the DBG computation.
+    fingerprint: identity override (defaults to the source graph's
+             content hash).
+
+    Building the store is host work and needs no device; each Executor
+    names its own.
+    """
+
+    DEFAULT_MAX_PLANS = 32
+
+    def __init__(self, graph: Graph, geom: Geometry = Geometry(),
+                 use_dbg: bool = True, max_plans: Optional[int] = None,
+                 perm: Optional[np.ndarray] = None,
+                 fingerprint: Optional[str] = None):
+        self.geom = geom
+        self.use_dbg = use_dbg
+        self.max_plans = (self.DEFAULT_MAX_PLANS if max_plans is None
+                          else int(max_plans))
+        if self.max_plans < 1:
+            raise ValueError(f"max_plans must be >= 1, got {max_plans}")
+        self.source = graph   # pre-DBG input, for sharing-mismatch checks
+        self._fp = fingerprint
+
+        t0 = time.perf_counter()
+        with obs.span("store.dbg", "store", V=graph.num_vertices,
+                      E=graph.num_edges, use_dbg=use_dbg):
+            if perm is not None:
+                perm = np.asarray(perm, dtype=np.int32)
+                if perm.shape[0] != graph.num_vertices:
+                    raise ValueError(
+                        f"perm has {perm.shape[0]} entries for a graph of "
+                        f"{graph.num_vertices} vertices")
+                self.graph = relabel(graph, perm, name_suffix="_perm")
+                self.perm = perm
+            elif use_dbg:
+                self.graph, self.perm = part.apply_dbg(graph)
+            else:
+                self.graph = graph
+                self.perm = np.arange(graph.num_vertices, dtype=np.int32)
+        self.t_dbg = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with obs.span("store.partition", "store") as sp:
+            self._infos, self.edges = part.partition_graph(self.graph, geom)
+            sp.set(partitions=len(self._infos))
+        self.V_pad = part.padded_num_vertices(self.graph.num_vertices, geom)
+        self.t_partition = time.perf_counter() - t0
+
+        # lazy, memoized blockings (the expensive app-independent work)
+        self._little_cache: Dict[int, BlockedEdges] = {}
+        self._big_cache: Dict[Tuple[int, ...], BlockedEdges] = {}
+        self.t_block = 0.0
+
+        # plan LRU: PlanConfig.cache_key() -> PlanBundle
+        self._plan_cache: "collections.OrderedDict[tuple, object]" = \
+            collections.OrderedDict()
+        self._plan_lock = threading.RLock()
+        self.plan_evictions = 0
+        self._aux: Dict[torch.device, dict] = {}
+
+    def fingerprint(self) -> str:
+        """Identity of the graph this store was built from."""
+        if self._fp is None:
+            self._fp = self.source.fingerprint()
+        return self._fp
+
+    def validate_compatible(self, graph=None, geom=None, use_dbg=None):
+        """Reject asks that contradict what this store was built with.
+        ``None`` means "use the store's setting" and always passes."""
+        if graph is not None and graph is not self.source:
+            raise ValueError("store= was built from a different graph than "
+                             "the one passed; pass graph=None or the "
+                             "store's own graph")
+        if geom is not None and geom != self.geom:
+            raise ValueError(f"store was built with {self.geom}, but "
+                             f"geom={geom} was requested")
+        if use_dbg is not None and use_dbg != self.use_dbg:
+            raise ValueError(f"store was built with use_dbg={self.use_dbg},"
+                             f" but use_dbg={use_dbg} was requested")
+
+    # -- partition stats ------------------------------------------------
+    @property
+    def infos(self) -> List[PartitionInfo]:
+        """Pristine (unclassified) partition stats; planners work on
+        copies (:meth:`copy_infos`)."""
+        return self._infos
+
+    def copy_infos(self) -> List[PartitionInfo]:
+        return [dataclasses.replace(i) for i in self._infos]
+
+    # -- memoized blocking ---------------------------------------------
+    def little_work(self, pid: int) -> BlockedEdges:
+        """Little-pipeline brick layout of one partition (memoized)."""
+        w = self._little_cache.get(pid)
+        if w is None:
+            t0 = time.perf_counter()
+            w = part.block_little(self.edges, self._infos[pid], self.geom)
+            self.t_block += time.perf_counter() - t0
+            self._little_cache[pid] = w
+        return w
+
+    def big_work(self, pids: Tuple[int, ...]) -> BlockedEdges:
+        """Big-pipeline layout of one batch of partitions (memoized)."""
+        pids = tuple(int(p) for p in pids)
+        w = self._big_cache.get(pids)
+        if w is None:
+            t0 = time.perf_counter()
+            w = part.block_big(self.edges, [self._infos[p] for p in pids],
+                               self.geom)
+            self.t_block += time.perf_counter() - t0
+            self._big_cache[pids] = w
+        return w
+
+    # -- shared device-side aux ----------------------------------------
+    def aux_on(self, device: torch.device) -> dict:
+        """Apply/init auxiliary data (out-degrees on ``device`` etc.),
+        built once per device and shared by every Executor there."""
+        with self._plan_lock:
+            aux = self._aux.get(device)
+            if aux is None:
+                outdeg = np.zeros(self.V_pad, np.float32)
+                outdeg[:self.graph.num_vertices] = self.graph.out_degrees()
+                aux = {
+                    "outdeg": torch.from_numpy(outdeg).to(device),
+                    "num_v": float(self.graph.num_vertices),
+                    "num_v_pad": self.V_pad,
+                }
+                self._aux[device] = aux
+            return aux
+
+    # -- planning / execution ------------------------------------------
+    def plan(self, config=None):
+        """Build (or fetch the cached) :class:`~.planner.PlanBundle` for a
+        :class:`~.planner.PlanConfig` (a bounded, thread-safe LRU)."""
+        from .planner import PlanConfig, Planner
+        config = config or PlanConfig()
+        key = config.cache_key()
+        with self._plan_lock:
+            bundle = self._plan_cache.get(key)
+            if bundle is not None:
+                self._plan_cache.move_to_end(key)
+                return bundle
+            with obs.span("plan.build", "planner",
+                          n_lanes=config.n_lanes) as sp:
+                bundle = Planner(self, config).build()
+                sp.set(est_makespan=bundle.plan.est_makespan)
+            self._plan_cache[key] = bundle
+            while len(self._plan_cache) > self.max_plans:
+                self._plan_cache.popitem(last=False)
+                self.plan_evictions += 1
+        return bundle
+
+    def has_plan(self, config=None) -> bool:
+        """True when ``plan(config)`` would hit the cache (a pure peek)."""
+        from .planner import PlanConfig
+        config = config or PlanConfig()
+        with self._plan_lock:
+            return config.cache_key() in self._plan_cache
+
+    def clear_plans(self) -> dict:
+        """Drop every cached PlanBundle (and the device payloads memoized
+        on them). Blockings stay cached, so re-planning is cheap. Returns
+        ``{"plans": evicted count, "freed_bytes": payload bytes}``."""
+        with self._plan_lock:
+            n = len(self._plan_cache)
+            freed = sum(b.device_bytes()["total_bytes"]
+                        for b in self._plan_cache.values())
+            self._plan_cache.clear()
+        return {"plans": n, "freed_bytes": int(freed)}
+
+    def executor(self, app, config=None, path: Optional[str] = None,
+                 fuse_lanes: bool = True, device=None):
+        """Materialize an executor for one app on the (cached) plan for
+        ``config``, on ``device`` (default ``cuda``; raises when there is
+        no CUDA device and ``device="cpu"`` was not passed).
+        ``fuse_lanes=False`` launches once per plan entry instead of once
+        per packed lane (bit-identical results)."""
+        from .executor import Executor
+        return Executor(self, self.plan(config), app, path=path,
+                        fuse_lanes=fuse_lanes,
+                        device=device)
+
+    def plan_and_run(self, app, config=None, path: Optional[str] = None,
+                     max_iters: Optional[int] = None,
+                     collect_history: bool = False, device=None):
+        """One-call convenience: plan (cached) + execute one app."""
+        ex = self.executor(app, config, path=path, device=device)
+        return ex.run(max_iters=max_iters, collect_history=collect_history)
+
+    # -- reporting ------------------------------------------------------
+    def memory_footprint(self) -> dict:
+        """Byte accounting of everything this store keeps alive: graph
+        arrays, partition-sorted edges, memoized blockings, cached plans'
+        device payloads and the per-device aux."""
+        graph_bytes = sum(
+            int(a.nbytes) for a in (self.graph.src, self.graph.dst,
+                                    self.graph.weights) if a is not None)
+        graph_bytes += self.perm.nbytes
+        edge_bytes = sum(int(a.nbytes) for a in self.edges.values())
+        with self._plan_lock:
+            blocking_bytes = sum(
+                _blocked_nbytes(w) for w in self._little_cache.values())
+            blocking_bytes += sum(
+                _blocked_nbytes(w) for w in self._big_cache.values())
+            plan_bytes = sum(b.device_bytes()["total_bytes"]
+                             for b in self._plan_cache.values())
+            aux_bytes = sum(a["outdeg"].numel() * 4
+                            for a in self._aux.values())
+        return {
+            "graph_bytes": int(graph_bytes),
+            "edge_bytes": int(edge_bytes),
+            "blocking_bytes": int(blocking_bytes),
+            "plan_bytes": int(plan_bytes),
+            "aux_bytes": int(aux_bytes),
+            "total_bytes": int(graph_bytes + edge_bytes + blocking_bytes
+                               + plan_bytes + aux_bytes),
+        }
+
+    def stats(self) -> dict:
+        return {
+            "V": self.graph.num_vertices,
+            "E": self.graph.num_edges,
+            "partitions": len(self._infos),
+            "t_dbg_ms": self.t_dbg * 1e3,
+            "t_partition_ms": self.t_partition * 1e3,
+            "t_block_ms": self.t_block * 1e3,
+            "cached_little_works": len(self._little_cache),
+            "cached_big_works": len(self._big_cache),
+            "cached_plans": len(self._plan_cache),
+            "plan_evictions": self.plan_evictions,
+            **self.memory_footprint(),
+        }
+
+
+def _blocked_nbytes(w) -> int:
+    """Host bytes held by one BlockedEdges (numpy brick arrays)."""
+    total = 0
+    for f in dataclasses.fields(w):
+        v = getattr(w, f.name)
+        if isinstance(v, np.ndarray):
+            total += int(v.nbytes)
+    return total

@@ -1,0 +1,26 @@
+"""Little pipeline — dense-partition GAS input form (paper §III-C).
+
+Dense partitions touch most source windows, so the kernel reads raw
+vprops windows: ``vprops.view(-1, W)``, each block loading window
+``window_id[b]`` by id. No dedup, no compaction — the paper's argument
+that locality makes those techniques dead weight for dense partitions.
+Windows no block names are never read.
+"""
+from __future__ import annotations
+
+from .gas_kernel import gas_tiles
+
+
+def little_pipeline(vprops_padded, payload: dict, *, scatter_op, mode):
+    """Run one Little payload (a plan entry or a packed lane) over the
+    raw property windows. ``vprops_padded``: ``(V_pad,)``, V_pad % W == 0.
+    Returns ``(n_out_tiles, T)`` tiles."""
+    geom = payload["geom"]
+    return gas_tiles(vprops_padded.view(-1, geom.W), *_blocked(payload),
+                     scatter_op=scatter_op, mode=mode, t=geom.T)
+
+
+def _blocked(p: dict):
+    """The payload arrays the kernel reads, in its argument order."""
+    return (p["src_local"], p["dst_local"], p["weights"], p["valid"],
+            p["window_id"], p["tile_block_start"])

@@ -1,0 +1,441 @@
+"""Payloads and dispatch for the GAS kernel.
+
+``materialize_entry`` turns a (work, block-range) plan entry into device
+tensors with tile indices rebased to the slice, after snapping the range
+to tile boundaries — so every destination tile is written by exactly one
+entry and the executor can merge with a plain tile-indexed copy
+whatever the gather mode.
+
+``pack_lanes`` builds the FUSED representation: all same-kind entries of
+a lane concatenated host-side into one payload (per-segment tile ids
+rebased to a global tile map, Big window ids rebased against the packed
+unique-source tables), uploaded in one shot. ``run_lane`` then runs a
+whole lane as ONE kernel launch instead of one per entry.
+
+Every payload carries ``tile_block_start`` (``n_out_tiles + 1`` int32):
+the first block of each output tile, which is how a kernel CTA finds the
+blocks of its tile.
+
+``default_path`` follows the device: ``"cuda"`` (the kernel) on a CUDA
+device, ``"ref"`` (the plain PyTorch version) on ``device="cpu"``.
+With no CUDA and no explicit device it raises.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core.types import BlockedEdges, Geometry
+from . import ref as ref_mod
+from .big_pipeline import big_pipeline
+from .little_pipeline import little_pipeline
+
+# payload keys that hold per-block / per-tile arrays and concatenate
+# along axis 0 when packing a lane
+_CONCAT_KEYS = ("src_local", "dst_local", "weights", "valid",
+                "window_id", "tile_id", "tile_first", "tile_idx")
+# payload keys uploaded to the device by _upload_payload
+_DEVICE_KEYS = _CONCAT_KEYS + ("unique_src", "tile_block_start")
+PATHS = ("cuda", "ref")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller
+    names another. Raises when CUDA is asked for (explicitly or by
+    default) and there is none — the port never falls back to the CPU
+    on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port's plain PyTorch path on the CPU")
+        if dev.index is None:       # one key per card for memoized state
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def default_path(device=None) -> str:
+    """``"cuda"`` on a CUDA device, ``"ref"`` on the CPU."""
+    return "cuda" if resolve_device(device).type == "cuda" else "ref"
+
+
+def snap_down(blocked: BlockedEdges, x: int) -> int:
+    """Largest tile boundary <= x (x == n_blocks allowed). Applying this
+    one rule to both endpoints keeps adjacent slices exactly abutting."""
+    n = blocked.n_blocks
+    x = max(0, min(x, n))
+    if x >= n:
+        return n
+    tf = blocked.tile_first
+    while x > 0 and tf[x] != 1:
+        x -= 1
+    return x
+
+
+def snap_to_tiles(blocked: BlockedEdges, lo: int, hi: int):
+    """Snap [lo, hi) to tile boundaries; may return an empty range, which
+    the executor drops (the work is covered by the neighbouring slice)."""
+    return snap_down(blocked, lo), snap_down(blocked, hi)
+
+
+def tile_block_start(tile_id: np.ndarray, n_out_tiles: int) -> np.ndarray:
+    """First block of each output tile, ``n_out_tiles + 1`` int32, from a
+    dense non-decreasing ``tile_id``: tile ``k`` owns blocks
+    ``[start[k], start[k + 1])``."""
+    return np.searchsorted(tile_id, np.arange(n_out_tiles + 1)).astype(
+        np.int32)
+
+
+def _entry_np(blocked: BlockedEdges, lo: int, hi: int) -> Optional[dict]:
+    """Host-side payload for one plan entry (tile-snapped). Returns None
+    when the snapped range is empty. ``unique_src`` stays a reference to
+    the work's shared compaction table so packing can deduplicate tables
+    across entries of the same Big work."""
+    lo, hi = snap_to_tiles(blocked, lo, hi)
+    if hi <= lo:
+        return None
+    t0 = int(blocked.tile_id[lo])
+    t1 = int(blocked.tile_id[hi - 1]) + 1
+    tf = blocked.tile_first[lo:hi].copy()
+    tf[0] = 1
+    tile_id = blocked.tile_id[lo:hi] - t0
+    return {
+        "kind": blocked.kind,
+        "geom": blocked.geom,
+        "n_out_tiles": t1 - t0,
+        "n_blocks": hi - lo,
+        "n_entries": 1,
+        "src_local": blocked.src_local[lo:hi],
+        "dst_local": blocked.dst_local[lo:hi],
+        "weights": blocked.weights[lo:hi],
+        "valid": blocked.valid[lo:hi].astype(np.int32),
+        "window_id": blocked.window_id[lo:hi],
+        "tile_id": tile_id,
+        "tile_first": tf,
+        "tile_idx": (blocked.tile_dst_start[t0:t1]
+                     // blocked.geom.T).astype(np.int32),
+        "unique_src": blocked.unique_src,
+        "num_real_edges": int(blocked.valid[lo:hi].sum()),
+        "tile_block_start": tile_block_start(tile_id, t1 - t0),
+    }
+
+
+def _upload_payload(p: dict, device) -> dict:
+    """Move a host payload's array fields to ``device`` as tensors."""
+    out = dict(p)
+    for k in _DEVICE_KEYS:
+        if out.get(k) is not None:
+            out[k] = torch.from_numpy(np.ascontiguousarray(out[k])).to(
+                device, copy=True)
+    return out
+
+
+def materialize_entry(blocked: BlockedEdges, lo: int, hi: int, device):
+    """Build the device payload for one plan entry (tile-snapped).
+    Returns None when the snapped range is empty."""
+    p = _entry_np(blocked, lo, hi)
+    return None if p is None else _upload_payload(p, device)
+
+
+def materialize_lanes(plan, little_works, big_works, device):
+    """Materialize every plan entry, preserving the plan's lane
+    structure. Empty (fully snapped-away) entries are dropped."""
+    lanes = []
+    for lane in plan.lanes:
+        mat = []
+        for e in lane:
+            work = (little_works[e.work_id] if e.kind == "little"
+                    else big_works[e.work_id])
+            p = materialize_entry(work, e.block_lo, e.block_hi, device)
+            if p is not None:
+                mat.append(p)
+        lanes.append(mat)
+    return lanes
+
+
+# ---------------------------------------------------------------------------
+# Packed (fused) lane payloads
+# ---------------------------------------------------------------------------
+
+def _pack_group(entries: List[dict]) -> dict:
+    """Concatenate same-kind host entry payloads into one packed payload.
+
+    Per-segment rebasing:
+      * ``tile_id`` shifts by the running tile count, so packed local
+        tile ids are strictly increasing across segments and the global
+        ``tile_idx`` map is a plain concatenation;
+      * Big ``window_id`` shifts by its work's offset in the packed
+        unique-source table (tables shared by split entries of the same
+        work are packed once); Little window ids index raw vprops
+        windows and need no rebase.
+    """
+    kind, geom = entries[0]["kind"], entries[0]["geom"]
+    tile_off = 0
+    win_parts, tid_parts = [], []
+    tables: List[np.ndarray] = []        # distinct tables, first-use order
+    table_off: dict = {}                 # id(table) -> window offset
+    n_windows = 0
+    for e in entries:
+        assert e["kind"] == kind and e["geom"] == geom
+        tid_parts.append(e["tile_id"] + tile_off)
+        tile_off += e["n_out_tiles"]
+        if kind == "big":
+            tab = e["unique_src"]
+            off = table_off.get(id(tab))
+            if off is None:
+                off = n_windows
+                table_off[id(tab)] = off
+                tables.append(tab)
+                n_windows += tab.shape[0] // geom.W
+            win_parts.append(e["window_id"] + off)
+        else:
+            win_parts.append(e["window_id"])
+    tile_id = np.concatenate(tid_parts).astype(np.int32)
+    packed = {
+        "kind": kind,
+        "geom": geom,
+        "n_out_tiles": tile_off,
+        "n_blocks": int(sum(e["n_blocks"] for e in entries)),
+        "n_entries": len(entries),
+        "segment_starts": np.cumsum(
+            [0] + [e["n_blocks"] for e in entries])[:-1].astype(np.int64),
+        "tile_id": tile_id,
+        "window_id": np.concatenate(win_parts).astype(np.int32),
+        "unique_src": (np.concatenate(tables) if kind == "big" else None),
+        "num_real_edges": int(sum(e["num_real_edges"] for e in entries)),
+        "tile_block_start": tile_block_start(tile_id, tile_off),
+    }
+    for k in ("src_local", "dst_local", "weights", "valid", "tile_first",
+              "tile_idx"):
+        packed[k] = np.concatenate([e[k] for e in entries])
+    _validate_packed(packed)
+    return packed
+
+
+def _validate_packed(p: dict) -> None:
+    """Pack-time invariants the kernel relies on (host numpy — zero
+    device cost). Violations mean a scheduling/packing bug, not bad user
+    input, hence asserts."""
+    starts = p["segment_starts"]
+    # every segment opens a fresh tile
+    assert np.all(p["tile_first"][starts] == 1), \
+        "packed segment does not start on a tile boundary"
+    # local tile ids are a 0..n_out_tiles-1 relabeling, non-decreasing
+    tid = p["tile_id"]
+    assert tid.shape[0] == 0 or (
+        tid[0] == 0 and np.all(np.diff(tid) >= 0)
+        and int(tid[-1]) + 1 == p["n_out_tiles"]), \
+        "packed tile ids are not a dense non-decreasing relabeling"
+    # tile k's blocks are exactly [start[k], start[k + 1])
+    tbs = p["tile_block_start"]
+    assert tbs[0] == 0 and tbs[-1] == p["n_blocks"] and np.all(
+        np.diff(tbs) > 0), "tile_block_start does not cover the blocks"
+    # entries write disjoint output tiles -> one tile-indexed copy is safe
+    idx = p["tile_idx"]
+    assert np.unique(idx).shape[0] == idx.shape[0], \
+        "packed entries write overlapping destination tiles"
+
+
+def estimate_working_set(entries: List[dict], geom: Geometry) -> int:
+    """Estimated working set, in bytes, of packing these same-kind host
+    entries into ONE payload: the full output-tile accumulator, the
+    gathered unique-source table (Big; distinct tables counted once,
+    matching :func:`_pack_group`'s dedup) or one source window (Little),
+    plus one edge-block slab."""
+    ws = geom.E_BLK * 16                     # src+dst+weights+valid slab
+    ws += sum(e["n_out_tiles"] for e in entries) * geom.T * 4
+    if entries and entries[0]["kind"] == "big":
+        seen, tot = set(), 0
+        for e in entries:
+            tab = e["unique_src"]
+            if id(tab) not in seen:
+                seen.add(id(tab))
+                tot += int(tab.shape[0])
+        ws += tot * 4
+    else:
+        ws += geom.W * 4
+    return int(ws)
+
+
+def _nbytes(x) -> int:
+    if x is None:
+        return 0
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return int(x.nbytes) if hasattr(x, "nbytes") else 0
+
+
+def payload_footprint(p: dict) -> dict:
+    """Byte/FLOP accounting of ONE (packed or single-entry) payload, by
+    traffic class, from the payload's actual arrays:
+
+    ``edge_bytes``     the streamed edge slab (src/dst/weights/valid)
+    ``index_bytes``    per-block routing metadata (window/tile ids,
+                       tile_first flags, tile_block_start, the global
+                       tile_idx map)
+    ``table_bytes``    the deduped unique-source compaction table (Big)
+    ``vertex_bytes``   property values the kernel reads: the gathered
+                       unique sources (Big) or the touched source
+                       windows (Little — W values per distinct window)
+    ``tile_bytes``     the merge traffic: output tiles plus tile_idx
+    ``flops``          the reference's one-hot gather (E·W) + router
+                       (E·T) MACs over padded edges, ×2
+    """
+    geom: Geometry = p["geom"]
+    nb = {k: _nbytes(p.get(k)) for k in _DEVICE_KEYS}
+    edge = nb["src_local"] + nb["dst_local"] + nb["weights"] + nb["valid"]
+    index = (nb["window_id"] + nb["tile_id"] + nb["tile_first"]
+             + nb["tile_idx"] + nb["tile_block_start"])
+    table = nb["unique_src"]
+    if p["kind"] == "big":
+        # vwin = vprops[unique_src]: one property per table slot
+        vertex = (int(p["unique_src"].shape[0]) * 4
+                  if p.get("unique_src") is not None else 0)
+    else:
+        wids = p["window_id"]
+        n_win = (int(torch.unique(wids).numel())
+                 if isinstance(wids, torch.Tensor)
+                 else int(np.unique(wids).shape[0]))
+        vertex = n_win * geom.W * 4
+    tiles = int(p["n_out_tiles"]) * geom.T * 4 + nb["tile_idx"]
+    padded_e = int(p["n_blocks"]) * geom.E_BLK
+    return {
+        "kind": p["kind"],
+        "edge_bytes": edge,
+        "index_bytes": index,
+        "table_bytes": table,
+        "vertex_bytes": vertex,
+        "tile_bytes": tiles,
+        "flops": 2 * padded_e * (geom.W + geom.T),
+        "padded_edges": padded_e,
+        "real_edges": int(p["num_real_edges"]),
+    }
+
+
+def _chunk_entries(entries: List[dict], geom: Geometry,
+                   budget: float) -> List[List[dict]]:
+    """Greedily split a same-kind entry list so each chunk's estimated
+    working set stays under ``budget`` bytes (0/negative = no limit).
+    Chunk boundaries fall on ENTRY boundaries, which are tile-snapped
+    already — each chunk is a valid packed payload and results stay
+    bit-identical; only the launch count changes."""
+    if budget <= 0 or not entries:
+        return [entries] if entries else []
+    chunks, cur = [], []
+    for e in entries:
+        if cur and estimate_working_set(cur + [e], geom) > budget:
+            chunks.append(cur)
+            cur = []
+        cur.append(e)
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def _pack_lane_np(lane, little_works, big_works,
+                  max_working_set: float = 0.0) -> List[dict]:
+    """Host-side packed payloads for one lane: at most one per kind,
+    more when ``max_working_set`` (bytes) forces chunking. Returns [] for
+    a fully snapped-away lane."""
+    groups = {"little": [], "big": []}
+    geom = None
+    for e in lane:
+        work = (little_works[e.work_id] if e.kind == "little"
+                else big_works[e.work_id])
+        geom = work.geom
+        p = _entry_np(work, e.block_lo, e.block_hi)
+        if p is not None:
+            groups[e.kind].append(p)
+    return [_pack_group(chunk)
+            for g in (groups["little"], groups["big"]) if g
+            for chunk in _chunk_entries(g, geom, max_working_set)]
+
+
+def pack_lanes_np(plan, little_works, big_works,
+                  max_working_set: float = 0.0) -> List[List[dict]]:
+    """Host-side packed payloads of every lane, checked for global tile
+    disjointness."""
+    host = [_pack_lane_np(lane, little_works, big_works, max_working_set)
+            for lane in plan.lanes]
+    idx = [p["tile_idx"] for lane in host for p in lane]
+    all_idx = np.concatenate(idx) if idx else np.zeros(0, np.int32)
+    assert np.unique(all_idx).shape[0] == all_idx.shape[0], \
+        "plan assigns the same destination tile to multiple lanes"
+    return host
+
+
+def pack_lanes(plan, little_works, big_works, device,
+               max_working_set: float = 0.0) -> List[List[dict]]:
+    """Fused counterpart of :func:`materialize_lanes`: one packed payload
+    per (lane, kind) instead of one payload per entry, uploaded to
+    ``device``. ``max_working_set`` (bytes; 0 = off) chunks a lane's
+    packed segments — bit-identical results, more launches."""
+    return [[_upload_payload(p, device) for p in lane]
+            for lane in pack_lanes_np(plan, little_works, big_works,
+                                      max_working_set)]
+
+
+def payload_nbytes(payload: dict) -> int:
+    """Device bytes pinned by one (entry or packed) payload."""
+    return sum(_nbytes(payload.get(k)) for k in _DEVICE_KEYS)
+
+
+# ---------------------------------------------------------------------------
+# Execution
+# ---------------------------------------------------------------------------
+
+def run_lane(packed: dict, vprops_padded, scatter_fn, mode: str,
+             path: Optional[str] = None, scatter_op: Optional[str] = None):
+    """Run one payload (a packed lane, or a single entry: the same
+    launch). ``path="cuda"`` goes through the kernel wrapper,
+    ``path="ref"`` through the plain version. Returns
+    ``(tiles (n_out_tiles, T), tile_idx (n_out_tiles,))``."""
+    path = path or default_path(vprops_padded.device)
+    if path == "ref":
+        geom: Geometry = packed["geom"]
+        if packed["kind"] == "big":
+            vwin = vprops_padded[packed["unique_src"]].view(-1, geom.W)
+        else:
+            vwin = vprops_padded.view(-1, geom.W)
+        tiles = ref_mod.gas_ref(
+            vwin, packed["src_local"], packed["dst_local"],
+            packed["weights"], packed["valid"], packed["window_id"],
+            packed["tile_id"], scatter_fn=scatter_fn, mode=mode, t=geom.T,
+            n_out_tiles=packed["n_out_tiles"])
+    elif path == "cuda":
+        pipeline = big_pipeline if packed["kind"] == "big" else \
+            little_pipeline
+        tiles = pipeline(vprops_padded, packed, scatter_op=scatter_op,
+                         mode=mode)
+    else:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    return tiles, packed["tile_idx"]
+
+
+def run_entry(entry: dict, vprops_padded, scatter_fn, mode: str,
+              path: Optional[str] = None, scatter_op: Optional[str] = None):
+    """Run one single-entry payload; the same launch as :func:`run_lane`
+    (a packed lane is a payload like any other)."""
+    return run_lane(entry, vprops_padded, scatter_fn, mode, path, scatter_op)
+
+
+def merge_tiles(accum_padded, tiles, tile_idx, t: int):
+    """Copy payload tiles into the global accumulator, in place. Tiles
+    are disjoint across payloads by construction (snap_to_tiles)."""
+    accum_padded.view(-1, t).index_copy_(0, tile_idx.to(torch.int64),
+                                         tiles.to(accum_padded.dtype))
+    return accum_padded
+
+
+def merge_all(accum_padded, outputs, t: int):
+    """Fused merge: one tile-indexed ``index_copy_`` over ALL payloads'
+    output tiles (``outputs`` is a list of (tiles, tile_idx) pairs,
+    globally tile-disjoint by construction)."""
+    if not outputs:
+        return accum_padded
+    tiles = torch.cat([o[0] for o in outputs])
+    idx = torch.cat([o[1] for o in outputs])
+    return merge_tiles(accum_padded, tiles, idx, t)

@@ -1,0 +1,66 @@
+"""Plain PyTorch versions of the GAS kernel.
+
+Each computes the same function as :mod:`.gas_kernel` from the same
+blocked inputs with stock tensor ops only (index gather +
+``scatter_reduce``). The CPU path and the tests run them; on the card
+they are the port's plain path and the yardstick the kernel is held
+against.
+
+torch has no bitwise-or reduction, so 'or' mode splits each int32 value
+into its 32 bits, takes a per-bit ``amax`` and packs the bits again —
+bit 31 included, because closeness masks are signed.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.gas import GATHER_IDENTITY
+
+_REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
+
+
+def _scatter_combine(idx, vals, size: int, mode: str):
+    """out[i] = combine over {vals[k] : idx[k] == i} (identity where no
+    k), for int64 ``idx`` in [0, size)."""
+    if mode == "or":
+        bits = torch.arange(32, device=vals.device, dtype=torch.int32)
+        per_bit = (vals[:, None] >> bits) & 1                  # (n, 32)
+        acc = torch.zeros((size, 32), dtype=torch.int32, device=vals.device)
+        acc.scatter_reduce_(0, idx[:, None].expand(-1, 32), per_bit,
+                            reduce="amax", include_self=True)
+        packed = (acc.to(torch.int64) << bits.to(torch.int64)).sum(dim=1)
+        # [0, 2**32) -> signed int32 two's complement
+        packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
+        return packed.to(torch.int32)
+    if mode not in _REDUCE:
+        raise ValueError(mode)
+    out = torch.full((size,), float(GATHER_IDENTITY[mode]), dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_reduce_(0, idx, vals, reduce=_REDUCE[mode],
+                               include_self=True)
+
+
+def gas_ref(vwin, src_local, dst_local, weights, valid, window_id, tile_id,
+            *, scatter_fn, mode, t, n_out_tiles):
+    """Plain version of the GAS kernel: for every edge of every block,
+    gather ``vwin[window_id[b], src_local[b, e]]``, apply ``scatter_fn``
+    with the edge weight and combine into tile ``tile_id[b]`` at slot
+    ``dst_local[b, e]``. Pads (``valid == 0``) are dropped. Returns
+    ``(n_out_tiles, t)`` in vwin's dtype."""
+    w = vwin.shape[1]
+    keep = valid != 0
+    src = window_id.to(torch.int64)[:, None] * w + src_local
+    props = vwin.reshape(-1)[src[keep]]
+    vals = scatter_fn(props, weights[keep]).to(vwin.dtype)
+    flat = (tile_id.to(torch.int64)[:, None] * t + dst_local)[keep]
+    return _scatter_combine(flat, vals, n_out_tiles * t,
+                            mode).reshape(n_out_tiles, t)
+
+
+def edge_ref(graph_src, graph_dst, graph_w, vprops, scatter_fn, mode,
+             num_vertices):
+    """Ground truth straight from the edge list (no blocking) — the
+    end-to-end oracle."""
+    vals = scatter_fn(vprops[graph_src], graph_w).to(vprops.dtype)
+    return _scatter_combine(graph_dst.to(torch.int64), vals, num_vertices,
+                            mode)

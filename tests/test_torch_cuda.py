@@ -1,0 +1,117 @@
+"""Card-only tests of the port: the CUDA GAS kernel against its plain
+version, its launch count, its refusals, and the main path on the card.
+They import neither JAX nor the reference package, so they also run on
+a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each skips, with its reason, where torch finds no CUDA device."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.core import partition as part
+from repro_torch.core.gas import SCATTER_OPS
+from repro_torch.core.types import Geometry
+from repro_torch.graphs.rmat import rmat
+from repro_torch.kernels import gas_kernel, ops
+
+GEOM = Geometry(U=512, W=512, T=512, E_BLK=128, big_batch=2)
+MODE_OPS = [("sum", "copy"), ("sum", "add_weight"), ("min", "copy"),
+            ("min", "add_weight"), ("max", "copy"), ("max", "add_weight"),
+            ("or", "copy")]
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the GAS kernel has no CPU build")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _payload(kind, device, seed=3):
+    g = rmat(10, 8, seed=seed, weighted=True)
+    infos, edges = part.partition_graph(g, GEOM)
+    infos = [i for i in infos if i.num_edges > 0]
+    work = (part.block_little(edges, infos[0], GEOM) if kind == "little"
+            else part.block_big(edges, infos[:2], GEOM))
+    mid = work.n_blocks // 2
+    entries = [e for e in (ops._entry_np(work, 0, mid),
+                           ops._entry_np(work, mid, work.n_blocks)) if e]
+    packed = ops._pack_group(entries)
+    V_pad = part.padded_num_vertices(g.num_vertices, GEOM)
+    return ops._upload_payload(packed, device), V_pad
+
+
+def _props(mode, n, device):
+    rs = np.random.RandomState(7)
+    if mode == "or":
+        x = rs.randint(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+    elif mode == "sum":
+        x = rs.rand(n).astype(np.float32)
+    else:
+        x = (rs.randn(n) * 4).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("kind", ["little", "big"])
+@pytest.mark.parametrize("mode,op", MODE_OPS)
+def test_kernel_matches_plain_and_is_bit_stable(mode, op, kind, device):
+    p, V_pad = _payload(kind, device)
+    vp = _props(mode, V_pad, device)
+    fn = SCATTER_OPS[op]
+    before = gas_kernel.gas_tiles.launches
+    k1, _ = ops.run_lane(p, vp, fn, mode, "cuda", op)
+    k2, _ = ops.run_lane(p, vp, fn, mode, "cuda", op)
+    plain, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
+    torch.cuda.synchronize()
+    assert gas_kernel.gas_tiles.launches == before + 2
+    assert torch.equal(k1, k2)
+    if mode == "sum":
+        torch.testing.assert_close(k1, plain, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(k1, plain)
+
+
+def test_kernel_refuses_unnamed_scatter_op(device):
+    p, V_pad = _payload("little", device)
+    vp = _props("sum", V_pad, device)
+    with pytest.raises(NotImplementedError, match="scatter op"):
+        ops.run_lane(p, vp, lambda x, w: x * 2 + w, "sum", "cuda", None)
+    with pytest.raises(NotImplementedError, match="scatter op"):
+        ops.run_lane(p, _props("or", V_pad, device), SCATTER_OPS["add_weight"],
+                     "or", "cuda", "add_weight")
+
+
+def test_kernel_refuses_wrong_dtype(device):
+    p, V_pad = _payload("little", device)
+    with pytest.raises(ValueError, match="vwin"):
+        ops.run_lane(p, _props("sum", V_pad, device).double(),
+                     SCATTER_OPS["copy"], "sum", "cuda", "copy")
+
+
+@pytest.mark.parametrize("app", ["pagerank", "bfs", "sssp", "wcc",
+                                 "closeness"])
+def test_main_path_on_card_matches_plain_path(app, device):
+    g = rmat(11, 8, seed=5, weighted=True)
+    store = api.GraphStore(g, geom=GEOM)
+    kernel = api.compile(None, app, store=store, n_lanes=4)
+    assert kernel.executor.device == device and kernel.executor.path == "cuda"
+    plain = api.compile(None, app, store=store, n_lanes=4, path="ref")
+    entry = api.compile(None, app, store=store, n_lanes=4, fuse_lanes=False)
+    gas_kernel.gas_tiles.launches = 0
+    a, ma = kernel.run()
+    assert gas_kernel.gas_tiles.launches == \
+        ma["iterations"] * kernel.stats()["kernel_dispatches"]
+    b, mb = plain.run()
+    c, mc = entry.run()
+    assert ma["iterations"] == mc["iterations"] and np.array_equal(a, c)
+    if app == "pagerank":
+        assert abs(ma["iterations"] - mb["iterations"]) <= 1
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+    else:
+        assert ma["iterations"] == mb["iterations"]
+        assert np.array_equal(a, b)
