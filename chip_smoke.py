@@ -7,14 +7,21 @@ and check it; the quickest proof that the port still starts on the card.
 Phases (any failed check exits non-zero before the last line):
 
 1. Device and build: the card's name and power limit, then the GAS
-   kernel built from ``src/repro_torch/kernels/csrc/gas_kernel.cu``.
+   kernel built from ``src/repro_torch/kernels/csrc/gas_kernel.cu``, once
+   for each chunk size of the sweep that chose ``CHUNK_BLOCKS`` (one
+   ``nvcc`` each, all started together).
 2. Kernel vs plain version on the card, on inputs made from a numpy seed:
    every gather mode (sum, min, max, or) and scatter op, both input forms
    (Little, Big), both launch forms (per entry, packed lane), at the
-   geometries (E_BLK, W, T) of the reference's kernel sweep. min, max and
-   or must match exactly; sum within rtol 1e-5 / atol 1e-5 (the plain
-   version's ``scatter_reduce`` adds in another order). A second kernel
-   run must be bit-equal to the first.
+   geometries (E_BLK, W, T) of the reference's kernel sweep, and a heavy
+   tile of 10 * CHUNK_BLOCKS + 7 blocks, half of its edges to one hub
+   slot, with scattered pads. min, max and or must match exactly; sum
+   within the worst-case in-order fp32 summation error of the exact
+   (fp64) sum, and on the graph payloads also within rtol 1e-5 / atol
+   1e-5 of the plain version (whose ``scatter_reduce`` adds in another
+   order). A second kernel run must be bit-equal to the first, and the
+   heavy tile's tiles launched one by one bit-equal to the packed
+   launch.
 3. Main path: ``rmat(19, 56, seed=23)`` (graph500 shape, 524,288
    vertices) with the default Geometry and ``PlanConfig(n_lanes=8)``,
    which must plan both Little and Big lanes. PageRank and BFS run
@@ -25,12 +32,17 @@ Phases (any failed check exits non-zero before the last line):
    gather is held against the edge-list oracle ``edge_ref`` (rtol 1e-4:
    it sums unblocked edges with atomics, in no fixed order). The
    kernel's launch count must show the main path went through it.
-4. One ``kernels`` JSON line: per kernel its launches on the main path,
-   error against the plain version (the kernel must lie within the
-   worst-case in-order fp32 summation error of the exact fp64 sum), its
-   time, the plain version's time, one ``scatter_reduce`` over
-   pre-gathered values (``library_ms``) and the least time the card
-   could take (``bound_ms``), all at the main path's shapes.
+4. Measurements at the main path's shapes. The kernel's 8 PageRank
+   launches with each chunk size of the sweep (each held within the fp32
+   summation error of the exact sum), per launch its time, CTAs and real
+   edges, the per-entry form (``fuse_lanes=False``: its launches, time
+   and bound, and its gather bit-equal to the fused one), and one
+   PageRank iteration split into Big gathers, GAS launches, merge,
+   Apply and the convergence test with CUDA events. Then one ``kernels``
+   JSON line: per kernel its launches on the main path, error against
+   the plain version, its time, the plain version's time, one
+   ``scatter_reduce`` over pre-gathered values (``library_ms``) and the
+   least time the card could take (``bound_ms``).
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -42,6 +54,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
@@ -56,6 +69,7 @@ GEOMETRIES = [(128, 512, 512), (256, 512, 512), (128, 1024, 512),
 MODE_OPS = [("sum", "copy"), ("sum", "add_weight"), ("min", "copy"),
             ("min", "add_weight"), ("max", "copy"), ("max", "add_weight"),
             ("or", "copy")]
+CHUNK_SWEEP = (16, 32, 64)        # the chunk sizes CHUNK_BLOCKS is chosen from
 
 
 class CheckFailed(Exception):
@@ -79,20 +93,48 @@ def card_line() -> str:
     return out[0].strip()
 
 
+HOST_AHEAD_CYCLES = int(1e8)      # ~50 ms of device spin before a timing
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of ``fn()`` over ``reps`` runs (CUDA
-    events, after one warm-up run)."""
+    events, after one warm-up run). The card first spins for
+    ``HOST_AHEAD_CYCLES``, so the host has queued every launch before
+    the first event: the time is the device's, not the host's rate of
+    issuing launches."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def fp32_sum_share(got, plain64) -> float:
+    """How much of the worst-case error of an in-order fp32 sum ``got``
+    uses, slot by slot, against the exact sum (largest share; a tree of
+    the same terms errs less). Two correct fp32 sums of a slot's n terms
+    in different orders differ by up to ~(n - 1) * 2**-24 of the sum,
+    far above any fixed rtol at large in-degrees, hence this check:
+        |got - exact| <= gamma(n - 1) * sum|terms|,
+        gamma(m) = m u / (1 - m u),  u = 2**-24.
+    ``plain64(f)`` is the plain version's fp64 sum of ``f`` over each
+    slot's terms (the scattered values, rounded to fp32 as the kernel
+    rounds them)."""
+    import torch
+    mu = (plain64(torch.ones_like) - 1).clamp_min(0) * 2.0 ** -24
+    allowed = mu / (1 - mu) * plain64(torch.abs)
+    gap = (got.double() - plain64(lambda v: v)).abs()
+    check(bool((gap <= allowed).all()),
+          f"off the exact sum by {float(gap.max())}, beyond fp32 summation "
+          "error")
+    return float((gap / allowed.clamp_min(1e-300)).max())
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +171,95 @@ def _host_payloads(geom, seed: int):
         parts.append(ops._entry_np(works[1], 0, works[1].n_blocks))
         out.append((kind, "packed", ops._pack_group(parts)))
     return graph.num_vertices, out
+
+
+def _heavy_tile(geom, device, rng):
+    """Kernel arguments of three tiles, the first of 10 * CHUNK_BLOCKS + 7
+    blocks: half of its edges go to one hub slot, and a quarter of all
+    slots are pads scattered through the blocks (not a prefix)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import gas_kernel
+
+    c, n_win = gas_kernel.CHUNK_BLOCKS, 4
+    sizes = [10 * c + 7, 3, c + 1]
+    tile_id = np.repeat(np.arange(3), sizes).astype(np.int32)
+    shape = (tile_id.shape[0], geom.E_BLK)
+    dst = rng.integers(0, geom.T, shape)
+    dst[(rng.random(shape) < 0.5) & (tile_id[:, None] == 0)] = 17
+    arrays = {
+        "src_local": rng.integers(0, geom.W, shape),
+        "dst_local": dst,
+        "weights": rng.random(shape, dtype=np.float32),
+        "valid": rng.random(shape) >= 0.25,
+        "window_id": rng.integers(0, n_win, shape[0]),
+        "tile_id": tile_id,
+    }
+    return {k: torch.from_numpy(v.astype(
+        np.float32 if k == "weights" else np.int32)).to(device)
+        for k, v in arrays.items()}, sizes, n_win
+
+
+def _launch_blocks(a, vwin, geom, mode, op, lo=0, hi=None):
+    """The kernel on blocks [lo, hi) of ``a`` (whole tiles)."""
+    import torch
+    from repro_torch.kernels import gas_kernel, ops
+
+    tid = a["tile_id"][lo:hi].cpu().numpy()
+    tid = tid - tid[0]
+    tbs = ops.tile_block_start(tid, int(tid[-1]) + 1)
+    index = [torch.from_numpy(x).to(vwin.device)
+             for x in (tbs, ops.tile_chunk_start(tbs))]
+    return gas_kernel.gas_tiles(
+        vwin, *(a[k][lo:hi] for k in ("src_local", "dst_local", "weights",
+                                      "valid", "window_id")),
+        *index, scatter_op=op, mode=mode, t=geom.T)
+
+
+def phase_heavy_tile(device, seed: int) -> dict:
+    """The heavy tile in every mode/op pair: kernel == plain, bit-stable,
+    and packed == its tiles launched one by one."""
+    import numpy as np
+    import torch
+    from repro_torch.core.gas import SCATTER_OPS
+    from repro_torch.core.types import Geometry
+    from repro_torch.kernels import ref
+
+    geom = Geometry()
+    rng = np.random.default_rng(seed)
+    a, sizes, n_win = _heavy_tile(geom, device, rng)
+    n = n_win * geom.W
+    props = {"sum": rng.random(n, dtype=np.float32),
+             "min": rng.standard_normal(n).astype(np.float32) * 4,
+             "or": rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)}
+    starts = np.cumsum([0] + sizes)
+    share = 0.0
+    for mode, op in MODE_OPS:
+        vwin = torch.from_numpy(props.get(mode, props["min"])).to(
+            device).view(n_win, geom.W)
+        k1 = _launch_blocks(a, vwin, geom, mode, op)
+        k2 = _launch_blocks(a, vwin, geom, mode, op)
+
+        def plain(v, scatter_fn=SCATTER_OPS[op]):
+            return ref.gas_ref(v, a["src_local"], a["dst_local"],
+                               a["weights"], a["valid"], a["window_id"],
+                               a["tile_id"], scatter_fn=scatter_fn,
+                               mode=mode, t=geom.T, n_out_tiles=len(sizes))
+        torch.cuda.synchronize()
+        case = f"heavy tile ({sizes[0]} blocks) {mode}/{op}"
+        check(torch.equal(k1, k2), f"kernel not bit-stable: {case}")
+        if mode == "sum":
+            share = max(share, fp32_sum_share(k1, lambda f: plain(
+                vwin.double(), lambda x, wt: f(
+                    SCATTER_OPS[op](x.float(), wt).double()))))
+        else:
+            check(torch.equal(k1, plain(vwin)), f"kernel != plain: {case}")
+        for k, (lo, hi) in enumerate(zip(starts[:-1], starts[1:])):
+            check(torch.equal(k1[k], _launch_blocks(
+                a, vwin, geom, mode, op, lo, hi)[0]),
+                f"packed != per-entry tile {k}: {case}")
+    return {"cases": len(MODE_OPS), "blocks": sizes,
+            "sum_fp32_bound_used": share}
 
 
 def phase_kernel_vs_plain(device, seed: int) -> dict:
@@ -171,6 +302,9 @@ def phase_kernel_vs_plain(device, seed: int) -> dict:
                     worst_sum = max(worst_sum, err)
                     check(torch.allclose(k1, ref, rtol=1e-5, atol=1e-5),
                           f"kernel != plain (max abs err {err}): {case}")
+                    fp32_sum_share(k1, lambda f: ops.run_lane(
+                        p, vp.double(), lambda x, wt: f(fn(
+                            x.float(), wt).double()), mode, "ref", op)[0])
                 else:
                     check(torch.equal(k1, ref), f"kernel != plain: {case}")
                 n_cases += 1
@@ -303,11 +437,12 @@ def phase_main_path(device, scale=SCALE, edge_factor=EDGE_FACTOR, seed=SEED,
         "bfs_plain": bfs_r.time_iteration(reps) * 1e3,
     }
     res["_store"], res["_payloads"], res["_vprops"] = store, payloads, vprops
+    res["_pr"], res["_config"] = pr_k, config
     return res
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the kernels line
+# Phase 4: measurements and the kernels line
 # ---------------------------------------------------------------------------
 
 def _kernel_traffic(vwin, p, geom, scatter_op: str):
@@ -332,68 +467,98 @@ def _kernel_traffic(vwin, p, geom, scatter_op: str):
     return nbytes, n_ops
 
 
+def _bound_ms(calls, geom) -> tuple:
+    """(bound ms, what bounds it, bytes) of the sum/copy launches."""
+    nbytes = n_ops = 0
+    for vwin, p in calls:
+        b, o = _kernel_traffic(vwin, p, geom, "copy")
+        nbytes, n_ops = nbytes + b, n_ops + o
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = n_ops / H100_FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def _calls(payloads, vprops, geom):
+    """(vwin, payload) per launch: the Big gathers done beforehand."""
+    return [((vprops[p["unique_src"]] if p["kind"] == "big" else vprops)
+             .view(-1, geom.W), p) for p in payloads]
+
+
+def _pagerank_launch(vwin, p, geom, tcs=None, chunk_blocks=None):
+    from repro_torch.kernels import gas_kernel
+    from repro_torch.kernels.little_pipeline import _blocked
+
+    arrays = _blocked(p)
+    if tcs is not None:
+        arrays = arrays[:-1] + (tcs,)
+    return gas_kernel.gas_tiles(
+        vwin, *arrays, scatter_op="copy", mode="sum", t=geom.T,
+        chunk_blocks=chunk_blocks or gas_kernel.CHUNK_BLOCKS)
+
+
+def _pagerank_plain(vwin, p, geom, f=lambda x: x):
+    """The plain version of a PageRank launch, summing ``f`` of each
+    term."""
+    from repro_torch.kernels import ref
+
+    return ref.gas_ref(vwin, p["src_local"], p["dst_local"], p["weights"],
+                       p["valid"], p["window_id"], p["tile_id"],
+                       scatter_fn=lambda x, w: f(x), mode="sum", t=geom.T,
+                       n_out_tiles=p["n_out_tiles"])
+
+
 def phase_kernel_line(main_res: dict, device, reps: int = REPS):
     """Times the GAS kernel on the main path's 8 payloads (PageRank, sum
-    mode, one iteration's worth of launches) beside the plain version,
-    one library ``scatter_reduce`` and the bound."""
+    mode, one iteration's worth of launches) at each chunk size of the
+    sweep, beside the plain version, one library ``scatter_reduce`` and
+    the bound; then each launch alone."""
     import torch
-    from repro_torch.core.gas import SCATTER_OPS
-    from repro_torch.kernels import gas_kernel, ref
-    from repro_torch.kernels.little_pipeline import _blocked
+    from repro_torch.kernels import gas_kernel
 
     store, payloads, vprops = (main_res["_store"], main_res["_payloads"],
                                main_res["_vprops"])
     geom = store.geom
-    calls = []                 # (vwin, payload) per launch
-    for p in payloads:
-        vwin = (vprops[p["unique_src"]] if p["kind"] == "big"
-                else vprops).view(-1, geom.W)
-        calls.append((vwin, p))
+    calls = _calls(payloads, vprops, geom)
 
-    def launch(vwin, p):
-        return gas_kernel.gas_tiles(vwin, *_blocked(p), scatter_op="copy",
-                                    mode="sum", t=geom.T)
-
-    def run_kernel():
-        return [launch(vwin, p) for vwin, p in calls]
-
-    def plain(vwin, p):
-        return ref.gas_ref(vwin, p["src_local"], p["dst_local"],
-                           p["weights"], p["valid"], p["window_id"],
-                           p["tile_id"], scatter_fn=SCATTER_OPS["copy"],
-                           mode="sum", t=geom.T, n_out_tiles=p["n_out_tiles"])
+    def plain(vwin, p, f=lambda x: x):
+        return _pagerank_plain(vwin, p, geom, f)
 
     def run_plain():
         return [plain(vwin, p) for vwin, p in calls]
 
-    kernel_out, plain_out = run_kernel(), run_plain()
+    # each chunk size of the sweep, in turns (forward, then backward),
+    # every launch within fp32 summation error of the exact sum
+    tbs_host = [p["tile_block_start"].cpu().numpy() for _, p in calls]
+    exact = [(lambda f, v=vwin, q=p: plain(v.double(), q, f))
+             for vwin, p in calls]
+    sweep, kernel_out, share = {}, None, 0.0
+    for c in CHUNK_SWEEP:
+        tcs = [torch.from_numpy(gas_kernel.tile_chunk_start(t, c)).to(device)
+               for t in tbs_host]
+        run = (lambda c=c, tcs=tcs: [
+            _pagerank_launch(vwin, p, geom, tc, c)
+            for (vwin, p), tc in zip(calls, tcs)])
+        out = run()
+        for k, plain64 in zip(out, exact):
+            share = max(share, fp32_sum_share(k, plain64))
+        if c == gas_kernel.CHUNK_BLOCKS:
+            kernel_out = out
+        sweep[c] = {"run": run, "ms": [],
+                    "ctas": sum(int(tc[-1]) for tc in tcs)}
+    for c in list(CHUNK_SWEEP) + list(reversed(CHUNK_SWEEP)):
+        sweep[c]["ms"].append(cuda_ms(sweep[c]["run"], reps))
+    chunk_sweep = {c: {"ms": sum(v["ms"]) / len(v["ms"]), "ctas": v["ctas"]}
+                   for c, v in sweep.items()}
+    kernel_ms = chunk_sweep[gas_kernel.CHUNK_BLOCKS]["ms"]
+    plain_out = run_plain()
     err = max(float((k - r).abs().max())
               for k, r in zip(kernel_out, plain_out))
     rel = max(_max_rel(k.cpu(), r.cpu())
               for k, r in zip(kernel_out, plain_out))
-    # Two correct fp32 sums of a slot's n terms in different orders differ
-    # by up to ~(n - 1) * 2**-24 of the sum, which at this graph's
-    # in-degrees is far above any fixed rtol. So the kernel is held
-    # against the exact (fp64) sum within the worst-case error of an
-    # in-order fp32 sum, slot by slot:
-    #     |kernel - exact| <= gamma(n - 1) * sum|terms|,
-    #     gamma(m) = m u / (1 - m u),  u = 2**-24.
-    bound_used = 0.0
-    for (vwin, p), k in zip(calls, kernel_out):
-        v64 = vwin.double()
-        exact = plain(v64, p)
-        mu = (plain(torch.ones_like(v64), p) - 1).clamp_min(0) * 2.0 ** -24
-        allowed = mu / (1 - mu) * plain(v64.abs(), p)
-        gap = (k.double() - exact).abs()
-        check(bool((gap <= allowed).all()),
-              f"phase 4: {p['kind']} launch off the exact sum by "
-              f"{float(gap.max())}, beyond fp32 summation error")
-        bound_used = max(bound_used, float(
-            (gap / allowed.clamp_min(1e-300)).max()))
-    kernel_ms = cuda_ms(run_kernel, reps)
     plain_ms = cuda_ms(run_plain, reps)
-    # where the kernel's time goes: each launch beside the block count of
-    # its heaviest tile (one CTA walks a tile's blocks in order)
+
+    # each launch alone: its time beside its CTAs and real edges
     per_payload = []
     for vwin, p in calls:
         blocks = torch.diff(p["tile_block_start"]).cpu()
@@ -401,7 +566,10 @@ def phase_kernel_line(main_res: dict, device, reps: int = REPS):
             "kind": p["kind"], "n_blocks": p["n_blocks"],
             "n_out_tiles": p["n_out_tiles"],
             "max_tile_blocks": int(blocks.max()),
-            "ms": cuda_ms(lambda: launch(vwin, p), reps)})
+            "ctas": int(p["tile_chunk_start"][-1]),
+            "grid": gas_kernel.max_chunks(p["n_blocks"], p["n_out_tiles"]),
+            "real_edges": int(p["num_real_edges"]),
+            "ms": cuda_ms(lambda: _pagerank_launch(vwin, p, geom), reps)})
 
     # the library yardstick: one scatter_reduce of the pre-gathered,
     # pad-free values into the padded vertex vector
@@ -420,12 +588,7 @@ def phase_kernel_line(main_res: dict, device, reps: int = REPS):
     library_ms = cuda_ms(lambda: out.zero_().scatter_reduce_(
         0, idx, vals, reduce="sum", include_self=True), reps)
 
-    nbytes = n_ops = 0
-    for vwin, p in calls:
-        b, o = _kernel_traffic(vwin, p, geom, "copy")
-        nbytes, n_ops = nbytes + b, n_ops + o
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = n_ops / H100_FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by, nbytes = _bound_ms(calls, geom)
     return {
         "name": "gas_tile_kernel",
         "route": "cuda",
@@ -435,17 +598,115 @@ def phase_kernel_line(main_res: dict, device, reps: int = REPS):
         "launches": main_res["launches"],
         "max_abs_err": err,
         "max_rel_err": rel,
-        "fp32_sum_bound_used": bound_used,
+        "fp32_sum_bound_used": share,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
         "bound_bytes": nbytes,
+        "chunk_blocks": gas_kernel.CHUNK_BLOCKS,
+        "ctas": chunk_sweep[gas_kernel.CHUNK_BLOCKS]["ctas"],
+        "chunk_sweep": chunk_sweep,
         "shapes": "PageRank sum/copy, one iteration's launches "
                   f"({len(payloads)} payloads)",
     }, per_payload
+
+
+def phase_per_entry(main_res: dict, device, reps: int = REPS) -> dict:
+    """The per-entry form (``fuse_lanes=False``) at the smoke graph: its
+    launches per iteration, their time, the plain version's time on the
+    same entries and the bound, its iteration time, and one gather
+    bit-equal to the fused form's. (The library yardstick is the one of
+    the packed form: the same edges into the same vector.)"""
+    import torch
+    from repro_torch import api
+
+    store, vprops = main_res["_store"], main_res["_vprops"]
+    geom = store.geom
+    pr_e = api.compile(None, "pagerank", store=store,
+                       config=main_res["_config"], device=device,
+                       fuse_lanes=False)
+    entries = [p for lane in pr_e.executor.lanes for p in lane]
+    check(torch.equal(pr_e.executor.gather(vprops),
+                      main_res["_pr"].executor.gather(vprops)),
+          "per-entry gather != fused gather")
+    calls = _calls(entries, vprops, geom)
+    bound_ms, bound_by, nbytes = _bound_ms(calls, geom)
+    return {
+        "launches_per_iteration": len(entries),
+        "kernel_ms": cuda_ms(lambda: [_pagerank_launch(vwin, p, geom)
+                                      for vwin, p in calls], reps),
+        "plain_ms": cuda_ms(lambda: [_pagerank_plain(vwin, p, geom)
+                                     for vwin, p in calls], reps),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+        "ctas": sum(int(p["tile_chunk_start"][-1]) for p in entries),
+        "iteration_ms": pr_e.time_iteration(reps) * 1e3,
+    }
+
+
+def phase_breakdown(main_res: dict, device, reps: int = REPS) -> dict:
+    """One PageRank iteration split into its steps: the Big gathers, the
+    GAS launches, the merge (identity fill + ``merge_all``), Apply and
+    the convergence test (its reduction and the host's read of the
+    result). Device ms from CUDA events with the host queued ahead (as
+    in :func:`cuda_ms`). Host ms from the host clock: the time to issue
+    the steps before the convergence test, and the whole iteration to
+    the end of the convergence test, which waits for the device. Means
+    of ``reps`` after a warm-up. The steps are the executor's own, run
+    one by one; their result must equal ``Executor.iteration`` bit for
+    bit."""
+    import time as _time
+
+    import torch
+    from repro_torch.core.gas import GATHER_IDENTITY
+    from repro_torch.kernels import ops
+
+    ex = main_res["_pr"].executor
+    app, geom, vprops = ex.app, ex.geom, ex.init_props()
+
+    def steps(mark):
+        calls = _calls(main_res["_payloads"], vprops, geom)
+        mark()
+        outs = [(_pagerank_launch(vwin, p, geom), p["tile_idx"])
+                for vwin, p in calls]
+        mark()
+        accum = torch.full((ex.V_pad,), float(GATHER_IDENTITY[app.gather]),
+                           dtype=ex.accum_dtype, device=device)
+        accum = ops.merge_all(accum, outs, geom.T)
+        mark()
+        new = app.apply(accum, vprops, ex.aux, 0)
+        mark()
+        app.converged(vprops, new, 0)
+        mark()
+        return new
+
+    host_ms = {"issue": 0.0, "iteration": 0.0}
+    for r in range(reps + 1):
+        clock = []
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        steps(lambda: clock.append(_time.perf_counter()))
+        if r:
+            host_ms["issue"] += (clock[3] - t0) * 1e3 / reps
+            host_ms["iteration"] += (clock[4] - t0) * 1e3 / reps
+    names = ("big_gathers", "gas_launches", "merge", "apply", "converged")
+    dev_ms = dict.fromkeys(names, 0.0)
+    for r in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
+        ev[0].record()
+        marks = iter(ev[1:])
+        new = steps(lambda: next(marks).record())
+        torch.cuda.synchronize()
+        if r:
+            for i, name in enumerate(names):
+                dev_ms[name] += ev[i].elapsed_time(ev[i + 1]) / reps
+    check(torch.equal(new, ex.iteration(vprops, 0)),
+          "breakdown's steps != Executor.iteration")
+    return {"device_ms": dev_ms, "host_ms": host_ms}
 
 
 def main(argv=None) -> int:
@@ -475,19 +736,29 @@ def main(argv=None) -> int:
         log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}")
         t0 = time.perf_counter()
-        gas_kernel.build()
+        with ThreadPoolExecutor(len(CHUNK_SWEEP)) as pool:
+            libs = list(pool.map(lambda c: _build.build(
+                "gas_kernel", GAS_CHUNK_BLOCKS=c), CHUNK_SWEEP))
+        for c in CHUNK_SWEEP:
+            gas_kernel.build(c)
         result["build_s"] = time.perf_counter() - t0
-        log(f"phase 1: built gas_kernel in {result['build_s']:.1f} s")
+        log(f"phase 1: built gas_kernel for chunks of {CHUNK_SWEEP} blocks "
+            f"in {result['build_s']:.1f} s")
+        main_lib = libs[CHUNK_SWEEP.index(gas_kernel.CHUNK_BLOCKS)].name
         ptxas = sorted({line.split(":", 1)[-1].strip() for line in
-                        _build.build_log.get("gas_kernel", "").splitlines()
+                        _build.build_log.get(main_lib, "").splitlines()
                         if "registers" in line or "spill" in line})
-        log("phase 1: ptxas, all 7 instantiations: " + "; ".join(ptxas))
+        log("phase 1: ptxas, both kernels x 7 instantiations: "
+            + "; ".join(ptxas))
 
         t0 = time.perf_counter()
         result["kernel_vs_plain"] = phase_kernel_vs_plain(device, SEED)
+        result["heavy_tile"] = phase_heavy_tile(device, SEED)
         log(f"phase 2: kernel == plain version in "
-            f"{result['kernel_vs_plain']['cases']} cases "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"{result['kernel_vs_plain']['cases']} graph-payload cases and "
+            f"{result['heavy_tile']['cases']} heavy-tile cases "
+            f"({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(result["heavy_tile"]))
 
         t0 = time.perf_counter()
         main_res = phase_main_path(device)
@@ -496,10 +767,18 @@ def main(argv=None) -> int:
                           if not k.startswith("_")}))
         kernel, per_payload = phase_kernel_line(main_res, device)
         result["per_payload"] = per_payload
+        log("phase 4: chunk sweep (chunk blocks: ms of the 8 launches, "
+            "CTAs): " + "; ".join(
+                f"{c}: {v['ms']:.4f} ms, {v['ctas']}"
+                for c, v in kernel["chunk_sweep"].items()))
         log("phase 4: per launch (kind, blocks, tiles, heaviest tile's "
-            "blocks, ms): " + "; ".join(
+            "blocks, CTAs, real edges, ms): " + "; ".join(
                 f"{q['kind']} {q['n_blocks']} {q['n_out_tiles']} "
-                f"{q['max_tile_blocks']} {q['ms']:.3f}" for q in per_payload))
+                f"{q['max_tile_blocks']} {q['ctas']} {q['real_edges']} "
+                f"{q['ms']:.4f}" for q in per_payload))
+        result["per_entry"] = phase_per_entry(main_res, device)
+        log("phase 4: per-entry form: " + json.dumps(result["per_entry"]))
+        result["breakdown"] = phase_breakdown(main_res, device)
         result["main_path"] = {k: v for k, v in main_res.items()
                                if not k.startswith("_")}
     except CheckFailed as exc:
@@ -511,6 +790,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
+    log("PageRank iteration breakdown: " + json.dumps(result["breakdown"]))
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": result["kernels"]}))
     log(json.dumps({"ok": True, "device": {

@@ -8,68 +8,111 @@ for ``sm_90a``, built at first use by :mod:`._build` and bound with
 
 What it computes: for every E_BLK-edge block ``b`` and edge ``e``, gather
 ``vwin[window_id[b], src_local[b, e]]``, apply the scatter op with the
-edge weight, and combine into slot ``dst_local[b, e]`` of output tile
-``tile_id[b]`` in mode sum, min, max (float32) or or (int32). Pads
-(``valid == 0``) contribute the identity. The output is
-``(n_out_tiles, T)``.
+edge weight, and combine into slot ``dst_local[b, e]`` of the block's
+output tile in mode sum, min, max (float32) or or (int32). Tile ``k``
+owns blocks ``tile_block_start[k]:tile_block_start[k + 1]``. Pads
+(``valid == 0``) contribute nothing. The output is ``(n_out_tiles, T)``.
+
+Bound. A launch must read ``valid`` for every padded edge slot, src and
+dst (and the weight, for ``add_weight``) of every real edge, the
+per-block window ids, the tile index, each distinct source value the
+real edges read once, and write ``n_out_tiles * T`` results; it does one
+combine per real edge (two operations with ``add_weight``).
+``chip_smoke.py`` (``_kernel_traffic``) counts these bytes and
+operations; on an H100 (3.35 TB/s, 67 TFLOP/s fp32) the bytes bound it.
 
 Design. The Pallas body runs its grid in order on one core and carries a
-tile accumulator across grid steps; a CUDA grid has no order. So one CTA
-owns one output tile and walks that tile's blocks in order, from the
-per-payload index ``tile_block_start`` (``n_out_tiles + 1`` entries,
-built at pack time from ``tile_id``), which replaces the Pallas body's
-sequential ``tile_first`` re-init and flush check. The one-hot MXU
-products of the Pallas body have no place here: the gather is a direct
-indexed load, and the combine is owner-computes in shared memory (slot
-``d`` belongs to thread ``d % 256``, which scans the staged edges in
-order). There are no float atomics, so every run sums in the same
-order: kernel results are bit-stable, and the fused and per-entry paths
-agree bit for bit.
+tile accumulator across grid steps; a CUDA grid has no order. The first
+design gave each tile one CTA that walked its blocks in order, and lost
+to three limits, each of which this design answers:
 
-Bound. The kernel must read ``valid`` for every padded edge slot, src
-and dst (and the weight, for ``add_weight``) of every real edge, the
-per-block window ids, the tile index and the property windows it
-touches, and write ``n_out_tiles * T`` results; it does one combine
-(two operations with ``add_weight``) per real edge. On an H100
-(3.35 TB/s, 67 TFLOP/s fp32) the bytes bound it by far
-(``chip_smoke.py`` computes the bound). This first design is far from it:
-one CTA per tile gives a launch fewer CTAs than the card has SMs, every
-thread of a CTA reads every staged edge, and a tile's blocks run one
-after another. Splitting heavy tiles across CTAs is the first step
-towards the bound (ROADMAP Queue 3).
+1. Too few CTAs, and skew: a launch took its heaviest tile's blocks one
+   after another. Now each tile's blocks are cut into chunks of
+   :data:`CHUNK_BLOCKS`, counted from the tile's first block, and each
+   CTA takes one chunk; the pack-time index ``tile_chunk_start``
+   (``n_out_tiles + 1`` int32, beside ``tile_block_start``) gives each
+   tile's first chunk, and a CTA finds its tile by binary search in it.
+   A tile of one chunk is written straight to the output; the chunks of
+   a larger tile write partial tiles to scratch, and a second, ordered
+   pass combines those slot by slot in chunk order.
+2. Every thread read every staged edge. Now a warp combines its 32 edge
+   slots at once: each live lane tags its slot in shared memory, and a
+   slot no other lane shares (most Big steps) is folded by its own
+   lane. Lanes that share a slot are grouped (``__match_any_sync``) and
+   reduce over a fixed lane-order tree of shuffles (a long run to a hub
+   slot takes five steps, not 32); the group's lowest lane folds the
+   total into the warp's own accumulator in shared memory. The warps'
+   accumulators merge in warp order at the end of the chunk.
+3. Pads cost a scan step. Now a pad slot is one ``valid`` load: it
+   gathers nothing and takes no shared-memory step, and a warp whose 32
+   slots are all pads skips the step after its ballot. ``valid`` is
+   read slot by slot, never assumed to be a prefix of the block. A
+   chunk takes one barrier.
+
+No atomics anywhere: the order of every fp32 combine depends only on the
+tile's blocks and their tile-relative positions, never on scheduling, so
+results are bit-stable and the fused and per-entry launch forms (whose
+entries are tile-snapped) agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..core.gas import SCATTER_OPS
 from . import _build
-from .ref import gas_ref
 
 MODES = {"sum": 0, "min": 1, "max": 2, "or": 3}
 KERNEL_SCATTER_OPS = {"copy": 0, "add_weight": 1}
-MAX_E_BLK = 1024          # 256 threads x 4 staged edges each
-MAX_T = 1 << 22           # slot ids must fit the kernel's owner key
+# blocks per CTA chunk; chosen on the card from {16, 32, 64} (PERF.md)
+CHUNK_BLOCKS = 16
+MAX_E_BLK = 1024          # edge slots of a block the kernel takes
+N_WARPS = 8               # a 4-byte accumulator and a 1-byte tag per slot each
+MAX_SMEM = 232448         # a CTA's shared memory on sm_90
+MAX_T = MAX_SMEM // (N_WARPS * 5)
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+    ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _library():
-    lib = _build.load("gas_kernel")
+def _library(chunk_blocks: int = CHUNK_BLOCKS):
+    lib = _build.load("gas_kernel", GAS_CHUNK_BLOCKS=chunk_blocks)
     if lib.gas_launch.argtypes is None:
+        lib.gas_chunk_blocks.argtypes = []
+        lib.gas_chunk_blocks.restype = ctypes.c_int
+        if lib.gas_chunk_blocks() != chunk_blocks:
+            raise RuntimeError(f"gas kernel library counts chunks of "
+                               f"{lib.gas_chunk_blocks()} blocks, not "
+                               f"{chunk_blocks}")
         lib.gas_launch.argtypes = _ARGTYPES
         lib.gas_launch.restype = ctypes.c_int
     return lib
 
 
-def build() -> None:
+def build(chunk_blocks: int = CHUNK_BLOCKS) -> None:
     """Build and load the kernel library now (it is built at first
     launch otherwise)."""
-    _library()
+    _library(chunk_blocks)
+
+
+def tile_chunk_start(tile_block_start: np.ndarray,
+                     chunk_blocks: int = CHUNK_BLOCKS) -> np.ndarray:
+    """First chunk of each output tile, ``n_out_tiles + 1`` int32: tile
+    ``k``'s blocks, counted from its first, make ``ceil(blocks /
+    chunk_blocks)`` chunks, ``[start[k], start[k + 1])``."""
+    blocks = np.diff(np.asarray(tile_block_start, np.int64))
+    return np.concatenate(
+        [[0], np.cumsum(-(-blocks // chunk_blocks))]).astype(np.int32)
+
+
+def max_chunks(n_blocks: int, n_out_tiles: int,
+               chunk_blocks: int = CHUNK_BLOCKS) -> int:
+    """The most chunks ``n_blocks`` blocks in ``n_out_tiles`` non-empty
+    tiles can make: the grid of the kernel's first pass, known without
+    reading ``tile_chunk_start`` back from the card."""
+    return n_out_tiles + max(0, n_blocks - n_out_tiles) // chunk_blocks
 
 
 def _check(name, x, dtype, shape, device):
@@ -83,17 +126,22 @@ def _check(name, x, dtype, shape, device):
 
 
 def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
-              tile_block_start, *, scatter_op: Optional[str], mode: str,
-              t: int) -> torch.Tensor:
+              tile_block_start, tile_chunk_start, *,
+              scatter_op: Optional[str], mode: str, t: int,
+              chunk_blocks: int = CHUNK_BLOCKS) -> torch.Tensor:
     """Run the GAS kernel over one payload (a single plan entry or a
     packed lane of tile-disjoint segments: the same launch). Takes only
     the arrays the kernel reads; output tile ``k`` combines blocks
-    ``tile_block_start[k]:tile_block_start[k + 1]``.
+    ``tile_block_start[k]:tile_block_start[k + 1]``, cut into the
+    chunks ``tile_chunk_start`` counts with ``chunk_blocks`` (the sweep
+    that chose :data:`CHUNK_BLOCKS` is the only caller of another).
 
-    On CUDA tensors it launches the kernel or raises. On CPU tensors it
-    runs the plain version, :func:`.ref.gas_ref`, on the same arrays.
-    Returns ``(n_out_tiles, t)`` tiles in vwin's dtype. Each launch adds
-    one to ``gas_tiles.launches``.
+    Tensors must lie on one CUDA device: it launches the kernel or
+    raises, and raises on CPU tensors (the plain version,
+    :func:`.ref.gas_ref`, is ``ops.run_lane(..., path="ref")``).
+    Returns ``(n_out_tiles, t)`` tiles in vwin's dtype. Each call adds
+    one to ``gas_tiles.launches``: one per payload, although the kernel
+    takes two device launches (chunks, then the ordered combine).
     """
     if mode not in MODES:
         raise ValueError(f"unknown gather mode {mode!r}")
@@ -103,19 +151,19 @@ def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
             f"the CUDA GAS kernel has no scatter op {scatter_op!r} for mode "
             f"{mode!r}; it implements {sorted(KERNEL_SCATTER_OPS)} "
             "('copy' only for 'or')")
-    n_out_tiles = tile_block_start.shape[0] - 1
     if not vwin.is_cuda:
-        tile_id = torch.repeat_interleave(
-            torch.arange(n_out_tiles, device=vwin.device),
-            torch.diff(tile_block_start).to(torch.int64))
-        return gas_ref(vwin, src_local, dst_local, weights, valid,
-                       window_id, tile_id, scatter_fn=SCATTER_OPS[scatter_op],
-                       mode=mode, t=t, n_out_tiles=n_out_tiles)
+        raise ValueError(
+            f"gas kernel: tensors must lie on a CUDA device, got "
+            f"{vwin.device}; the plain version is ops.run_lane(..., "
+            f"path='ref')")
+    n_out_tiles = tile_block_start.shape[0] - 1
     n_blocks, e_blk = src_local.shape
     w = vwin.shape[1]
-    if not 0 < e_blk <= MAX_E_BLK or not 0 < t < MAX_T:
+    if not 0 < e_blk <= MAX_E_BLK or not 0 < t <= MAX_T:
         raise ValueError(f"gas kernel takes E_BLK <= {MAX_E_BLK} and "
-                         f"T < {MAX_T}; got E_BLK={e_blk}, T={t}")
+                         f"T <= {MAX_T} ({N_WARPS} accumulators and tags "
+                         f"of T slots in {MAX_SMEM} B of shared memory); "
+                         f"got E_BLK={e_blk}, T={t}")
     dev = vwin.device
     vdt = torch.int32 if mode == "or" else torch.float32
     _check("vwin", vwin, vdt, vwin.shape, dev)
@@ -124,24 +172,28 @@ def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
         _check(name, x, torch.int32, (n_blocks, e_blk), dev)
     _check("weights", weights, torch.float32, (n_blocks, e_blk), dev)
     _check("window_id", window_id, torch.int32, (n_blocks,), dev)
-    _check("tile_block_start", tile_block_start, torch.int32,
-           (n_out_tiles + 1,), dev)
+    for name, x in (("tile_block_start", tile_block_start),
+                    ("tile_chunk_start", tile_chunk_start)):
+        _check(name, x, torch.int32, (n_out_tiles + 1,), dev)
     out = torch.empty((n_out_tiles, t), dtype=vdt, device=dev)
     if n_out_tiles == 0:
         return out
-    lib = _library()
+    n_chunks = max_chunks(n_blocks, n_out_tiles, chunk_blocks)
+    scratch = torch.empty((n_chunks, t), dtype=vdt, device=dev)
+    lib = _library(chunk_blocks)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gas_launch(
             MODES[mode], KERNEL_SCATTER_OPS[scatter_op], vwin.data_ptr(),
             src_local.data_ptr(), dst_local.data_ptr(), weights.data_ptr(),
             valid.data_ptr(), window_id.data_ptr(),
-            tile_block_start.data_ptr(), out.data_ptr(), n_out_tiles, e_blk,
-            w, t, stream)
+            tile_block_start.data_ptr(), tile_chunk_start.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), n_out_tiles, n_chunks,
+            e_blk, w, t, stream)
     if err != 0:
         raise RuntimeError(f"gas kernel launch failed: CUDA error {err} "
                            f"(mode={mode}, E_BLK={e_blk}, W={w}, T={t}, "
-                           f"tiles={n_out_tiles})")
+                           f"tiles={n_out_tiles}, chunks<={n_chunks})")
     gas_tiles.launches += 1
     return out
 

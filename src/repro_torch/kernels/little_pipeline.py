@@ -23,4 +23,4 @@ def little_pipeline(vprops_padded, payload: dict, *, scatter_op, mode):
 def _blocked(p: dict):
     """The payload arrays the kernel reads, in its argument order."""
     return (p["src_local"], p["dst_local"], p["weights"], p["valid"],
-            p["window_id"], p["tile_block_start"])
+            p["window_id"], p["tile_block_start"], p["tile_chunk_start"])

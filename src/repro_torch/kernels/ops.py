@@ -12,9 +12,10 @@ rebased to a global tile map, Big window ids rebased against the packed
 unique-source tables), uploaded in one shot. ``run_lane`` then runs a
 whole lane as ONE kernel launch instead of one per entry.
 
-Every payload carries ``tile_block_start`` (``n_out_tiles + 1`` int32):
-the first block of each output tile, which is how a kernel CTA finds the
-blocks of its tile.
+Every payload carries ``tile_block_start`` and ``tile_chunk_start``
+(``n_out_tiles + 1`` int32 each): the first block and the first chunk
+of :data:`.gas_kernel.CHUNK_BLOCKS` blocks of each output tile, which is
+how a kernel CTA finds its tile and the blocks of its chunk.
 
 ``default_path`` follows the device: ``"cuda"`` (the kernel) on a CUDA
 device, ``"ref"`` (the plain PyTorch version) on ``device="cpu"``.
@@ -30,6 +31,7 @@ import torch
 from ..core.types import BlockedEdges, Geometry
 from . import ref as ref_mod
 from .big_pipeline import big_pipeline
+from .gas_kernel import tile_chunk_start
 from .little_pipeline import little_pipeline
 
 # payload keys that hold per-block / per-tile arrays and concatenate
@@ -37,7 +39,8 @@ from .little_pipeline import little_pipeline
 _CONCAT_KEYS = ("src_local", "dst_local", "weights", "valid",
                 "window_id", "tile_id", "tile_first", "tile_idx")
 # payload keys uploaded to the device by _upload_payload
-_DEVICE_KEYS = _CONCAT_KEYS + ("unique_src", "tile_block_start")
+_DEVICE_KEYS = _CONCAT_KEYS + ("unique_src", "tile_block_start",
+                               "tile_chunk_start")
 PATHS = ("cuda", "ref")
 
 
@@ -102,6 +105,7 @@ def _entry_np(blocked: BlockedEdges, lo: int, hi: int) -> Optional[dict]:
     tf = blocked.tile_first[lo:hi].copy()
     tf[0] = 1
     tile_id = blocked.tile_id[lo:hi] - t0
+    tbs = tile_block_start(tile_id, t1 - t0)
     return {
         "kind": blocked.kind,
         "geom": blocked.geom,
@@ -119,7 +123,8 @@ def _entry_np(blocked: BlockedEdges, lo: int, hi: int) -> Optional[dict]:
                      // blocked.geom.T).astype(np.int32),
         "unique_src": blocked.unique_src,
         "num_real_edges": int(blocked.valid[lo:hi].sum()),
-        "tile_block_start": tile_block_start(tile_id, t1 - t0),
+        "tile_block_start": tbs,
+        "tile_chunk_start": tile_chunk_start(tbs),
     }
 
 
@@ -194,6 +199,7 @@ def _pack_group(entries: List[dict]) -> dict:
         else:
             win_parts.append(e["window_id"])
     tile_id = np.concatenate(tid_parts).astype(np.int32)
+    tbs = tile_block_start(tile_id, tile_off)
     packed = {
         "kind": kind,
         "geom": geom,
@@ -206,7 +212,8 @@ def _pack_group(entries: List[dict]) -> dict:
         "window_id": np.concatenate(win_parts).astype(np.int32),
         "unique_src": (np.concatenate(tables) if kind == "big" else None),
         "num_real_edges": int(sum(e["num_real_edges"] for e in entries)),
-        "tile_block_start": tile_block_start(tile_id, tile_off),
+        "tile_block_start": tbs,
+        "tile_chunk_start": tile_chunk_start(tbs),
     }
     for k in ("src_local", "dst_local", "weights", "valid", "tile_first",
               "tile_idx"):
@@ -233,6 +240,8 @@ def _validate_packed(p: dict) -> None:
     tbs = p["tile_block_start"]
     assert tbs[0] == 0 and tbs[-1] == p["n_blocks"] and np.all(
         np.diff(tbs) > 0), "tile_block_start does not cover the blocks"
+    assert np.array_equal(p["tile_chunk_start"], tile_chunk_start(tbs)), \
+        "tile_chunk_start does not count the tiles' chunks"
     # entries write disjoint output tiles -> one tile-indexed copy is safe
     idx = p["tile_idx"]
     assert np.unique(idx).shape[0] == idx.shape[0], \
@@ -274,8 +283,8 @@ def payload_footprint(p: dict) -> dict:
 
     ``edge_bytes``     the streamed edge slab (src/dst/weights/valid)
     ``index_bytes``    per-block routing metadata (window/tile ids,
-                       tile_first flags, tile_block_start, the global
-                       tile_idx map)
+                       tile_first flags, tile_block_start,
+                       tile_chunk_start, the global tile_idx map)
     ``table_bytes``    the deduped unique-source compaction table (Big)
     ``vertex_bytes``   property values the kernel reads: the gathered
                        unique sources (Big) or the touched source
@@ -288,7 +297,8 @@ def payload_footprint(p: dict) -> dict:
     nb = {k: _nbytes(p.get(k)) for k in _DEVICE_KEYS}
     edge = nb["src_local"] + nb["dst_local"] + nb["weights"] + nb["valid"]
     index = (nb["window_id"] + nb["tile_id"] + nb["tile_first"]
-             + nb["tile_idx"] + nb["tile_block_start"])
+             + nb["tile_idx"] + nb["tile_block_start"]
+             + nb["tile_chunk_start"])
     table = nb["unique_src"]
     if p["kind"] == "big":
         # vwin = vprops[unique_src]: one property per table slot
@@ -390,8 +400,9 @@ def payload_nbytes(payload: dict) -> int:
 def run_lane(packed: dict, vprops_padded, scatter_fn, mode: str,
              path: Optional[str] = None, scatter_op: Optional[str] = None):
     """Run one payload (a packed lane, or a single entry: the same
-    launch). ``path="cuda"`` goes through the kernel wrapper,
-    ``path="ref"`` through the plain version. Returns
+    launch). ``path="cuda"`` goes through the kernel wrapper, which
+    raises on CPU tensors; ``path="ref"`` runs the plain version, and
+    this is the one place that picks it. Returns
     ``(tiles (n_out_tiles, T), tile_idx (n_out_tiles,))``."""
     path = path or default_path(vprops_padded.device)
     if path == "ref":

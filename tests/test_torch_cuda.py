@@ -1,5 +1,6 @@
 """Card-only tests of the port: the CUDA GAS kernel against its plain
-version, its launch count, its refusals, and the main path on the card.
+version (on graph payloads and on a heavy tile that spans many chunks),
+its launch count, its refusals, and the main path on the card.
 They import neither JAX nor the reference package, so they also run on
 a machine with a card and no JAX:
 
@@ -15,7 +16,7 @@ from repro_torch.core import partition as part
 from repro_torch.core.gas import SCATTER_OPS
 from repro_torch.core.types import Geometry
 from repro_torch.graphs.rmat import rmat
-from repro_torch.kernels import gas_kernel, ops
+from repro_torch.kernels import gas_kernel, ops, ref
 
 GEOM = Geometry(U=512, W=512, T=512, E_BLK=128, big_batch=2)
 MODE_OPS = [("sum", "copy"), ("sum", "add_weight"), ("min", "copy"),
@@ -74,6 +75,86 @@ def test_kernel_matches_plain_and_is_bit_stable(mode, op, kind, device):
         torch.testing.assert_close(k1, plain, rtol=1e-5, atol=1e-5)
     else:
         assert torch.equal(k1, plain)
+
+
+def _heavy_tile(device, seed=5):
+    """Kernel arguments of three tiles, the first of 10 * CHUNK_BLOCKS + 7
+    blocks: half of its edges go to one hub slot, and a quarter of all
+    slots are pads scattered through the blocks (not a prefix)."""
+    rng = np.random.default_rng(seed)
+    c, e, n_win = gas_kernel.CHUNK_BLOCKS, GEOM.E_BLK, 4
+    sizes = [10 * c + 7, 3, c + 1]
+    tile_id = np.repeat(np.arange(3), sizes).astype(np.int32)
+    shape = (tile_id.shape[0], e)
+    dst = rng.integers(0, GEOM.T, shape)
+    dst[(rng.random(shape) < 0.5) & (tile_id[:, None] == 0)] = 17
+    arrays = {
+        "src_local": rng.integers(0, GEOM.W, shape),
+        "dst_local": dst,
+        "weights": rng.random(shape, dtype=np.float32),
+        "valid": rng.random(shape) >= 0.25,
+        "window_id": rng.integers(0, n_win, shape[0]),
+        "tile_id": tile_id,
+    }
+    host = {k: v.astype(np.float32 if k == "weights" else np.int32)
+            for k, v in arrays.items()}
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}, \
+        sizes, n_win
+
+
+def _launch(a, vwin, mode, op, lo=0, hi=None):
+    """The kernel on blocks [lo, hi) of ``a`` (whole tiles)."""
+    tid = a["tile_id"][lo:hi].cpu().numpy()
+    tid = tid - tid[0]
+    n_tiles = int(tid[-1]) + 1
+    tbs = ops.tile_block_start(tid, n_tiles)
+    index = [torch.from_numpy(x).to(vwin.device)
+             for x in (tbs, ops.tile_chunk_start(tbs))]
+    return gas_kernel.gas_tiles(
+        vwin, *(a[k][lo:hi] for k in ("src_local", "dst_local", "weights",
+                                      "valid", "window_id")),
+        *index, scatter_op=op, mode=mode, t=GEOM.T)
+
+
+def _assert_within_fp32_sum(got, plain64):
+    """Slot by slot, ``|got - exact| <= gamma(n - 1) * sum|terms|``, the
+    worst-case error of an in-order fp32 sum of n terms (rtol 1e-5
+    cannot hold sums of thousands of terms); gamma(m) = m u / (1 - m u),
+    u = 2**-24. ``plain64(f)`` is the plain fp64 sum of ``f`` over each
+    slot's terms (the scattered values, rounded to fp32 as the kernel
+    rounds them)."""
+    mu = (plain64(torch.ones_like) - 1).clamp_min(0) * 2.0 ** -24
+    allowed = mu / (1 - mu) * plain64(torch.abs)
+    gap = (got.double() - plain64(lambda v: v)).abs()
+    assert bool((gap <= allowed).all()), float((gap - allowed).max())
+
+
+@pytest.mark.parametrize("mode,op", MODE_OPS)
+def test_kernel_heavy_tile(mode, op, device):
+    """A tile of many chunks with a hub slot: kernel == plain (exact for
+    min, max and or; sum within fp32 summation error of the fp64 sum),
+    bit-stable, and bit-equal to its tiles launched one by one."""
+    a, sizes, n_win = _heavy_tile(device)
+    vwin = _props(mode, n_win * GEOM.W, device).view(n_win, GEOM.W)
+    k1 = _launch(a, vwin, mode, op)
+    k2 = _launch(a, vwin, mode, op)
+
+    def plain(v, scatter_fn=SCATTER_OPS[op]):
+        return ref.gas_ref(v, a["src_local"], a["dst_local"], a["weights"],
+                           a["valid"], a["window_id"], a["tile_id"],
+                           scatter_fn=scatter_fn, mode=mode, t=GEOM.T,
+                           n_out_tiles=len(sizes))
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+    if mode == "sum":
+        _assert_within_fp32_sum(k1, lambda f: plain(
+            vwin.double(),
+            lambda x, w: f(SCATTER_OPS[op](x.float(), w).double())))
+    else:
+        assert torch.equal(k1, plain(vwin))
+    starts = np.cumsum([0] + sizes)
+    for k, (lo, hi) in enumerate(zip(starts[:-1], starts[1:])):
+        assert torch.equal(k1[k], _launch(a, vwin, mode, op, lo, hi)[0])
 
 
 def test_kernel_refuses_unnamed_scatter_op(device):

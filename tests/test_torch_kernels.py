@@ -3,7 +3,14 @@ kernel (interpret mode) and its jnp oracle, on the same numpy inputs:
 every gather mode, both input forms (Little, Big), per-entry and
 segmented (packed) launches, and the reference's geometry sweep.
 Tolerances: exact for min, max and or; rtol/atol 1e-5 for sum (the
-summation order differs), as in the reference's own kernel tests."""
+summation order differs), as in the reference's own kernel tests.
+
+The CUDA kernel cannot run here, so its order of combines is emulated:
+each tile's blocks cut into chunks counted from the tile's first block,
+a partial tile per chunk, the partials combined in chunk order. The
+emulation must equal the plain version exactly for min, max and or, lie
+within the worst-case in-order fp32 summation error of the exact sum
+for sum, and be bit-equal on fused and per-entry payloads."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +26,7 @@ from repro.kernels.gas_kernel import gas_pallas_call
 from repro_torch import convert
 from repro_torch.core.gas import SCATTER_OPS
 from repro_torch.kernels import gas_kernel, ops as tops, ref as tref
+from repro_torch.kernels.little_pipeline import little_pipeline
 
 GEOM = JGeometry(U=512, W=512, T=512, E_BLK=128, big_batch=2)
 # (mode, scatter op): the kernel's named pairs
@@ -66,6 +74,67 @@ def _host_payloads(graph, kind, form):
     return jops._pack_group(parts)
 
 
+_COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
+            "or": torch.bitwise_or}
+
+
+def _chunked_gas(vwin, src, dst, wts, valid, wid, tbs, *, scatter_fn, mode,
+                 t, chunk_blocks=2):
+    """The kernel's order on the CPU: tile k's blocks
+    ``tbs[k]:tbs[k + 1]`` cut into chunks of ``chunk_blocks`` from its
+    first block (``tile_chunk_start``), a partial tile per chunk (plain
+    version), then the partials combined in chunk order."""
+    tbs = np.asarray(tbs)
+    tcs = tops.tile_chunk_start(tbs, chunk_blocks)
+    tiles = []
+    for k in range(tbs.shape[0] - 1):
+        acc = None
+        for j in range(tcs[k + 1] - tcs[k]):
+            b0 = int(tbs[k]) + j * chunk_blocks
+            sl = slice(b0, min(b0 + chunk_blocks, int(tbs[k + 1])))
+            part = tref.gas_ref(
+                vwin, src[sl], dst[sl], wts[sl], valid[sl], wid[sl],
+                torch.zeros(sl.stop - sl.start, dtype=torch.int32),
+                scatter_fn=scatter_fn, mode=mode, t=t, n_out_tiles=1)[0]
+            acc = part if acc is None else _COMBINE[mode](acc, part)
+        tiles.append(acc)
+    return torch.stack(tiles)
+
+
+def _chunked_payload(p, vprops, op, mode, chunk_blocks=2):
+    """:func:`_chunked_gas` on one port payload."""
+    geom = p["geom"]
+    vwin = (vprops[p["unique_src"]] if p["kind"] == "big"
+            else vprops).view(-1, geom.W)
+    return _chunked_gas(vwin, p["src_local"], p["dst_local"], p["weights"],
+                        p["valid"], p["window_id"],
+                        p["tile_block_start"].numpy(),
+                        scatter_fn=SCATTER_OPS[op], mode=mode, t=geom.T,
+                        chunk_blocks=chunk_blocks)
+
+
+def _assert_within_fp32_sum(got, exact64, terms_abs64, n_terms):
+    """Slot by slot, ``|got - exact| <= gamma(n - 1) * sum|terms|``, the
+    worst-case error of an in-order fp32 sum of the slot's n terms (a
+    tree of them errs less); gamma(m) = m u / (1 - m u), u = 2**-24."""
+    mu = (n_terms - 1).clamp_min(0) * 2.0 ** -24
+    allowed = mu / (1 - mu) * terms_abs64
+    gap = (got.double() - exact64).abs()
+    assert bool((gap <= allowed).all()), float((gap - allowed).max())
+
+
+def _assert_chunked(mode, emulated, plain, plain64):
+    """The emulated kernel order against the plain version: exact for
+    min, max and or; for sum within the fp32 summation bound of the
+    fp64 sum. ``plain64(f)`` is the plain version's fp64 sum of ``f``
+    over each slot's terms (the scattered values, rounded to fp32)."""
+    if mode != "sum":
+        assert emulated.dtype == plain.dtype and torch.equal(emulated, plain)
+        return
+    _assert_within_fp32_sum(emulated, plain64(lambda v: v),
+                            plain64(torch.abs), plain64(torch.ones_like))
+
+
 def _props(mode, n, seed):
     rs = np.random.RandomState(seed)
     if mode == "or":    # full int32 range: bit 31 must survive
@@ -91,16 +160,25 @@ def test_plain_gas_matches_pallas_and_oracle(mode, op, kind, form):
     run_j = jops.run_lane if form == "packed" else jops.run_entry
     pallas, _ = run_j(jpayload, vp_j, fn, mode, "pallas")
     oracle, _ = run_j(jpayload, vp_j, fn, mode, "ref")
-    # the port: plain path, and the kernel wrapper on CPU tensors
+    # the port: plain path; the kernel path refuses CPU tensors
     tpayload = convert.payload_from_numpy(host, "cpu")
     vp_t = torch.from_numpy(vp_np)
     plain, idx = tops.run_lane(tpayload, vp_t, fn, mode, "ref", op)
-    wrapped, _ = tops.run_lane(tpayload, vp_t, fn, mode, "cuda", op)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tops.run_lane(tpayload, vp_t, fn, mode, "cuda", op)
     assert plain.shape == (host["n_out_tiles"], GEOM.T)
     assert np.array_equal(idx.numpy(), host["tile_idx"])
     _assert_match(mode, plain.numpy(), pallas)
     _assert_match(mode, plain.numpy(), oracle)
-    assert torch.equal(plain, wrapped)
+    # the kernel's chunked order, against the plain version and Pallas
+    emulated = _chunked_payload(tpayload, vp_t, op, mode)
+    _assert_match(mode, emulated.numpy(), pallas)
+
+    def plain64(f):
+        return tops.run_lane(tpayload, vp_t.double(),
+                             lambda x, w: f(fn(x.float(), w).double()), mode,
+                             "ref", op)[0]
+    _assert_chunked(mode, emulated, plain, plain64)
 
 
 @pytest.mark.parametrize("e_blk,w,t", [(128, 512, 512), (256, 512, 512),
@@ -132,14 +210,19 @@ def test_plain_gas_geometry_sweep(e_blk, w, t):
                          n_out_tiles=n_tiles)
     _assert_match("sum", plain.numpy(), pallas)
     _assert_match("sum", plain.numpy(), oracle)
-    # the kernel wrapper takes a named op and finds its tiles from
-    # tile_block_start alone; on CPU tensors it is the plain version
-    wrapped = gas_kernel.gas_tiles(
-        *targs[:-1], torch.from_numpy(tops.tile_block_start(tid, n_tiles)),
-        scatter_op="add_weight", mode="sum", t=t)
-    assert torch.equal(wrapped, tref.gas_ref(
-        *targs, scatter_fn=SCATTER_OPS["add_weight"], mode="sum", t=t,
-        n_out_tiles=n_tiles))
+    # the kernel's chunked order finds its tiles from tile_block_start
+    # alone, with tiles of several chunks (5 blocks, chunks of 2)
+    tbs = tops.tile_block_start(tid, n_tiles)
+    emulated = _chunked_gas(*targs[:-1], tbs, scatter_fn=sc, mode="sum",
+                            t=t)
+    _assert_match("sum", emulated.numpy(), pallas)
+
+    def plain64(f):
+        return tref.gas_ref(targs[0].double(), *targs[1:],
+                            scatter_fn=lambda p, wt: f(
+                                sc(p.float(), wt).double()),
+                            mode="sum", t=t, n_out_tiles=n_tiles)
+    _assert_chunked("sum", emulated, plain, plain64)
 
 
 @pytest.mark.parametrize("mode", ["sum", "min", "max", "or"])
@@ -160,12 +243,49 @@ def test_edge_ref_matches_reference(mode):
 
 
 def test_kernel_wrapper_on_cpu_does_not_count_launches():
-    """On CPU tensors the wrapper runs the plain version: no launch."""
+    """On CPU tensors the wrapper raises, on the kernel path and called
+    directly, and counts no launch."""
     graph = jrmat(9, 6, seed=2)
     host = _host_payloads(graph, "little", "entry")
     p = convert.payload_from_numpy(host, "cpu")
     vp = torch.from_numpy(_props("sum", jpart.padded_num_vertices(
         graph.num_vertices, GEOM), seed=1))
     before = gas_kernel.gas_tiles.launches
-    tops.run_lane(p, vp, SCATTER_OPS["copy"], "sum", "cuda", "copy")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tops.run_lane(p, vp, SCATTER_OPS["copy"], "sum", "cuda", "copy")
+    with pytest.raises(ValueError, match="CUDA device"):
+        little_pipeline(vp, p, scatter_op="copy", mode="sum")
     assert gas_kernel.gas_tiles.launches == before
+
+
+@pytest.mark.parametrize("kind", ["little", "big"])
+def test_chunked_order_fused_equals_per_entry(kind):
+    """Chunks are counted from each tile's first block, and entries are
+    tile-snapped, so the kernel's order gives a packed payload and its
+    entries, launched one by one, the same tiles bit for bit."""
+    graph = jrmat(10, 6, seed=11, weighted=True)
+    infos, edges = jpart.partition_graph(graph, GEOM)
+    infos = [i for i in infos if i.num_edges > 0]
+    if kind == "little":
+        works = [jpart.block_little(edges, i, GEOM) for i in infos[:2]]
+    else:
+        works = [jpart.block_big(edges, infos[:1], GEOM),
+                 jpart.block_big(edges, infos[1:3], GEOM)]
+    cut = np.linspace(0, works[0].n_blocks, 4).astype(int)
+    parts = [jops._entry_np(works[0], int(lo), int(hi))
+             for lo, hi in zip(cut[:-1], cut[1:])]
+    parts = [e for e in parts if e is not None]
+    parts.append(jops._entry_np(works[1], 0, works[1].n_blocks))
+    packed = convert.payload_from_numpy(jops._pack_group(parts), "cpu")
+    entries = [convert.payload_from_numpy(e, "cpu") for e in parts]
+    V_pad = jpart.padded_num_vertices(graph.num_vertices, GEOM)
+    for mode, op in MODE_OPS + [("sum", "add_weight")]:
+        vp = torch.from_numpy(_props(mode, V_pad, seed=3))
+        fused = _chunked_payload(packed, vp, op, mode)
+        for e in entries:
+            rows = np.searchsorted(packed["tile_idx"].numpy(),
+                                   e["tile_idx"].numpy())
+            assert np.array_equal(packed["tile_idx"].numpy()[rows],
+                                  e["tile_idx"].numpy())
+            assert torch.equal(fused[torch.from_numpy(rows)],
+                               _chunked_payload(e, vp, op, mode)), (mode, op)
