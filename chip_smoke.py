@@ -43,6 +43,36 @@ Phases (any failed check exits non-zero before the last line):
    the plain version, its time, the plain version's time, one
    ``scatter_reduce`` over pre-gathered values (``library_ms``) and the
    least time the card could take (``bound_ms``).
+5. Sharded path on the main path's store: ``api.compile(..., shard=1)``
+   and two owners on the one card (``shard=[cuda:0, cuda:0]``: a test of
+   the two-owner path, not a multi-card number), and every card when
+   there are several. PageRank (4 iterations) and BFS must be bit-equal
+   (``torch.equal``) to the fused path, one gather too, with one merge
+   per iteration; the kernel's launch count must show the path went
+   through it. Its iteration time beside the fused one, launches per
+   iteration and device bytes; for one owner every launch on the
+   sharded payloads held against its plain version slot by slot (fp32
+   summation error of the exact sum), and its time beside the plain
+   version's, the bound and the library call.
+6. Streaming: one delta, ``random_delta(graph, churn=0.001, seed=SEED +
+   1, hot_frac=0.05, grow_frac=0.0005)``, applied with the fused and
+   both sharded forms materialized. Packed and shard reuse must be
+   above 0, and every reused lane must hold the very tensors it held
+   before (same objects, same ``data_ptr()``). The kernel on the
+   post-delta shapes is held against its plain version: every launch of
+   one PageRank gather on random properties slot by slot (fp32
+   summation error of the exact sum), and PageRank (4 iterations) and
+   BFS, fused and sharded, against the plain path (rtol 1e-5 / atol
+   1e-7, and exactly). They must also be bit-equal to a cold
+   ``GraphStore(post_graph, perm=...)`` rebuild run the same ways, with
+   the kernel's launches counted on the derived store.
+   ``t_apply_ms`` beside the cold rebuild's store + plan + pack time.
+7. Utilization: ``Executor.time_lanes`` on the main path's PageRank, then
+   ``Executor.utilization()`` per kind (GB/s: the bytes each lane must
+   move, ``obs.lane_traffic``, over its host-clock time; % of the card's
+   data-sheet rate when the card is in ``perf_model.DATASHEET_HBM_GBPS``),
+   and each lane's analytic ``total_bytes`` within 10 % of
+   ``tensor_lane_bytes``.
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -437,7 +467,8 @@ def phase_main_path(device, scale=SCALE, edge_factor=EDGE_FACTOR, seed=SEED,
         "bfs_plain": bfs_r.time_iteration(reps) * 1e3,
     }
     res["_store"], res["_payloads"], res["_vprops"] = store, payloads, vprops
-    res["_pr"], res["_config"] = pr_k, config
+    res["_pr"], res["_bfs"], res["_config"] = pr_k, bfs_k, config
+    res["_graph"] = graph
     return res
 
 
@@ -445,33 +476,17 @@ def phase_main_path(device, scale=SCALE, edge_factor=EDGE_FACTOR, seed=SEED,
 # Phase 4: measurements and the kernels line
 # ---------------------------------------------------------------------------
 
-def _kernel_traffic(vwin, p, geom, scatter_op: str):
-    """(bytes, operations) one launch must at least move and do on this
-    payload's data: ``valid`` for every padded slot; src and dst (and
-    the weight, for ``add_weight``) of every real edge; the per-block
-    window ids and the tile index; each distinct source value the real
-    edges read, once; the output tiles. One combine per real edge, plus
-    one add for ``add_weight``."""
-    import torch
-    keep = p["valid"] != 0
-    real = int(p["num_real_edges"])
-    flat_src = (p["window_id"].to(torch.int64)[:, None] * geom.W
-                + p["src_local"])[keep]
-    per_edge = 12 if scatter_op == "add_weight" else 8
-    nbytes = (p["valid"].numel() * 4 + real * per_edge
-              + p["window_id"].numel() * 4
-              + p["tile_block_start"].numel() * 4
-              + int(torch.unique(flat_src).numel()) * vwin.element_size()
-              + p["n_out_tiles"] * geom.T * vwin.element_size())
-    n_ops = real * (2 if scatter_op == "add_weight" else 1)
-    return nbytes, n_ops
-
-
-def _bound_ms(calls, geom) -> tuple:
-    """(bound ms, what bounds it, bytes) of the sum/copy launches."""
+def _bound_ms(calls) -> tuple:
+    """(bound ms, what bounds it, bytes) of the sum/copy launches: the
+    bytes and operations each launch must at least move and do on this
+    run's data (``obs.launch_traffic``: ``valid`` for every padded slot;
+    src and dst of every real edge; the per-block window ids and the
+    tile index pair; each distinct source value the real edges read,
+    once; the output tiles; one combine per real edge)."""
+    from repro_torch.obs import launch_traffic
     nbytes = n_ops = 0
-    for vwin, p in calls:
-        b, o = _kernel_traffic(vwin, p, geom, "copy")
+    for _, p in calls:
+        b, o = launch_traffic(p, "copy")
         nbytes, n_ops = nbytes + b, n_ops + o
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = n_ops / H100_FP32_OPS_PER_S * 1e3
@@ -483,6 +498,27 @@ def _calls(payloads, vprops, geom):
     """(vwin, payload) per launch: the Big gathers done beforehand."""
     return [((vprops[p["unique_src"]] if p["kind"] == "big" else vprops)
              .view(-1, geom.W), p) for p in payloads]
+
+
+def _library_ms(calls, geom, v_pad: int, device, reps: int) -> float:
+    """The library yardstick: one ``scatter_reduce`` of the pre-gathered,
+    pad-free values of every launch in ``calls`` into the padded vertex
+    vector (device ms)."""
+    import torch
+    idx_parts, val_parts = [], []
+    for vwin, p in calls:
+        keep = p["valid"] != 0
+        flat_src = p["window_id"].to(torch.int64)[:, None] * geom.W \
+            + p["src_local"]
+        val_parts.append(vwin.reshape(-1)[flat_src[keep]])
+        tile_global = p["tile_idx"].to(torch.int64)[
+            p["tile_id"].to(torch.int64)]
+        idx_parts.append((tile_global[:, None] * geom.T
+                          + p["dst_local"])[keep])
+    idx, vals = torch.cat(idx_parts), torch.cat(val_parts)
+    out = torch.zeros(v_pad, device=device)
+    return cuda_ms(lambda: out.zero_().scatter_reduce_(
+        0, idx, vals, reduce="sum", include_self=True), reps)
 
 
 def _pagerank_launch(vwin, p, geom, tcs=None, chunk_blocks=None):
@@ -506,6 +542,25 @@ def _pagerank_plain(vwin, p, geom, f=lambda x: x):
                        p["valid"], p["window_id"], p["tile_id"],
                        scatter_fn=lambda x, w: f(x), mode="sum", t=geom.T,
                        n_out_tiles=p["n_out_tiles"])
+
+
+def _held_to_plain(calls, geom, what: str) -> dict:
+    """Each launch of ``calls`` (PageRank, sum mode) against its plain
+    version on the same payload: slot by slot within the fp32 in-order
+    summation error of the exact sum (as :func:`fp32_sum_share`), and
+    its largest gap to the plain fp32 sum."""
+    share = err = 0.0
+    try:
+        for vwin, p in calls:
+            k = _pagerank_launch(vwin, p, geom)
+            share = max(share, fp32_sum_share(
+                k, lambda f, v=vwin, q=p: _pagerank_plain(v.double(), q,
+                                                          geom, f)))
+            err = max(err, float(
+                (k - _pagerank_plain(vwin, p, geom)).abs().max()))
+    except CheckFailed as exc:
+        raise CheckFailed(f"{what}: {exc}") from None
+    return {"fp32_sum_bound_used": share, "max_abs_err": err}
 
 
 def phase_kernel_line(main_res: dict, device, reps: int = REPS):
@@ -571,24 +626,9 @@ def phase_kernel_line(main_res: dict, device, reps: int = REPS):
             "real_edges": int(p["num_real_edges"]),
             "ms": cuda_ms(lambda: _pagerank_launch(vwin, p, geom), reps)})
 
-    # the library yardstick: one scatter_reduce of the pre-gathered,
-    # pad-free values into the padded vertex vector
-    idx_parts, val_parts = [], []
-    for vwin, p in calls:
-        keep = p["valid"] != 0
-        flat_src = p["window_id"].to(torch.int64)[:, None] * geom.W \
-            + p["src_local"]
-        val_parts.append(vwin.reshape(-1)[flat_src[keep]])
-        tile_global = p["tile_idx"].to(torch.int64)[
-            p["tile_id"].to(torch.int64)]
-        idx_parts.append((tile_global[:, None] * geom.T
-                          + p["dst_local"])[keep])
-    idx, vals = torch.cat(idx_parts), torch.cat(val_parts)
-    out = torch.zeros(store.V_pad, device=device)
-    library_ms = cuda_ms(lambda: out.zero_().scatter_reduce_(
-        0, idx, vals, reduce="sum", include_self=True), reps)
+    library_ms = _library_ms(calls, geom, store.V_pad, device, reps)
 
-    bound_ms, bound_by, nbytes = _bound_ms(calls, geom)
+    bound_ms, bound_by, nbytes = _bound_ms(calls)
     return {
         "name": "gas_tile_kernel",
         "route": "cuda",
@@ -633,7 +673,7 @@ def phase_per_entry(main_res: dict, device, reps: int = REPS) -> dict:
                       main_res["_pr"].executor.gather(vprops)),
           "per-entry gather != fused gather")
     calls = _calls(entries, vprops, geom)
-    bound_ms, bound_by, nbytes = _bound_ms(calls, geom)
+    bound_ms, bound_by, nbytes = _bound_ms(calls)
     return {
         "launches_per_iteration": len(entries),
         "kernel_ms": cuda_ms(lambda: [_pagerank_launch(vwin, p, geom)
@@ -709,6 +749,279 @@ def phase_breakdown(main_res: dict, device, reps: int = REPS) -> dict:
     return {"device_ms": dev_ms, "host_ms": host_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phases 5-7: the sharded path, a streaming delta, utilization
+# ---------------------------------------------------------------------------
+
+def _counted(fn):
+    """``fn()`` with the kernel's launch count set to 0 just before it and
+    read just after: (result, launches)."""
+    import torch
+    from repro_torch.kernels import gas_kernel
+
+    gas_kernel.gas_tiles.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, gas_kernel.gas_tiles.launches
+
+
+def _same(a, b) -> bool:
+    """Bit-equal results (numpy arrays of ``run``), as ``torch.equal``."""
+    import torch
+    return torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+
+
+def _pr_bfs(store, config, pr_iters: int = 4, **where):
+    """PageRank (``pr_iters`` iterations) and BFS (to convergence) on
+    ``store``: ((pr props, pr iterations), (bfs props, bfs iterations),
+    (pr app, bfs app))."""
+    from repro_torch import api
+    pr = api.compile(None, "pagerank", store=store, config=config, **where)
+    bfs = api.compile(None, "bfs", store=store, config=config, **where)
+    a, ma = pr.run(max_iters=pr_iters)
+    b, mb = bfs.run()
+    return (a, ma["iterations"]), (b, mb["iterations"]), (pr, bfs)
+
+
+def _shard_forms(device) -> list:
+    """(label, shard=) of the sharded forms the smoke drives."""
+    import torch
+    forms = [("1 owner", 1),
+             ("2 owners on one card", [device, device])]
+    if torch.cuda.device_count() > 1:
+        forms.append((f"every card ({torch.cuda.device_count()})", True))
+    return forms
+
+
+def phase_sharded(main_res: dict, device, reps: int = REPS) -> dict:
+    """The sharded path on the main path's store: each form bit-equal to
+    fused, one merge per iteration, launches counted; for one owner the
+    kernel on the sharded payloads held against the plain version slot
+    by slot, and timed beside plain, bound and library."""
+    import torch
+
+    store, config = main_res["_store"], main_res["_config"]
+    vprops, geom = main_res["_vprops"], store.geom
+    fused_pr, fused_bfs, (pr_f, _) = _pr_bfs(store, config, device=device)
+    fused_gather = pr_f.executor.gather(vprops)
+    out = {"fused_iteration_ms": pr_f.time_iteration(reps) * 1e3,
+           "forms": {}}
+    for label, shard in _shard_forms(device):
+        (pr, bfs, (pr_s, bfs_s)), launches = _counted(
+            lambda: _pr_bfs(store, config, shard=shard))
+        ex = pr_s.executor
+        per_iter = ex.dispatch_stats()["kernel_dispatches"]
+        check(launches > 0, f"sharded ({label}) never launched the kernel")
+        check(launches == per_iter * (pr[1] + bfs[1]),
+              f"sharded ({label}) launched the kernel {launches} times; "
+              f"expected {per_iter} per iteration")
+        check(pr[1] == fused_pr[1] and _same(pr[0], fused_pr[0]),
+              f"sharded ({label}) PageRank != fused")
+        check(bfs[1] == fused_bfs[1] and _same(bfs[0], fused_bfs[0]),
+              f"sharded ({label}) BFS != fused")
+        check(torch.equal(ex.gather(vprops), fused_gather),
+              f"sharded ({label}) gather != fused gather")
+        last = ex.dispatch_stats()["last_iteration"]
+        check(last["merges"] == 1 and sum(last["launches_per_device"])
+              == per_iter, f"sharded ({label}) iteration dispatched {last}")
+        out["forms"][label] = {
+            "devices": [str(d) for d in ex.devices],
+            "launches": launches,
+            "launches_per_iteration": last["launches_per_device"],
+            "merges_per_iteration": last["merges"],
+            "iteration_ms": pr_s.time_iteration(reps) * 1e3,
+            "device_bytes": ex.memory_footprint(),
+            "bytes_per_device": ex.sharded.bytes_per_device(),
+            "t_materialize_s": ex.t_materialize,
+            "iterations": {"pagerank": pr[1], "bfs": bfs[1]},
+        }
+        if shard == 1:
+            calls = _calls([p for ps in ex._dev_payloads for p in ps],
+                           vprops, geom)
+            bound_ms, bound_by, _ = _bound_ms(calls)
+            out["kernel"] = {
+                "launches_per_iteration": len(calls),
+                **_held_to_plain(calls, geom, "kernel on the sharded "
+                                 "payloads vs plain"),
+                "kernel_ms": cuda_ms(lambda: [
+                    _pagerank_launch(vwin, p, geom) for vwin, p in calls],
+                    reps),
+                "plain_ms": cuda_ms(lambda: [
+                    _pagerank_plain(vwin, p, geom) for vwin, p in calls],
+                    reps),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": _library_ms(calls, geom, store.V_pad, device,
+                                          reps)}
+    out["launches"] = sum(f["launches"] for f in out["forms"].values())
+    out["placement"] = store.placement_stats()
+    return out
+
+
+def _tensor_ptrs(lanes) -> list:
+    """Every tensor's ``data_ptr()`` of each lane's payloads."""
+    import torch
+    return [[v.data_ptr() for p in lane for v in p.values()
+             if isinstance(v, torch.Tensor)] for lane in lanes]
+
+
+def _reuse_checked(old_lanes, new_lanes, n_reused: int, what: str) -> int:
+    """The lanes of ``new_lanes`` carried over from ``old_lanes`` are the
+    same objects holding the same tensors; their count is ``n_reused``."""
+    old_ptrs = {id(lane): ptrs for lane, ptrs in
+                zip(old_lanes, _tensor_ptrs(old_lanes))}
+    carried = [lane for lane in new_lanes if id(lane) in old_ptrs]
+    check(len(carried) == n_reused,
+          f"{what}: {len(carried)} lanes carried over, stats say {n_reused}")
+    for lane, ptrs in zip(carried, _tensor_ptrs(carried)):
+        check(ptrs == old_ptrs[id(lane)],
+              f"{what}: a carried-over lane's tensors moved")
+    return len(carried)
+
+
+def phase_streaming(main_res: dict, device) -> dict:
+    """One delta on the main path's store with the fused and sharded
+    forms materialized: reuse, tensors kept in place, the kernel on the
+    derived store's payloads held against the plain version (launch by
+    launch, and PageRank and BFS against the plain path), and the
+    derived store bit-equal to a cold rebuild, fused and sharded."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.streaming import (apply_delta, apply_delta_to_graph,
+                                       random_delta)
+
+    store, config, graph = (main_res["_store"], main_res["_config"],
+                            main_res["_graph"])
+    base = store.plan(config)
+    old_packed = base.packed_lanes(device)
+    forms = _shard_forms(device)
+    old_sharded = {label: store.shard(config, shard)
+                   for label, shard in forms}
+    t0 = time.perf_counter()
+    delta = random_delta(graph, churn=0.001, seed=SEED + 1, hot_frac=0.05,
+                         grow_frac=0.0005)
+    t_delta = time.perf_counter() - t0
+    res = apply_delta(store, delta)
+    torch.cuda.synchronize()
+    st = res.stats
+    check(st["packed_lanes_reused"] > 0,
+          f"no packed lane was reused across the delta: {st}")
+    check(st["shards_reused"] > 0,
+          f"no sharded lane was reused across the delta: {st}")
+    check(store.fingerprint() == graph.fingerprint(),
+          "the base store's identity changed")
+    derived = res.store.plan(config)
+    _reuse_checked(old_packed, derived.packed_lanes(device),
+                   derived.packed_lanes_reused, "packed form")
+    for label, shard in forms:
+        new_sh = res.store.shard(config, shard)
+        _reuse_checked(old_sharded[label].lanes, new_sh.lanes,
+                       new_sh.reused, f"sharded form ({label})")
+
+    def run_all(s):
+        return {"fused": _pr_bfs(s, config, device=device)[:2],
+                **{label: _pr_bfs(s, config, shard=shard)[:2]
+                   for label, shard in forms}}
+    got, launches = _counted(lambda: run_all(res.store))
+    check(launches > 0, "the derived store never launched the kernel")
+
+    # the kernel on the post-delta shapes against the plain version:
+    # every launch of one gather slot by slot (random properties, so a
+    # wrong source shows), and the apps against the plain path
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    vprops = torch.rand(res.store.V_pad, generator=gen, device=device)
+    held = _held_to_plain(
+        _calls([p for lane in derived.packed_lanes(device) for p in lane],
+               vprops, res.store.geom),
+        res.store.geom, "kernel on the derived store's payloads vs plain")
+    (pr_r, n_pr_r), (bfs_r, n_bfs_r), _ = _pr_bfs(res.store, config,
+                                                  device=device, path="ref")
+    pr_err = 0.0
+    for form, ((pr, n_pr), (bfs, n_bfs)) in got.items():
+        pr_err = max(pr_err, _max_rel(pr, pr_r))
+        check(n_pr == n_pr_r and np.allclose(pr, pr_r, rtol=1e-5,
+                                             atol=1e-7),
+              f"derived store PageRank ({form}) vs the plain path: max "
+              f"rel err {_max_rel(pr, pr_r)}")
+        check(n_bfs == n_bfs_r and np.array_equal(bfs, bfs_r),
+              f"derived store BFS ({form}) != the plain path")
+
+    t0 = time.perf_counter()
+    post = apply_delta_to_graph(graph, delta)
+    t_post = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = api.GraphStore(post, geom=store.geom, perm=res.store.perm)
+    t_store = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold_bundle = cold.plan(config)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold_bundle.packed_lanes(device)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    want = run_all(cold)
+    for form, ((pr, n_pr), (bfs, n_bfs)) in got.items():
+        (pr_c, n_pr_c), (bfs_c, n_bfs_c) = want[form]
+        check(n_pr == n_pr_c and _same(pr, pr_c),
+              f"derived store PageRank ({form}) != cold rebuild")
+        check(n_bfs == n_bfs_c and _same(bfs, bfs_c),
+              f"derived store BFS ({form}) != cold rebuild")
+    return {
+        "delta": {"adds": delta.num_adds, "removes": delta.num_removes,
+                  "grown_vertices": st["grown_vertices"],
+                  "t_random_delta_s": t_delta},
+        "stats": st,
+        "dirty_pids": list(res.dirty_pids),
+        "launches": launches,
+        "kernel_vs_plain": {**held,
+                            "pagerank_max_rel_err_vs_plain": pr_err},
+        "t_apply_ms": st["t_apply_ms"],
+        "cold_ms": {"apply_delta_to_graph": t_post * 1e3,
+                    "store": t_store * 1e3, "plan": t_plan * 1e3,
+                    "pack": t_pack * 1e3,
+                    "store_plan_pack": (t_store + t_plan + t_pack) * 1e3},
+        "packed_bytes": derived.device_bytes()["packed_bytes"],
+    }
+
+
+def phase_utilization(main_res: dict, reps: int = REPS) -> dict:
+    """``time_lanes`` on the main path's PageRank, then the executor's
+    utilization report per kind, and each lane's analytic byte count
+    within 10 % of the count over its tensors."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import perf_model
+
+    ex = main_res["_pr"].executor
+    lane_s = ex.time_lanes(reps)
+    rep = ex.utilization()
+    name = torch.cuda.get_device_name(ex.device)
+    peak = perf_model.DATASHEET_HBM_GBPS.get(name)
+    check(rep["peak_bandwidth_gbps"] == peak,
+          f"peak {rep['peak_bandwidth_gbps']} GB/s for {name!r}; the "
+          f"data sheet's is {peak}")
+    check(rep["kinds"] and all(k["gbps"] > 0 for k in rep["kinds"].values()),
+          f"time_lanes recorded no utilization: {rep['kinds']}")
+    for i, fp in enumerate(ex.footprints()):
+        if fp is not None:
+            counted = obs.tensor_lane_bytes(ex, i)
+            check(abs(fp.total_bytes - counted) <= 0.1 * counted,
+                  f"lane {i}: footprint {fp.total_bytes} B vs tensors "
+                  f"{counted} B")
+    return {
+        "lane_ms": [t * 1e3 for t in lane_s],
+        "lane_bytes": [t and t[0] for t in ex.lane_traffic()],
+        "lane_model_hbm_bytes": [fp and fp.hbm_bytes
+                                 for fp in ex.footprints()],
+        "peak_bandwidth_gbps": rep["peak_bandwidth_gbps"],
+        "kinds": {kind: {"gbps": k["gbps"], "bytes": k["bytes"],
+                         "n": k["n"],
+                         "percent_of_peak": (None if k["utilization"] is None
+                                             else 100 * k["utilization"])}
+                  for kind, k in rep["kinds"].items()},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -781,9 +1094,27 @@ def main(argv=None) -> int:
         result["breakdown"] = phase_breakdown(main_res, device)
         result["main_path"] = {k: v for k, v in main_res.items()
                                if not k.startswith("_")}
+
+        t0 = time.perf_counter()
+        result["sharded"] = phase_sharded(main_res, device)
+        log(f"phase 5: sharded == fused ({time.perf_counter() - t0:.1f} s; "
+            "'2 owners on one card' tests the two-owner path on one card, "
+            "not a multi-card number): " + json.dumps(result["sharded"]))
+        t0 = time.perf_counter()
+        result["streaming"] = phase_streaming(main_res, device)
+        log(f"phase 6: derived store == cold rebuild "
+            f"({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(result["streaming"]))
+        result["utilization"] = phase_utilization(main_res)
+        log("phase 7: utilization (time_lanes): "
+            + json.dumps(result["utilization"]))
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1
+    kernel["launches_by_path"] = {
+        "main": kernel["launches"],
+        "sharded": result["sharded"]["launches"],
+        "streaming": result["streaming"]["launches"]}
     result["kernels"] = [kernel]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -10,6 +10,12 @@ Three composable layers, as in the reference package:
                   model and builds the lane schedule. Cached on the store.
     Executor    — per (plan, app, device); device payloads and the eager
                   iteration loop (run / time_iteration / time_lanes).
+                  ``shard=`` gives the lane-sharded ShardedExecutor
+                  instead (each lane on its owner device, one merge).
+
+A prepared graph changes through :mod:`repro_torch.streaming`
+(``apply_delta(store, delta)`` → a derived store that reuses every
+clean lane's device payloads).
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no ``device="cpu"`` the entry points raise.
@@ -21,6 +27,9 @@ Quickstart::
 
     compiled = api.compile(rmat(12, 16, seed=7), "pagerank", n_lanes=8)
     props, meta = compiled.run()
+
+    sharded = api.compile(None, "pagerank", store=compiled.store,
+                          n_lanes=8, shard=2)        # first two cards
 """
 from __future__ import annotations
 
@@ -35,24 +44,41 @@ from .core.planner import PlanBundle, PlanConfig, Planner
 from .core.store import GraphStore
 from .core.types import Geometry, SchedulePlan
 from .graphs.formats import Graph, fingerprint as graph_fingerprint
-from .obs import DriftAccumulator, Span, SpanContext, Tracer
+from .obs import (DriftAccumulator, LaneFootprint, PerfLedger, Span,
+                  SpanContext, Tracer, UtilizationAccumulator)
+from .sharding import (LanePlacement, ShardedExecutor, ShardedLanes,
+                       place_lanes)
+from .streaming import (GraphDelta, RegroupPolicy, apply_delta,
+                        apply_delta_to_graph, chain_fingerprint,
+                        compact_deltas, compose_deltas, grouping_drift,
+                        grown_num_vertices, make_delta, random_delta,
+                        rebuild_plans, reregister, splice_delta)
 
 __all__ = [
     "BUILTIN_APPS", "CompiledApp", "DEFAULT_HW", "DriftAccumulator",
-    "Executor", "GASApp", "Geometry", "Graph", "GraphStore", "HW",
-    "PlanBundle", "PlanConfig", "Planner", "SCATTER_OPS", "SchedulePlan",
-    "Span", "SpanContext", "Tracer", "compile", "graph_fingerprint",
-    "make_bfs", "make_closeness", "make_pagerank", "make_sssp", "make_wcc",
+    "Executor", "GASApp", "Geometry", "Graph", "GraphDelta", "GraphStore",
+    "HW", "LaneFootprint", "LanePlacement", "PerfLedger", "PlanBundle",
+    "PlanConfig", "Planner", "RegroupPolicy", "SCATTER_OPS",
+    "SchedulePlan", "ShardedExecutor", "ShardedLanes", "Span",
+    "SpanContext", "Tracer", "UtilizationAccumulator", "apply_delta",
+    "apply_delta_to_graph", "chain_fingerprint", "compact_deltas",
+    "compile", "compose_deltas", "graph_fingerprint", "grouping_drift",
+    "grown_num_vertices", "make_bfs", "make_closeness", "make_delta",
+    "make_pagerank", "make_sssp", "make_wcc", "place_lanes",
+    "random_delta", "rebuild_plans", "reregister", "splice_delta",
 ]
 
 
 @dataclasses.dataclass
 class CompiledApp:
     """The result of :func:`compile`: one app bound to a (possibly
-    shared) GraphStore and a cached plan, ready to run."""
+    shared) GraphStore and a cached plan, ready to run. ``executor`` is
+    an :class:`Executor` or — under ``compile(shard=...)`` — a
+    :class:`ShardedExecutor` (same run/time_iteration/stats surface;
+    ``time_lanes`` exists only on the single-device form)."""
 
     store: GraphStore
-    executor: Executor
+    executor: Union[Executor, ShardedExecutor]
 
     @property
     def app(self) -> GASApp:
@@ -91,6 +117,7 @@ def compile(
     use_dbg: Optional[bool] = None,
     fuse_lanes: bool = True,
     device=None,
+    shard=None,
     **cfg,
 ) -> CompiledApp:
     """Push-button entry point: prepare (or reuse) a GraphStore, plan,
@@ -105,7 +132,11 @@ def compile(
     preprocessing across apps; ``graph`` may then be None. ``path`` is
     "cuda" (the GAS kernel) or "ref" (the plain PyTorch version);
     ``fuse_lanes=False`` launches once per plan entry instead of once
-    per packed lane (bit-identical results).
+    per packed lane (bit-identical results). ``shard`` runs the plan
+    lane-sharded (:class:`~repro_torch.sharding.ShardedExecutor`):
+    ``True`` over every CUDA device, an int n over the first n, a device
+    sequence over exactly those (repeats allowed); it names the devices,
+    so it excludes ``device``.
     """
     if isinstance(app, str):
         if app not in BUILTIN_APPS:
@@ -127,4 +158,4 @@ def compile(
     return CompiledApp(store=store,
                        executor=store.executor(app, config, path=path,
                                                fuse_lanes=fuse_lanes,
-                                               device=device))
+                                               device=device, shard=shard))

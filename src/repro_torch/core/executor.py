@@ -5,6 +5,9 @@ plan's lane payloads on its device, runs the iteration (GAS kernel
 launches → tile merge → Apply) eagerly, and owns ``run`` /
 ``time_iteration`` / ``time_lanes``. The store's aux (out-degrees etc.)
 is shared across every Executor on the same store and device.
+``time_lanes`` samples feed the perf-model drift report and the
+utilization profiler (``utilization()``); the multi-device counterpart
+is :class:`repro_torch.sharding.executor.ShardedExecutor`.
 
 Execution is FUSED by default: each lane is one packed payload run as a
 single kernel launch (``kernels.ops.run_lane``) and the per-iteration
@@ -71,6 +74,8 @@ class Executor:
              launch; False launches per plan entry (bit-identical).
     device:  default ``cuda``; raises when there is no CUDA device and
              ``device="cpu"`` was not passed.
+    drift_parent / util_parent: service-level accumulators the
+             executor's drift and utilization samples also feed.
 
     Invariants: ``run`` returns properties in ORIGINAL vertex ids; one
     iteration runs exactly one merge (``dispatch_stats``).
@@ -79,7 +84,8 @@ class Executor:
     def __init__(self, store, bundle: PlanBundle, app: GASApp,
                  path: Optional[str] = None, fuse_lanes: bool = True,
                  device=None,
-                 drift_parent: Optional[obs.DriftAccumulator] = None):
+                 drift_parent: Optional[obs.DriftAccumulator] = None,
+                 util_parent: Optional[obs.UtilizationAccumulator] = None):
         self.store = store
         self.bundle = bundle
         self.app = app
@@ -95,6 +101,14 @@ class Executor:
         # estimated makespan, time_lanes samples vs lane estimates
         self.drift = obs.DriftAccumulator(parent=drift_parent)
         self._lane_est = perf_model.lane_estimates(bundle.plan)
+        # pipeline utilization profiler (obs.profile): the bytes each
+        # lane must move x measured lane times -> achieved GB/s and
+        # %-of-peak of the card's rate (none on the CPU); derived lazily
+        self.util = obs.UtilizationAccumulator(parent=util_parent)
+        self._peak_bps = perf_model.peak_bandwidth_bps(bundle.config.hw,
+                                                       self.device)
+        self._footprints = None      # lazy obs.lane_footprints
+        self._traffic = None         # lazy obs.lane_traffic per lane
 
         t0 = time.perf_counter()
         # shared across every app on this plan and device (memoized on
@@ -113,6 +127,32 @@ class Executor:
     @property
     def accum_dtype(self):
         return torch.int32 if self.app.gather == "or" else torch.float32
+
+    def footprints(self):
+        """Per-lane analytic :class:`~repro_torch.obs.profile.
+        LaneFootprint` (None for snapped-away lanes) of the payloads this
+        executor runs, derived once."""
+        if self._footprints is None:
+            self._footprints = obs.lane_footprints(self.lanes, self.V_pad)
+        return self._footprints
+
+    def lane_traffic(self):
+        """Per-lane (bytes, operations) one run of the lane must move and
+        do (:func:`~repro_torch.obs.profile.lane_traffic`; None for
+        snapped-away lanes), derived once."""
+        if self._traffic is None:
+            self._traffic = [obs.lane_traffic(lane, self.app.scatter_op)
+                             for lane in self.lanes]
+        return self._traffic
+
+    def _util_add(self, lane_idx: int, measured_s: float):
+        """Fold one measured lane execution into the utilization
+        accumulator, under its footprint's kind."""
+        fp = self.footprints()[lane_idx]
+        if fp is not None:
+            nbytes, n_ops = self.lane_traffic()[lane_idx]
+            self.util.add(fp.kind, nbytes, n_ops, measured_s,
+                          peak_bps=self._peak_bps, lane=lane_idx)
 
     # ------------------------------------------------------------------
     def _run_payload(self, payload, vprops):
@@ -181,7 +221,7 @@ class Executor:
         """Per-lane median wall times (s) — the quantity the scheduler
         balances. Lanes run one after another here; ``max()`` is the
         modelled makespan's analogue. Each lane sample also feeds the
-        drift report."""
+        drift report and the utilization profiler."""
         vprops = self.init_props()
         out = []
         for i, lane in enumerate(self.lanes):
@@ -201,6 +241,7 @@ class Executor:
             if i < len(self._lane_est):
                 e_i, kind_i = self._lane_est[i]
                 self.drift.add(kind_i, e_i, med)
+            self._util_add(i, med)
         return out
 
     # ------------------------------------------------------------------
@@ -208,6 +249,22 @@ class Executor:
         """Device bytes pinned by this executor's payloads (shared with
         every executor on the same plan and device)."""
         return sum(ops.payload_nbytes(p) for p in self._payloads)
+
+    def utilization(self) -> dict:
+        """The pipeline-utilization report: per-kind achieved GB/s (the
+        bytes each lane must move, :meth:`lane_traffic`, over its
+        host-clock time), %-of-peak (None without a known peak, as on
+        the CPU) and operations per byte from the accumulator, plus this
+        executor's per-lane analytic footprints (the reference's byte
+        classes) and bandwidth ceiling (``peak_bandwidth_gbps``, None
+        when unknown). Empty ``kinds``/``lanes`` until ``time_lanes``
+        has measured."""
+        rep = self.util.report()
+        rep["peak_bandwidth_gbps"] = (self._peak_bps / 1e9
+                                      if self._peak_bps > 0 else None)
+        rep["footprints"] = [fp.as_dict() if fp is not None else None
+                             for fp in self.footprints()]
+        return rep
 
     def dispatch_stats(self) -> dict:
         """What one iteration launches: one kernel per payload and ONE
@@ -244,5 +301,6 @@ class Executor:
             "padding_efficiency": (real_edges / padded_edges
                                    if padded_edges else 1.0),
             "drift": self.drift.report(),
+            "utilization": self.utilization(),
             **self.dispatch_stats(),
         }

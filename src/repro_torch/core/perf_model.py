@@ -13,14 +13,17 @@ paper's linear a*x+b law with x = number of unique sources.
 
 This module carries over what the planner and executor use (``HW``,
 ``_terms``, ``_combine``, ``estimate``, ``classify``,
-``estimate_big_batch``, ``lane_estimates``,
-``effective_peak_bandwidth_bps``); calibration comes with the autotune
-slice of the port.
+``estimate_big_batch``, ``lane_estimates``), and the device-aware
+bandwidth ceiling the utilization profiler divides by
+(``peak_bandwidth_bps``); calibration comes with the autotune slice of
+the port.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Iterable, List, Sequence
+
+import torch
 
 from .types import Geometry, PartitionInfo
 
@@ -54,8 +57,8 @@ class HW:
     # payloads at entry boundaries (kernels.ops.pack_lanes) —
     # bit-identical, just more launches.
     vmem_lane_budget: float = 0.0
-    # achievable device bandwidth in GB/s; 0 = derive from the stream
-    # terms via effective_peak_bandwidth_bps()
+    # achievable device bandwidth in GB/s; 0 = the card's data-sheet
+    # rate where it is known (peak_bandwidth_bps; 0 on the CPU)
     peak_bandwidth_gbps: float = 0.0
 
     def clone(self, **kw) -> "HW":
@@ -67,13 +70,25 @@ S_EDGE = 12          # src + dst + weight, 4 B each
 S_PROP = 4           # scalar f32/int32 property
 
 
-def effective_peak_bandwidth_bps(hw: HW) -> float:
-    """The bandwidth ceiling (bytes/s) the model believes the device
-    sustains: an explicit ``peak_bandwidth_gbps`` wins; otherwise the
-    base stream rate deflated by the edge-stream multiplier."""
+# data-sheet HBM rate (GB/s) by CUDA device name: the utilization
+# profiler's %-of-peak denominator when HW names none
+DATASHEET_HBM_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
+
+
+def peak_bandwidth_bps(hw: HW, device) -> float:
+    """The bandwidth ceiling (bytes/s) a CUDA ``device``'s utilization
+    is a fraction of: an explicit ``hw.peak_bandwidth_gbps``, else the
+    card's data-sheet rate from :data:`DATASHEET_HBM_GBPS`, else 0 (no
+    peak known: utilization is reported as None). Always 0 on the CPU.
+    The model's ``bw_hbm`` is a planning constant, never a device's
+    rate."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0.0
     if hw.peak_bandwidth_gbps > 0:
         return hw.peak_bandwidth_gbps * 1e9
-    return hw.bw_hbm / max(hw.c_edges, 1e-9)
+    return DATASHEET_HBM_GBPS.get(torch.cuda.get_device_name(device),
+                                  0.0) * 1e9
 
 
 def _terms(info: PartitionInfo, geom: Geometry, kind: str, hw: HW):

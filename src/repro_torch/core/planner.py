@@ -80,8 +80,9 @@ class PlanConfig:
 class PlanBundle:
     """A plan plus everything the Executor needs to materialize it:
     classified partition stats and the blocked works the lanes refer to.
-    Device payloads are memoized per device, so every app executing this
-    plan on one device shares them."""
+    Device payloads are memoized per device (and sharded forms per
+    device tuple), so every app executing this plan on one device shares
+    them."""
 
     config: PlanConfig
     infos: List[PartitionInfo]               # classified copies
@@ -97,6 +98,15 @@ class PlanBundle:
         default_factory=dict, repr=False, compare=False)
     _mat_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
+    # streaming carry-over counts (see packed_lanes(reuse=))
+    packed_lanes_reused: int = dataclasses.field(
+        default=0, repr=False, compare=False)
+    packed_bytes_reused: int = dataclasses.field(
+        default=0, repr=False, compare=False)
+    # sharded (multi-device) materializations: device tuple ->
+    # sharding.ShardedLanes (lane payloads resident on owner devices)
+    _sharded: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def dense(self) -> List[PartitionInfo]:
@@ -118,34 +128,71 @@ class PlanBundle:
                 self._lane_entries[device] = lanes
             return lanes
 
-    def packed_lanes(self, device) -> list:
+    def packed_lanes(self, device, reuse=None) -> list:
         """Fused payloads on ``device``: one packed payload per
         (lane, kind) instead of one per entry (see
-        ``kernels.ops.pack_lanes``), memoized per device."""
+        ``kernels.ops.pack_lanes``), memoized per device. ``reuse``
+        (lane idx -> packed payloads already on ``device``) carries
+        structurally-unchanged lanes over from a pre-delta bundle
+        (``repro_torch.streaming.rebuild_plans``) when the form is first
+        materialized: they are spliced in instead of re-packed and
+        re-uploaded (``packed_lanes_reused`` / ``packed_bytes_reused``
+        count them, over every device)."""
         with self._mat_lock:
             lanes = self._packed_lanes.get(device)
             if lanes is None:
                 from ..kernels import ops
                 with obs.span("plan.pack", "planner",
-                              lanes=len(self.plan.lanes)):
+                              lanes=len(self.plan.lanes),
+                              reused=len(reuse) if reuse else 0):
                     lanes = ops.pack_lanes(
                         self.plan, self.little_works, self.big_works,
-                        device,
+                        device, reuse=reuse,
                         max_working_set=self.config.hw.vmem_lane_budget)
+                if reuse:
+                    self.packed_lanes_reused += len(reuse)
+                    self.packed_bytes_reused += sum(
+                        ops.payload_nbytes(p)
+                        for lane in reuse.values() for p in lane)
                 self._packed_lanes[device] = lanes
             return lanes
 
+    def sharded_lanes(self, devices, keep=None, seed=None):
+        """Multi-device lane payloads: each lane packed (as in
+        :meth:`packed_lanes`) and uploaded to the OWNER device chosen by
+        the LPT placement (see ``repro_torch.sharding``). Memoized per
+        device tuple. When the form is first materialized, ``keep``
+        (lane idx -> owner idx) pins clean lanes of a pre-delta form to
+        their old owners and ``seed`` (lane idx -> resident payloads)
+        splices their payloads in without re-transfer
+        (``ShardedLanes.moved`` / ``reused`` account for it)."""
+        from ..sharding.executor import materialize_sharded
+        devices = tuple(devices)
+        with self._mat_lock:
+            sharded = self._sharded.get(devices)
+            if sharded is None:
+                with obs.span("plan.shard", "planner",
+                              devices=len(devices),
+                              reused=len(seed) if seed else 0):
+                    sharded = materialize_sharded(self, devices,
+                                                  keep=keep, seed=seed)
+                self._sharded[devices] = sharded
+            return sharded
+
     def device_bytes(self) -> dict:
         """Device bytes pinned by the payload forms materialized so far,
-        over every device."""
+        over every device (each sharded form counted once)."""
         from ..kernels import ops
-        out = {"entry_bytes": 0, "packed_bytes": 0}
+        out = {"entry_bytes": 0, "packed_bytes": 0, "sharded_bytes": 0}
         for key, forms in (("entry_bytes", self._lane_entries),
                            ("packed_bytes", self._packed_lanes)):
             out[key] = sum(ops.payload_nbytes(p)
                            for lanes in list(forms.values())
                            for lane in lanes for p in lane)
-        out["total_bytes"] = out["entry_bytes"] + out["packed_bytes"]
+        out["sharded_bytes"] = sum(
+            s.nbytes() for s in list(self._sharded.values()))
+        out["total_bytes"] = (out["entry_bytes"] + out["packed_bytes"]
+                              + out["sharded_bytes"])
         return out
 
 

@@ -15,6 +15,11 @@ Layering (see repro_torch/api.py):
     GraphStore  — per (graph, geometry); owns edges + blockings
       Planner   — per PlanConfig; classification + lane schedule (cheap)
         Executor — per (plan, app, device); payloads + eager run loop
+        ShardedExecutor — per (plan, app, devices); lane-sharded
+
+A store changes only through :func:`repro_torch.streaming.apply_delta`,
+which builds a derived store (:meth:`GraphStore._derived`) and leaves
+the base untouched.
 """
 from __future__ import annotations
 
@@ -105,9 +110,57 @@ class GraphStore:
         self.plan_evictions = 0
         self._aux: Dict[torch.device, dict] = {}
 
+    @classmethod
+    def _derived(cls, base: "GraphStore", *, graph: Graph,
+                 infos: List[PartitionInfo], edges: dict,
+                 little_cache: Dict[int, BlockedEdges],
+                 big_cache: Dict[Tuple[int, ...], BlockedEdges],
+                 fingerprint: str, t_partition: float = 0.0,
+                 perm: Optional[np.ndarray] = None,
+                 V_pad: Optional[int] = None) -> "GraphStore":
+        """Build a store by splicing delta-updated state into a base
+        store's layout (used by :func:`repro_torch.streaming.apply_delta`).
+        Shares the base's frozen permutation and the untouched
+        blockings; carries no source graph (``source is None`` — the
+        chained ``fingerprint`` is its identity) and starts with an
+        empty plan cache and no device aux (the streaming layer rebuilds
+        plans surgically; aux rebuilds per device on first use).
+        Vertex-growth deltas pass ``perm``/``V_pad`` overrides: the
+        permutation extended identity-wise over the new tail ids, and
+        the padding recomputed for the grown vertex count. While base
+        and derived stores are both alive, shared state — perm, carried
+        blockings, reused device payloads — is counted in both stores'
+        ``memory_footprint()`` (attribution, not exclusive ownership)."""
+        self = cls.__new__(cls)
+        self.geom = base.geom
+        self.use_dbg = base.use_dbg
+        self.max_plans = base.max_plans
+        self.source = None
+        self._fp = fingerprint
+        self.graph = graph
+        self.perm = base.perm if perm is None else perm
+        self.t_dbg = 0.0
+        self._infos = infos
+        self.edges = edges
+        self.V_pad = base.V_pad if V_pad is None else int(V_pad)
+        self.t_partition = t_partition
+        self._little_cache = dict(little_cache)
+        self._big_cache = dict(big_cache)
+        self.t_block = 0.0
+        self._plan_cache = collections.OrderedDict()
+        self._plan_lock = threading.RLock()
+        self.plan_evictions = 0
+        self._aux = {}
+        return self
+
     def fingerprint(self) -> str:
-        """Identity of the graph this store was built from."""
+        """Identity of the graph this store was built from: the source
+        graph's content hash, or — for delta-derived stores — the
+        chained ``(base_fp, delta_fp)`` fingerprint set at derivation."""
         if self._fp is None:
+            if self.source is None:
+                raise RuntimeError("derived store carries no source graph "
+                                   "and was given no fingerprint")
             self._fp = self.source.fingerprint()
         return self._fp
 
@@ -215,13 +268,42 @@ class GraphStore:
             self._plan_cache.clear()
         return {"plans": n, "freed_bytes": int(freed)}
 
+    def shard(self, config=None, devices=None):
+        """Place and upload the (cached) plan's lanes across devices:
+        lanes are LPT-assigned to owners from the perf model's per-lane
+        estimates and each lane's packed tensors are uploaded to its
+        owner. Returns the memoized
+        :class:`~repro_torch.sharding.executor.ShardedLanes`; ``devices``
+        is anything :func:`~repro_torch.sharding.executor.resolve_devices`
+        accepts (None = every CUDA device, int n = the first n, or an
+        explicit device sequence)."""
+        from ..sharding.executor import resolve_devices
+        return self.plan(config).sharded_lanes(resolve_devices(devices))
+
     def executor(self, app, config=None, path: Optional[str] = None,
-                 fuse_lanes: bool = True, device=None):
+                 fuse_lanes: bool = True, device=None, shard=None):
         """Materialize an executor for one app on the (cached) plan for
         ``config``, on ``device`` (default ``cuda``; raises when there is
         no CUDA device and ``device="cpu"`` was not passed).
         ``fuse_lanes=False`` launches once per plan entry instead of once
-        per packed lane (bit-identical results)."""
+        per packed lane (bit-identical results). ``shard`` switches to
+        the multi-device
+        :class:`~repro_torch.sharding.executor.ShardedExecutor` (per-device
+        lane ownership, one merge per iteration): ``True`` shards over
+        every CUDA device, an int over the first n, a device sequence
+        over exactly those; ``None``/``False`` keeps the single-device
+        Executor. ``shard`` names the devices, so it excludes
+        ``device``."""
+        if shard is not None and shard is not False:
+            if device is not None:
+                raise ValueError("pass either device= or shard=, not both "
+                                 "(shard= names the devices)")
+            if not fuse_lanes:
+                raise ValueError("the sharded executor runs packed lanes; "
+                                 "fuse_lanes=False has no sharded form")
+            from ..sharding.executor import ShardedExecutor
+            return ShardedExecutor(self, self.plan(config), app,
+                                   devices=shard, path=path)
         from .executor import Executor
         return Executor(self, self.plan(config), app, path=path,
                         fuse_lanes=fuse_lanes,
@@ -263,6 +345,30 @@ class GraphStore:
                                + plan_bytes + aux_bytes),
         }
 
+    def placement_stats(self) -> dict:
+        """Per-device placement section: lanes and payload bytes per
+        device plus the worst imbalance ratio, over every cached plan's
+        sharded forms (``devices == 0`` when nothing is sharded)."""
+        with self._plan_lock:
+            bundles = list(self._plan_cache.values())
+        forms = [s.stats() for b in bundles
+                 for s in list(b._sharded.values())]
+        n_dev = max((s["n_devices"] for s in forms), default=0)
+        lanes = [0] * n_dev
+        nbytes = [0] * n_dev
+        for s in forms:
+            for d in range(s["n_devices"]):
+                lanes[d] += s["lanes_per_device"][d]
+                nbytes[d] += s["bytes_per_device"][d]
+        return {
+            "devices": n_dev,
+            "sharded_plans": len(forms),
+            "lanes_per_device": lanes,
+            "bytes_per_device": nbytes,
+            "imbalance": max((s["imbalance"] for s in forms),
+                             default=1.0),
+        }
+
     def stats(self) -> dict:
         return {
             "V": self.graph.num_vertices,
@@ -275,6 +381,7 @@ class GraphStore:
             "cached_big_works": len(self._big_cache),
             "cached_plans": len(self._plan_cache),
             "plan_evictions": self.plan_evictions,
+            "placement": self.placement_stats(),
             **self.memory_footprint(),
         }
 

@@ -11,6 +11,8 @@ a lane concatenated host-side into one payload (per-segment tile ids
 rebased to a global tile map, Big window ids rebased against the packed
 unique-source tables), uploaded in one shot. ``run_lane`` then runs a
 whole lane as ONE kernel launch instead of one per entry.
+``pack_lanes_sharded`` uploads each lane to its owner device instead,
+and both splice in lanes carried over from before a streaming delta.
 
 Every payload carries ``tile_block_start`` and ``tile_chunk_start``
 (``n_out_tiles + 1`` int32 each): the first block and the first chunk
@@ -364,28 +366,98 @@ def _pack_lane_np(lane, little_works, big_works,
             for chunk in _chunk_entries(g, geom, max_working_set)]
 
 
-def pack_lanes_np(plan, little_works, big_works,
-                  max_working_set: float = 0.0) -> List[List[dict]]:
-    """Host-side packed payloads of every lane, checked for global tile
-    disjointness."""
-    host = [_pack_lane_np(lane, little_works, big_works, max_working_set)
-            for lane in plan.lanes]
-    idx = [p["tile_idx"] for lane in host for p in lane]
+def pack_lane(lane, little_works, big_works, device,
+              max_working_set: float = 0.0) -> List[dict]:
+    """Pack one lane's plan entries into at most two payloads (more
+    under working-set chunking): built host-side, concatenated,
+    validated, uploaded once to ``device``."""
+    return [_upload_payload(p, device)
+            for p in _pack_lane_np(lane, little_works, big_works,
+                                   max_working_set)]
+
+
+def _check_lanes_disjoint(host, reuse) -> None:
+    """Global tile disjointness ACROSS lanes: the single
+    ``index_copy_`` of :func:`merge_all` (fused and sharded alike)
+    relies on every destination tile being written by exactly one
+    payload. ``_validate_packed`` covers one payload; this covers all.
+    ``host[i]`` is lane i's host payloads, or None for a lane taken
+    from ``reuse`` (its device ``tile_idx`` is read back: tiny per-tile
+    arrays), checked before anything new is uploaded."""
+    idx = []
+    for i, lane in enumerate(host):
+        if lane is None:
+            idx += [p["tile_idx"].cpu().numpy() for p in reuse[i]]
+        else:
+            idx += [p["tile_idx"] for p in lane]
     all_idx = np.concatenate(idx) if idx else np.zeros(0, np.int32)
     assert np.unique(all_idx).shape[0] == all_idx.shape[0], \
         "plan assigns the same destination tile to multiple lanes"
+
+
+def _host_lanes(plan, little_works, big_works, reuse,
+                max_working_set) -> list:
+    """Host payloads of every lane not in ``reuse`` (None for those),
+    checked for global tile disjointness with the reused ones."""
+    host = [None if i in reuse
+            else _pack_lane_np(lane, little_works, big_works,
+                               max_working_set)
+            for i, lane in enumerate(plan.lanes)]
+    _check_lanes_disjoint(host, reuse)
     return host
 
 
 def pack_lanes(plan, little_works, big_works, device,
+               reuse: Optional[dict] = None,
                max_working_set: float = 0.0) -> List[List[dict]]:
     """Fused counterpart of :func:`materialize_lanes`: one packed payload
     per (lane, kind) instead of one payload per entry, uploaded to
-    ``device``. ``max_working_set`` (bytes; 0 = off) chunks a lane's
-    packed segments — bit-identical results, more launches."""
-    return [[_upload_payload(p, device) for p in lane]
-            for lane in pack_lanes_np(plan, little_works, big_works,
-                                      max_working_set)]
+    ``device``.
+
+    ``reuse`` maps lane index -> payload list already on ``device`` (the
+    streaming layer seeds it with payloads carried over from a
+    pre-delta bundle whose lane is structurally unchanged). Reused lanes
+    skip host-side packing AND the upload: the same tensors are spliced
+    in. ``max_working_set`` (bytes; 0 = off) chunks a lane's packed
+    segments — bit-identical results, more launches."""
+    reuse = reuse or {}
+    host = _host_lanes(plan, little_works, big_works, reuse,
+                       max_working_set)
+    return [reuse[i] if lane is None
+            else [_upload_payload(p, device) for p in lane]
+            for i, lane in enumerate(host)]
+
+
+def pack_lanes_sharded(plan, little_works, big_works, owners, devices,
+                       reuse: Optional[dict] = None,
+                       max_working_set: float = 0.0):
+    """Sharded counterpart of :func:`pack_lanes`: pack each lane
+    host-side and upload its payloads to its OWNER device
+    (``devices[owners[i]]`` for lane ``i``).
+
+    ``reuse`` maps lane index -> payload list already RESIDENT on its
+    owner (streaming carry-over of clean, placement-pinned lanes);
+    reused lanes skip packing and the transfer entirely but still take
+    part in the global disjointness check.
+
+    Returns ``(lanes, moved, bytes_moved)``: ``moved`` counts the
+    non-empty lanes uploaded by this call and ``bytes_moved`` their
+    device bytes.
+    """
+    reuse = reuse or {}
+    host = _host_lanes(plan, little_works, big_works, reuse,
+                       max_working_set)
+    lanes, moved, bytes_moved = [], 0, 0
+    for i, lane in enumerate(host):
+        if lane is None:
+            lanes.append(reuse[i])
+            continue
+        up = [_upload_payload(p, devices[owners[i]]) for p in lane]
+        if up:
+            moved += 1
+            bytes_moved += sum(payload_nbytes(p) for p in up)
+        lanes.append(up)
+    return lanes, moved, bytes_moved
 
 
 def payload_nbytes(payload: dict) -> int:

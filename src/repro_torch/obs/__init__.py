@@ -1,4 +1,5 @@
-"""Structured observability: tracing spans + perf-model drift.
+"""Structured observability: tracing spans, perf-model drift, pipeline
+utilization and the perf ledger.
 
 * :mod:`~repro_torch.obs.trace` — a lock-guarded :class:`Tracer`
   producing nested :class:`Span` records with thread-local context
@@ -7,15 +8,30 @@
   tracer is active.
 * :mod:`~repro_torch.obs.drift` — :class:`DriftAccumulator`, aggregating
   measured-vs-model-estimated lane and iteration times per kind.
+* :mod:`~repro_torch.obs.profile` — the pipeline utilization profiler:
+  analytic per-lane byte/FLOP footprints (:class:`LaneFootprint`, the
+  reference's byte classes), the bytes and operations a lane must move
+  and do on the card (:func:`lane_traffic`), and measured lane times
+  combined into achieved GB/s, operations per byte and %-of-peak
+  (:class:`UtilizationAccumulator`).
+* :mod:`~repro_torch.obs.ledger` — :class:`PerfLedger`, the append-only
+  JSONL perf-regression ledger.
 
-Framework-free copies of the reference package's modules of the same
-names.
+Ports of the reference package's modules of the same names; trace,
+drift and ledger are framework-free copies.
 """
 from .drift import DriftAccumulator
+from .ledger import PerfLedger, flatten_metrics, git_sha
+from .profile import (LaneFootprint, UtilizationAccumulator,
+                      lane_footprint, lane_footprints, lane_traffic,
+                      launch_traffic, tensor_lane_bytes)
 from .trace import (NOOP_SPAN, Span, SpanContext, Tracer, current,
                     current_ctx, current_tracer, span)
 
 __all__ = [
-    "DriftAccumulator", "NOOP_SPAN", "Span", "SpanContext", "Tracer",
-    "current", "current_ctx", "current_tracer", "span",
+    "DriftAccumulator", "LaneFootprint", "NOOP_SPAN", "PerfLedger",
+    "Span", "SpanContext", "Tracer", "UtilizationAccumulator",
+    "current", "current_ctx", "current_tracer", "flatten_metrics",
+    "git_sha", "lane_footprint", "lane_footprints", "lane_traffic",
+    "launch_traffic", "span", "tensor_lane_bytes",
 ]

@@ -1,6 +1,9 @@
 """Card-only tests of the port: the CUDA GAS kernel against its plain
 version (on graph payloads and on a heavy tile that spans many chunks),
-its launch count, its refusals, and the main path on the card.
+its launch count, its refusals, the main path on the card, and the
+changing-graph paths through the kernel: sharded == fused, a derived
+store == a cold rebuild after a delta, and reused payloads kept in
+place.
 They import neither JAX nor the reference package, so they also run on
 a machine with a card and no JAX:
 
@@ -17,6 +20,8 @@ from repro_torch.core.gas import SCATTER_OPS
 from repro_torch.core.types import Geometry
 from repro_torch.graphs.rmat import rmat
 from repro_torch.kernels import gas_kernel, ops, ref
+from repro_torch.streaming import (apply_delta, apply_delta_to_graph,
+                                   random_delta)
 
 GEOM = Geometry(U=512, W=512, T=512, E_BLK=128, big_batch=2)
 MODE_OPS = [("sum", "copy"), ("sum", "add_weight"), ("min", "copy"),
@@ -196,3 +201,104 @@ def test_main_path_on_card_matches_plain_path(app, device):
     else:
         assert ma["iterations"] == mb["iterations"]
         assert np.array_equal(a, b)
+
+
+# -- the changing-graph paths through the kernel ------------------------
+
+SHARD_GEOM = Geometry(U=128, W=128, T=128, E_BLK=128, big_batch=2)
+APPS = ["pagerank", "bfs", "sssp", "wcc", "closeness"]
+
+
+@pytest.fixture(scope="module")
+def shard_graph():
+    return rmat(11, 8, seed=5, weighted=True)
+
+
+def _run(store, app, max_iters=4, **where):
+    return api.compile(None, app, store=store, n_lanes=8,
+                       **where).run(max_iters=max_iters)
+
+
+@pytest.mark.parametrize("app", APPS)
+def test_sharded_equals_fused_on_card(app, device, shard_graph):
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    want, mw = _run(store, app)
+    for shard in (1, [device, device]):
+        gas_kernel.gas_tiles.launches = 0
+        c = api.compile(None, app, store=store, n_lanes=8, shard=shard)
+        got, mg = c.run(max_iters=4)
+        torch.cuda.synchronize()
+        assert c.executor.path == "cuda"
+        assert gas_kernel.gas_tiles.launches == \
+            mg["iterations"] * c.stats()["kernel_dispatches"] > 0
+        assert c.stats()["last_iteration"]["merges"] == 1
+        assert mg["iterations"] == mw["iterations"]
+        assert np.array_equal(got, want)
+
+
+def test_sharded_over_every_card(device, shard_graph):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    n = torch.cuda.device_count()
+    c = api.compile(None, "pagerank", store=store, n_lanes=8, shard=True)
+    sh = c.executor.sharded
+    assert len(sh.devices) == n
+    for i, lane in enumerate(sh.lanes):
+        for p in lane:
+            assert p["src_local"].device == \
+                sh.devices[sh.placement.device_of_lane[i]]
+    for app in APPS:
+        want, mw = _run(store, app)
+        got, mg = _run(store, app, shard=True)
+        assert mg["iterations"] == mw["iterations"]
+        assert np.array_equal(got, want)
+
+
+def test_delta_on_card_derived_equals_cold_and_keeps_tensors(
+        device, shard_graph):
+    """After a delta with the fused and a sharded form on the card: the
+    reused lanes hold the same tensors (same data_ptr()), and every app
+    on the derived store, fused and sharded, is bit-equal to a cold
+    rebuild run the same ways and agrees with the plain path on the
+    derived store (PageRank within rtol 1e-5 / atol 1e-7, the others
+    exactly)."""
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    cfg = api.PlanConfig(n_lanes=8)
+    owners = [device, device]
+    packed0 = store.plan(cfg).packed_lanes(device)
+    sharded0 = store.shard(cfg, owners)
+    ptrs0 = {id(lane): [v.data_ptr() for p in lane for v in p.values()
+                        if isinstance(v, torch.Tensor)]
+             for lane in packed0 + sharded0.lanes}
+    delta = random_delta(shard_graph, churn=0.005, seed=11, hot_frac=0.05,
+                         grow_frac=0.01)
+    res = apply_delta(store, delta)
+    s = res.stats
+    assert s["packed_lanes_reused"] > 0 and s["shards_reused"] > 0
+    for new, n_reused in (
+            (res.store.plan(cfg).packed_lanes(device),
+             s["packed_lanes_reused"]),
+            (res.store.shard(cfg, owners).lanes, s["shards_reused"])):
+        kept = [lane for lane in new if id(lane) in ptrs0]
+        assert len(kept) == n_reused
+        for lane in kept:
+            assert [v.data_ptr() for p in lane for v in p.values()
+                    if isinstance(v, torch.Tensor)] == ptrs0[id(lane)]
+    cold = api.GraphStore(apply_delta_to_graph(shard_graph, delta),
+                          geom=SHARD_GEOM, perm=res.store.perm)
+    for app in APPS:
+        plain, mp = _run(res.store, app, path="ref")
+        for where in ({}, {"shard": owners}):
+            gas_kernel.gas_tiles.launches = 0
+            got, mg = _run(res.store, app, **where)
+            torch.cuda.synchronize()
+            assert gas_kernel.gas_tiles.launches > 0
+            want, mw = _run(cold, app, **where)
+            assert mg["iterations"] == mw["iterations"]
+            assert np.array_equal(got, want), (app, where)
+            assert mg["iterations"] == mp["iterations"]
+            if app == "pagerank":
+                np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-7)
+            else:
+                assert np.array_equal(got, plain), (app, where)

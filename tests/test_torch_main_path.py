@@ -104,11 +104,17 @@ def test_gather_matches_edge_oracle(stores):
 
 
 def test_port_imports_no_jax_and_no_reference():
+    """Every module of the port, the streaming, sharding and obs
+    packages among them, imports neither JAX nor the reference."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in ('streaming', 'streaming.apply', 'streaming.delta', "
+        "'streaming.regroup', 'sharding', 'sharding.executor', "
+        "'sharding.placement', 'obs', 'obs.profile', 'obs.ledger'):\n"
+        "    assert 'repro_torch.' + name in mods, name\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -119,7 +125,7 @@ def test_port_imports_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20      # every module was imported
+    assert int(proc.stdout.strip()) >= 30      # every module was imported
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, small_graph,
