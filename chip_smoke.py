@@ -73,6 +73,30 @@ Phases (any failed check exits non-zero before the last line):
    data-sheet rate when the card is in ``perf_model.DATASHEET_HBM_GBPS``),
    and each lane's analytic ``total_bytes`` within 10 % of
    ``tensor_lane_bytes``.
+8. Serving: a ``GraphService(cache=..., device=cuda, workers=2)`` whose
+   store cache is seeded with phase 3's store. The five builtin apps
+   once each, each bit-equal (``torch.equal``) to a direct ``Executor``
+   on the same store and plan, PageRank also within rtol 1e-5 / atol
+   1e-7 of the plain path; 20 warm PageRank requests one after another
+   (stages, p50 and p99) beside ``Executor.run`` alone on the same
+   executor, on the main thread and on a plain thread; a burst of 8
+   identical submits, which must run once; then the phase 6 delta
+   through ``GraphService(pool=1)`` (a spawned worker splices it), whose
+   snapshot's PageRank and BFS must be bit-equal to phase 6's derived
+   store, timed beside phase 6's in-process apply, with what shipping
+   the base store costs (pickle bytes and ms, unpickle ms, a pool
+   pipe's ms).
+9. Control plane: ``ControlPlane(service).serve_http("127.0.0.1", 0)``.
+   Two rounds of a PageRank and a BFS job over HTTP, equal to phase 8's;
+   ``/metrics``, ``/dashboard``, ``/metrics.json`` and ``/readyz`` answer
+   200; the ``/healthz`` round trip; one PageRank job on a new executor
+   key under a ``Tracer(lane_detail=True)``, bit-equal to phase 8's
+   untraced PageRank, whose trace must hold ``service.store``,
+   ``service.plan``, ``service.execute``, one ``executor.lane`` span per
+   non-empty lane per iteration and ``executor.merge_apply``.
+   ``launches_by_path`` counts the kernel's launches on the serving and
+   control paths (zeroed just before each run of the service, read just
+   after; the comparison runs are not counted).
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -83,6 +107,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -468,7 +493,7 @@ def phase_main_path(device, scale=SCALE, edge_factor=EDGE_FACTOR, seed=SEED,
     }
     res["_store"], res["_payloads"], res["_vprops"] = store, payloads, vprops
     res["_pr"], res["_bfs"], res["_config"] = pr_k, bfs_k, config
-    res["_graph"] = graph
+    res["_graph"], res["_pr_plain"] = graph, pr_r
     return res
 
 
@@ -981,6 +1006,8 @@ def phase_streaming(main_res: dict, device) -> dict:
                     "pack": t_pack * 1e3,
                     "store_plan_pack": (t_store + t_plan + t_pack) * 1e3},
         "packed_bytes": derived.device_bytes()["packed_bytes"],
+        "_delta": delta, "_fingerprint": res.fingerprint,
+        "_fused": got["fused"],
     }
 
 
@@ -1020,6 +1047,358 @@ def phase_utilization(main_res: dict, reps: int = REPS) -> dict:
                                              else 100 * k["utilization"])}
                   for kind, k in rep["kinds"].items()},
     }
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-9: the serving layer and the control plane
+# ---------------------------------------------------------------------------
+
+SERVE_APPS = [("pagerank", {}), ("bfs", {}), ("sssp", {}), ("wcc", {}),
+              ("closeness", {})]
+N_WARM, BURST = 20, 8
+
+
+def _stages(h) -> dict:
+    m = h.metrics
+    return {k: getattr(m, k) for k in ("t_queue_ms", "t_store_ms",
+                                       "t_plan_ms", "t_execute_ms",
+                                       "t_total_ms")}
+
+
+def _pct(xs, p: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), p))
+
+
+def _seeded_cache(store):
+    """A GraphStoreCache holding ``store`` under its service key (spares
+    the service a second store build)."""
+    from repro_torch.serve_graph import GraphStoreCache, store_key
+    cache = GraphStoreCache()
+    cache.put(store_key(store.fingerprint(), store.geom, store.use_dbg),
+              store)
+    return cache
+
+
+def _ship_cost(store) -> dict:
+    """What shipping ``store`` to a spawned worker costs, piece by piece:
+    its pickle (bytes, ms), unpickling it, and sending the bytes through
+    a process pool's pipe to a bare spawned process (which imports
+    nothing of the port)."""
+    import multiprocessing
+    import pickle
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    blob = pickle.dumps(store)
+    t1 = time.perf_counter()
+    pickle.loads(blob)
+    t2 = time.perf_counter()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn")) as ex:
+        ex.submit(len, b"").result()               # the process is up
+        t3 = time.perf_counter()
+        check(ex.submit(len, blob).result() == len(blob), "pipe lost bytes")
+        t4 = time.perf_counter()
+    return {"base_pickle_bytes": len(blob), "t_pickle_ms": (t1 - t0) * 1e3,
+            "t_unpickle_ms": (t2 - t1) * 1e3, "t_ship_ms": (t4 - t3) * 1e3}
+
+
+def phase_serving(main_res: dict, stream_res: dict, device) -> tuple:
+    """GraphService on the card over phase 3's store: the five builtin
+    apps once each, 20 warm PageRank requests, a burst of 8 identical
+    submits (one execution), then the phase 6 delta through a service
+    with a spawned pool worker. Returns (report, the running service,
+    each app's served props)."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core.executor import Executor
+    from repro_torch.core.gas import BUILTIN_APPS
+
+    store, config, graph = (main_res["_store"], main_res["_config"],
+                            main_res["_graph"])
+    fp = store.fingerprint()
+    out = {"launches": 0}
+    svc = api.GraphService(cache=_seeded_cache(store), device=device,
+                           workers=2)
+    check(svc.device == device, f"service device {svc.device}")
+
+    def serve(app, kw, **extra):
+        return svc.submit(fingerprint=fp, app=app, app_kwargs=kw,
+                          config=config, **extra)
+
+    # -- the five apps, once each (counted) -----------------------------
+    def five():
+        hs = [serve(app, kw) for app, kw in SERVE_APPS]
+        return [h.result(timeout=600) for h in hs], hs
+    (results, hs), n = _counted(five)
+    out["launches"] += n
+    out["requests"] = {app: _stages(h) for (app, _), h in
+                       zip(SERVE_APPS, hs)}
+    served = {}
+    for (app, kw), (props, meta) in zip(SERVE_APPS, results):
+        ex = Executor(store, store.plan(config), BUILTIN_APPS[app](**kw),
+                      device=device)
+        want, wmeta = ex.run()
+        check(meta["iterations"] == wmeta["iterations"]
+              and _same(props, want),
+              f"served {app} != a direct Executor on the same store and "
+              "plan")
+        check(props.shape == (graph.num_vertices,)
+              and (app != "pagerank" or np.isfinite(props).all()),
+              f"served {app}: non-finite or misshapen result")
+        served[app] = (props, meta)
+    pr, pr_meta = served["pagerank"]
+    k = pr_meta["iterations"]
+    plain, plain_meta = main_res["_pr_plain"].run(max_iters=k)
+    out["pagerank_max_rel_err_vs_plain"] = _max_rel(pr, plain)
+    check(abs(plain_meta["iterations"] - k) <= 1
+          and np.allclose(pr, plain, rtol=1e-5, atol=1e-7),
+          f"served PageRank vs the plain path: max rel err "
+          f"{out['pagerank_max_rel_err_vs_plain']}")
+
+    # -- 20 warm PageRank requests one after another (counted) ----------
+    def warm():
+        stages = []
+        for _ in range(N_WARM):
+            h = serve("pagerank", {})
+            props, _ = h.result(timeout=600)
+            check(_same(props, pr), "a warm PageRank request changed")
+            check(h.metrics.store_hit and h.metrics.plan_hit,
+                  "a warm request missed the store or plan cache")
+            stages.append(_stages(h))
+        return stages
+    stages, n = _counted(warm)
+    out["launches"] += n
+    totals = [st["t_total_ms"] for st in stages]
+    (ex, _), = [v for key, v in svc._executors.items()
+                if key[1][1] == "pagerank"]
+    def run_alone(ms):
+        for _ in range(N_WARM):
+            t0 = time.perf_counter()
+            ex.run()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    alone, in_thread = [], []
+    run_alone(alone)
+    # the same runs on a plain thread of their own (no service around
+    # them): does the thread alone account for the service's overhead?
+    t = threading.Thread(target=run_alone, args=(in_thread,))
+    t.start()
+    t.join(timeout=600)
+    check(not t.is_alive() and len(in_thread) == N_WARM,
+          "the runs on a plain thread did not finish")
+    out["warm_pagerank_ms"] = {
+        "service_p50": _pct(totals, 50), "service_p99": _pct(totals, 99),
+        **{k[2:-3] + "_p50": _pct([st[k] for st in stages], 50)
+           for k in ("t_queue_ms", "t_store_ms", "t_plan_ms",
+                     "t_execute_ms")},
+        "executor_run_p50": _pct(alone, 50),
+        "executor_run_p99": _pct(alone, 99),
+        "executor_run_thread_p50": _pct(in_thread, 50)}
+    out["warm_pagerank_ms"]["overhead_p50"] = (
+        out["warm_pagerank_ms"]["service_p50"]
+        - out["warm_pagerank_ms"]["executor_run_p50"])
+    # each request's lease re-measures the store on release
+    # (GraphStoreCache.lease): its share of the overhead
+    foot = []
+    for _ in range(N_WARM):
+        t0 = time.perf_counter()
+        store.memory_footprint()
+        foot.append((time.perf_counter() - t0) * 1e3)
+    out["warm_pagerank_ms"]["memory_footprint_p50"] = _pct(foot, 50)
+
+    # -- a burst of identical submits coalesces (counted) ---------------
+    before = svc.metrics.snapshot()["executions"]
+
+    def burst():
+        hs = [serve("pagerank", {}) for _ in range(BURST)]
+        return [h.result(timeout=600) for h in hs], hs
+    (res_b, hs_b), n = _counted(burst)
+    out["launches"] += n
+    executions = svc.metrics.snapshot()["executions"] - before
+    out["burst"] = {"submits": BURST, "executions": executions,
+                    "coalesced": sum(h.metrics.coalesced for h in hs_b)}
+    check(executions == 1,
+          f"{BURST} identical submits ran {executions} executions")
+    check(all(r[0] is res_b[0][0] for r in res_b) and _same(res_b[0][0], pr),
+          "the coalesced burst did not fan one result out")
+
+    # -- an update through a spawned pool worker (counted) --------------
+    delta = stream_res["_delta"]
+    with api.GraphService(cache=_seeded_cache(store), device=device,
+                          pool=1) as psvc:
+        t0 = time.perf_counter()
+        up = psvc.update(fp, delta)
+        t_update = (time.perf_counter() - t0) * 1e3
+        check(up.mode == "incremental" and up.fingerprint
+              == stream_res["_fingerprint"],
+              f"pool update: mode {up.mode}, fingerprint {up.fingerprint}")
+
+        def after():
+            a = psvc.submit(fingerprint=up.fingerprint, app="pagerank",
+                            config=config, max_iters=4).result(timeout=600)
+            b = psvc.submit(fingerprint=up.fingerprint, app="bfs",
+                            config=config).result(timeout=600)
+            return a, b
+        ((pr4, m4), (bfs, mb)), n = _counted(after)
+        out["launches"] += n
+        (want_pr, n_pr), (want_bfs, n_bfs) = stream_res["_fused"]
+        check(m4["iterations"] == n_pr and _same(pr4, want_pr),
+              "PageRank on the pool-updated snapshot != phase 6's "
+              "derived store")
+        check(mb["iterations"] == n_bfs and _same(bfs, want_bfs),
+              "BFS on the pool-updated snapshot != phase 6's derived store")
+        out["pool_update"] = {
+            "scale": SCALE, "t_update_ms": t_update,
+            "t_pool_apply_ms": up.stats["t_apply_ms"],
+            "t_splice_ms": up.stats["t_splice_ms"],
+            "t_replan_ms": up.stats["t_replan_ms"],
+            "in_process_apply_ms": stream_res["t_apply_ms"],
+            "packed_lanes_reused": up.stats["packed_lanes_reused"],
+            "pool": psvc.stats()["pool"], **_ship_cost(store)}
+    check(out["launches"] > 0, "the serving path never launched the kernel")
+    out["service"] = {k: v for k, v in svc.metrics.snapshot().items()
+                      if k in ("submitted", "completed", "executions",
+                               "coalesced", "store_hits", "plan_hits")}
+    return out, svc, served
+
+
+def _http(method: str, url: str, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        url, method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        data = r.read()
+        is_json = "json" in r.headers.get("Content-Type", "")
+        return r.status, (json.loads(data) if is_json else data.decode())
+
+
+def _job_metrics(plane, jid: str) -> dict:
+    """A finished job's request metrics: the record turns terminal just
+    after the handle resolves (the observer fires last)."""
+    from repro_torch.control.jobs import JobState
+    deadline = time.perf_counter() + 30
+    while time.perf_counter() < deadline:
+        rec = plane.jobs.get(jid)
+        if rec.state in JobState.TERMINAL:
+            check(rec.state == JobState.DONE and rec.metrics,
+                  f"job {jid} ended {rec.state}: {rec.error}")
+            return rec.metrics
+        time.sleep(0.01)
+    raise CheckFailed(f"job {jid} never reached a terminal state")
+
+
+def phase_control(main_res: dict, svc, served: dict, device) -> dict:
+    """The control plane over phase 8's service on 127.0.0.1 (port 0):
+    a PageRank and a BFS job over HTTP equal to phase 8's, /metrics and
+    /dashboard, then one job with lane detail whose trace covers the
+    store, the plan, the execution and every non-empty lane, bit-equal
+    to the untraced run."""
+    from repro_torch import api
+
+    store, config = main_res["_store"], main_res["_config"]
+    fp = store.fingerprint()
+    out = {"launches": 0}
+    tracer = api.Tracer(lane_detail=True)
+    plane = api.ControlPlane(svc, tracer=tracer)
+    check(plane.tracer is tracer, "the plane did not take the tracer")
+    try:
+        _, base = plane.serve_http(host="127.0.0.1", port=0)
+
+        def jobs():
+            got = []                # two rounds: the first pays each
+            for _ in range(2):      # executor's first traced run
+                for app in ("pagerank", "bfs"):
+                    t0 = time.perf_counter()
+                    st, rec = _http("POST", base + "/jobs", {
+                        "fingerprint": fp, "app": app,
+                        "n_lanes": config.n_lanes})
+                    check(st == 201, f"POST /jobs ({app}): {st} {rec}")
+                    st, res = _http("GET", base + f"/jobs/{rec['id']}"
+                                    "/result?timeout=600")
+                    got.append((app, (time.perf_counter() - t0) * 1e3,
+                                rec["id"], st, res))
+            return got
+        got, n = _counted(jobs)
+        out["launches"] += n
+        out["http_round_trip_ms"] = {"pagerank": [], "bfs": []}
+        for app, ms, jid, st, res in got:
+            check(st == 200 and res["num_properties"]
+                  == served[app][0].shape[0],
+                  f"GET /jobs/{jid}/result ({app}): {st} {res}")
+            props, meta = plane.result(jid)
+            check(meta["iterations"] == served[app][1]["iterations"]
+                  and _same(props, served[app][0]),
+                  f"{app} over HTTP != phase 8's")
+            out["http_round_trip_ms"][app].append(ms)
+            out.setdefault("http_execute_ms", {}).setdefault(app, []).append(
+                _job_metrics(plane, jid)["t_execute_ms"])
+        for route in ("/metrics", "/dashboard", "/metrics.json",
+                      "/readyz"):
+            st, body = _http("GET", base + route)
+            check(st == 200 and body, f"GET {route}: {st}")
+        st, prom = _http("GET", base + "/metrics")
+        check("regraph_requests_total" in prom
+              and 'regraph_jobs{state="done"}' in prom,
+              "/metrics lacks the request and job families")
+
+        rtt = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _http("GET", base + "/healthz")
+            rtt.append((time.perf_counter() - t0) * 1e3)
+        out["healthz_round_trip_ms_p50"] = _pct(rtt, 50)
+
+        # one job under lane detail on a new executor key (PageRank
+        # with its damping spelled out: the same app, another coalescing
+        # token), so the service builds its executor inside the trace
+        def traced():
+            rec = plane.submit_job(fingerprint=fp, app="pagerank",
+                                   app_kwargs={"damping": 0.85},
+                                   config=config)
+            return plane.result(rec.id, timeout=600), rec
+        ((props, meta), rec), n = _counted(traced)
+        out["launches"] += n
+        want, wmeta = served["pagerank"]
+        check(meta["iterations"] == wmeta["iterations"]
+              and _same(props, want),
+              "the traced PageRank job != phase 8's untraced PageRank")
+        doc = plane.trace(rec.id)
+        check(doc is not None, "the traced job has no trace")
+        names = [e["name"] for e in doc["traceEvents"]]
+        for needle in ("service.store", "service.plan", "service.execute",
+                       "executor.iteration", "executor.merge_apply"):
+            check(needle in names, f"trace lacks {needle}: "
+                  f"{sorted(set(names))}")
+        lanes = [e["args"] for e in doc["traceEvents"]
+                 if e["name"] == "executor.lane"]
+        bundle = store.plan(config)
+        nonempty = {i for i, lane in enumerate(bundle.packed_lanes(device))
+                    if lane}
+        check(len(lanes) == len(nonempty) * meta["iterations"]
+              and {a["lane"] for a in lanes} == nonempty
+              and all("est_time" in a for a in lanes),
+              f"{len(lanes)} executor.lane spans for {len(nonempty)} "
+              f"non-empty lanes x {meta['iterations']} iterations")
+        check(names.count("executor.merge_apply") == meta["iterations"],
+              "one executor.merge_apply span per iteration expected")
+        out["traced_job"] = {
+            "iterations": meta["iterations"], "lane_spans": len(lanes),
+            "lane_ms_by_kind": {}}
+        for a, e in zip(lanes, [e for e in doc["traceEvents"]
+                                if e["name"] == "executor.lane"]):
+            out["traced_job"]["lane_ms_by_kind"].setdefault(
+                a["kind"], []).append(e["dur"] / 1e3)
+        out["traced_job"]["lane_ms_by_kind"] = {
+            k: {"p50": _pct(v, 50), "n": len(v)}
+            for k, v in out["traced_job"]["lane_ms_by_kind"].items()}
+    finally:
+        plane.close()
+    check(out["launches"] > 0, "the control plane never launched the kernel")
+    out["jobs"] = plane.jobs.stats()
+    return out
 
 
 def main(argv=None) -> int:
@@ -1101,20 +1480,65 @@ def main(argv=None) -> int:
             "'2 owners on one card' tests the two-owner path on one card, "
             "not a multi-card number): " + json.dumps(result["sharded"]))
         t0 = time.perf_counter()
-        result["streaming"] = phase_streaming(main_res, device)
+        stream_res = phase_streaming(main_res, device)
+        result["streaming"] = {k: v for k, v in stream_res.items()
+                               if not k.startswith("_")}
         log(f"phase 6: derived store == cold rebuild "
             f"({time.perf_counter() - t0:.1f} s): "
             + json.dumps(result["streaming"]))
         result["utilization"] = phase_utilization(main_res)
         log("phase 7: utilization (time_lanes): "
             + json.dumps(result["utilization"]))
+
+        t0 = time.perf_counter()
+        result["serving"], svc, served = phase_serving(main_res, stream_res,
+                                                       device)
+        sv = result["serving"]
+        log(f"phase 8: serving ok ({time.perf_counter() - t0:.1f} s; "
+            f"{card}): per request (queue, store, plan, execute ms): "
+            + "; ".join(f"{app} {m['t_queue_ms']:.3f} {m['t_store_ms']:.3f} "
+                        f"{m['t_plan_ms']:.3f} {m['t_execute_ms']:.3f}"
+                        for app, m in sv["requests"].items()))
+        w = sv["warm_pagerank_ms"]
+        log(f"phase 8: {N_WARM} warm PageRank requests: p50 "
+            f"{w['service_p50']:.3f} ms, p99 {w['service_p99']:.3f} ms; "
+            f"Executor.run alone p50 {w['executor_run_p50']:.3f} ms, p99 "
+            f"{w['executor_run_p99']:.3f} ms, on a plain thread p50 "
+            f"{w['executor_run_thread_p50']:.3f} ms; stages p50 queue "
+            f"{w['queue_p50']:.3f}, store {w['store_p50']:.3f}, plan "
+            f"{w['plan_p50']:.3f}, execute {w['execute_p50']:.3f} ms; "
+            f"store.memory_footprint() "
+            f"(each lease's release) p50 {w['memory_footprint_p50']:.3f} "
+            f"ms ({card})")
+        log(f"phase 8: burst of {sv['burst']['submits']} identical submits "
+            f"-> {sv['burst']['executions']} execution(s)")
+        pu = sv["pool_update"]
+        log(f"phase 8: pool update at rmat({pu['scale']}, {EDGE_FACTOR}) in "
+            f"a spawned worker: {pu['t_update_ms']:.1f} ms (apply "
+            f"{pu['t_pool_apply_ms']:.1f}, splice {pu['t_splice_ms']:.1f}, "
+            f"re-plan {pu['t_replan_ms']:.1f}) beside an in-process "
+            f"apply_delta of the same delta {pu['in_process_apply_ms']:.1f} "
+            f"ms; the base store pickles to {pu['base_pickle_bytes']} B in "
+            f"{pu['t_pickle_ms']:.1f} ms, unpickles in "
+            f"{pu['t_unpickle_ms']:.1f} ms, and crosses a pool's pipe in "
+            f"{pu['t_ship_ms']:.1f} ms ({card}): " + json.dumps(sv))
+        t0 = time.perf_counter()
+        try:
+            result["control"] = phase_control(main_res, svc, served, device)
+        finally:
+            svc.close()
+        log(f"phase 9: control plane ok ({time.perf_counter() - t0:.1f} s; "
+            f"{card}): HTTP round trip (POST + GET result) ms: "
+            + json.dumps(result["control"]))
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1
     kernel["launches_by_path"] = {
         "main": kernel["launches"],
         "sharded": result["sharded"]["launches"],
-        "streaming": result["streaming"]["launches"]}
+        "streaming": result["streaming"]["launches"],
+        "serving": result["serving"]["launches"],
+        "control": result["control"]["launches"]}
     result["kernels"] = [kernel]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

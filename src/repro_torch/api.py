@@ -15,7 +15,11 @@ Three composable layers, as in the reference package:
 
 A prepared graph changes through :mod:`repro_torch.streaming`
 (``apply_delta(store, delta)`` → a derived store that reuses every
-clean lane's device payloads).
+clean lane's device payloads). Many graphs, apps and tenants are served
+through :class:`GraphService` (:mod:`repro_torch.serve_graph`: a
+scheduled queue, store and plan caches, coalescing, a process pool for
+store builds and delta splices) and managed as jobs, over HTTP too,
+through :class:`ControlPlane` (:mod:`repro_torch.control`).
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no ``device="cpu"`` the entry points raise.
@@ -36,6 +40,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Union
 
+from .control import (ControlPlane, DeadlineExpired, JobRecord,
+                      JobScheduler, JobStore, QueueFull, QuotaExceeded,
+                      RejectedJob, TenantQuota, WorkerCrashed, WorkerPool,
+                      serve_jobs)
 from .core.executor import Executor
 from .core.gas import (BUILTIN_APPS, GASApp, SCATTER_OPS, make_bfs,
                        make_closeness, make_pagerank, make_sssp, make_wcc)
@@ -46,6 +54,8 @@ from .core.types import Geometry, SchedulePlan
 from .graphs.formats import Graph, fingerprint as graph_fingerprint
 from .obs import (DriftAccumulator, LaneFootprint, PerfLedger, Span,
                   SpanContext, Tracer, UtilizationAccumulator)
+from .serve_graph import (GraphService, GraphStoreCache, RequestHandle,
+                          ServiceMetrics, UpdateResult)
 from .sharding import (LanePlacement, ShardedExecutor, ShardedLanes,
                        place_lanes)
 from .streaming import (GraphDelta, RegroupPolicy, apply_delta,
@@ -55,17 +65,22 @@ from .streaming import (GraphDelta, RegroupPolicy, apply_delta,
                         rebuild_plans, reregister, splice_delta)
 
 __all__ = [
-    "BUILTIN_APPS", "CompiledApp", "DEFAULT_HW", "DriftAccumulator",
-    "Executor", "GASApp", "Geometry", "Graph", "GraphDelta", "GraphStore",
-    "HW", "LaneFootprint", "LanePlacement", "PerfLedger", "PlanBundle",
-    "PlanConfig", "Planner", "RegroupPolicy", "SCATTER_OPS",
-    "SchedulePlan", "ShardedExecutor", "ShardedLanes", "Span",
-    "SpanContext", "Tracer", "UtilizationAccumulator", "apply_delta",
-    "apply_delta_to_graph", "chain_fingerprint", "compact_deltas",
-    "compile", "compose_deltas", "graph_fingerprint", "grouping_drift",
-    "grown_num_vertices", "make_bfs", "make_closeness", "make_delta",
-    "make_pagerank", "make_sssp", "make_wcc", "place_lanes",
-    "random_delta", "rebuild_plans", "reregister", "splice_delta",
+    "BUILTIN_APPS", "CompiledApp", "ControlPlane", "DEFAULT_HW",
+    "DeadlineExpired", "DriftAccumulator", "Executor", "GASApp",
+    "Geometry", "Graph", "GraphDelta", "GraphService", "GraphStore",
+    "GraphStoreCache", "HW", "JobRecord", "JobScheduler", "JobStore",
+    "LaneFootprint", "LanePlacement", "PerfLedger", "PlanBundle",
+    "PlanConfig", "Planner", "QueueFull", "QuotaExceeded",
+    "RegroupPolicy", "RejectedJob", "RequestHandle", "SCATTER_OPS",
+    "SchedulePlan", "ServiceMetrics", "ShardedExecutor", "ShardedLanes",
+    "Span", "SpanContext", "TenantQuota", "Tracer", "UpdateResult",
+    "UtilizationAccumulator", "WorkerCrashed", "WorkerPool",
+    "apply_delta", "apply_delta_to_graph", "chain_fingerprint",
+    "compact_deltas", "compile", "compose_deltas", "graph_fingerprint",
+    "grouping_drift", "grown_num_vertices", "make_bfs", "make_closeness",
+    "make_delta", "make_pagerank", "make_sssp", "make_wcc",
+    "place_lanes", "random_delta", "rebuild_plans", "reregister",
+    "serve_jobs", "splice_delta",
 ]
 
 

@@ -6,8 +6,10 @@ launches → tile merge → Apply) eagerly, and owns ``run`` /
 ``time_iteration`` / ``time_lanes``. The store's aux (out-degrees etc.)
 is shared across every Executor on the same store and device.
 ``time_lanes`` samples feed the perf-model drift report and the
-utilization profiler (``utilization()``); the multi-device counterpart
-is :class:`repro_torch.sharding.executor.ShardedExecutor`.
+utilization profiler (``utilization()``), and so does a ``run`` under a
+tracer with lane detail (one span and one device synchronization per
+lane); the multi-device counterpart is
+:class:`repro_torch.sharding.executor.ShardedExecutor`.
 
 Execution is FUSED by default: each lane is one packed payload run as a
 single kernel launch (``kernels.ops.run_lane``) and the per-iteration
@@ -145,12 +147,16 @@ class Executor:
                              for lane in self.lanes]
         return self._traffic
 
-    def _util_add(self, lane_idx: int, measured_s: float):
+    def _util_add(self, lane_idx: int, measured_s: float, span=None):
         """Fold one measured lane execution into the utilization
-        accumulator, under its footprint's kind."""
+        accumulator, under its footprint's kind, and onto the live
+        ``executor.lane`` span when one is open."""
         fp = self.footprints()[lane_idx]
         if fp is not None:
             nbytes, n_ops = self.lane_traffic()[lane_idx]
+            if span is not None:
+                gbps = nbytes / measured_s / 1e9 if measured_s > 0 else 0.0
+                span.set(bytes=nbytes, ops=n_ops, gbps=round(gbps, 3))
             self.util.add(fp.kind, nbytes, n_ops, measured_s,
                           peak_bps=self._peak_bps, lane=lane_idx)
 
@@ -161,16 +167,20 @@ class Executor:
                             self.app.gather, self.path,
                             scatter_op=self.app.scatter_op)
 
-    def gather(self, vprops):
-        """The Scatter+Gather half of one iteration: every payload's
-        kernel launch and ONE tile-indexed merge into an identity-filled
-        accumulator, before Apply. Returns the padded accumulator (the
-        quantity the edge-list oracle computes)."""
+    def _merge(self, outs):
+        """ONE tile-indexed merge of every payload's output tiles into an
+        identity-filled accumulator."""
         accum = torch.full((self.V_pad,),
                            float(GATHER_IDENTITY[self.app.gather]),
                            dtype=self.accum_dtype, device=self.device)
-        outs = [self._run_payload(p, vprops) for p in self._payloads]
         return ops.merge_all(accum, outs, self.geom.T)
+
+    def gather(self, vprops):
+        """The Scatter+Gather half of one iteration: every payload's
+        kernel launch and the merge, before Apply. Returns the padded
+        accumulator (the quantity the edge-list oracle computes)."""
+        return self._merge([self._run_payload(p, vprops)
+                            for p in self._payloads])
 
     def iteration(self, vprops, it: int):
         """One full iteration: launches → merge → Apply."""
@@ -179,17 +189,59 @@ class Executor:
     def init_props(self):
         return init_props(self.store, self.app, self.device)
 
+    def _iteration_traced(self, vprops, it: int):
+        """One iteration under an active tracer with lane detail: the
+        lanes one at a time, each under an ``executor.lane`` span that
+        carries its perf-model estimate and, once the device has
+        finished it, its bytes and achieved rate; then the merge and
+        Apply under ``executor.merge_apply``. The same payloads launch
+        in the same order into the same single merge as :meth:`gather`,
+        so the result equals the fused iteration's bit for bit."""
+        est = self._lane_est
+        with obs.span("executor.iteration", "executor", it=it):
+            outs = []
+            for li, lane in enumerate(self.lanes):
+                if not lane:
+                    continue
+                e_i, kind_i = est[li] if li < len(est) else (0.0, "mixed")
+                n_entries = (len(self.plan.lanes[li])
+                             if li < len(self.plan.lanes) else 0)
+                t0 = time.perf_counter()
+                with obs.span("executor.lane", "executor", lane=li,
+                              kind=kind_i, est_time=e_i,
+                              n_entries=n_entries) as sp:
+                    outs.extend(self._run_payload(p, vprops) for p in lane)
+                    _synchronize(self.device)
+                    measured = time.perf_counter() - t0
+                    self._util_add(li, measured, span=sp)
+                self.drift.add(kind_i, e_i, measured)
+            with obs.span("executor.merge_apply", "executor", it=it):
+                new = self.app.apply(self._merge(outs), vprops, self.aux, it)
+                _synchronize(self.device)
+        return new
+
     def run(self, max_iters: Optional[int] = None, collect_history=False):
         """Run to convergence; returns ``(props in ORIGINAL vertex ids
         (numpy), {"iterations", "history"})``. The convergence test runs
-        on the host after every iteration, as in the reference."""
+        on the host after every iteration, as in the reference.
+
+        When a tracer with ``lane_detail`` is active on this thread, each
+        iteration runs its lanes one at a time with a span and a device
+        synchronization per lane (:meth:`_iteration_traced`: more host
+        waits, bit-identical results); otherwise the lanes launch back
+        to back and only the per-iteration makespan drift sample is
+        taken."""
+        tracer = obs.current_tracer()
+        lane_detail = (tracer is not None and tracer.lane_detail
+                       and obs.current_ctx() is not None)
         vprops = self.init_props()
         iters = max_iters or self.app.max_iters
         history = []
         it_done = 0
         for it in range(iters):
             t_it = time.perf_counter()
-            new = self.iteration(vprops, it)
+            new = (self._iteration_traced(vprops, it) if lane_detail
+                   else self.iteration(vprops, it))
             done = self.app.converged(vprops, new, it)   # syncs the device
             self.drift.add("makespan", self.plan.est_makespan,
                            time.perf_counter() - t_it)

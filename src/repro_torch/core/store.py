@@ -153,6 +153,30 @@ class GraphStore:
         self._aux = {}
         return self
 
+    # -- pickling (the control plane's process pool) -------------------
+    def __getstate__(self) -> dict:
+        """Ship the app-independent host state only: the lock does not
+        pickle, and the plan cache and the per-device aux hold device
+        tensors — a CUDA tensor in the pickle would bring CUDA up in
+        the receiving worker. The receiver re-plans (the carried
+        blockings make that cheap) and builds aux per device on first
+        use. Used by :mod:`repro_torch.control.pool` to move store
+        builds and delta splices into worker processes."""
+        state = self.__dict__.copy()
+        # resolve the identity BEFORE dropping anything: a derived store
+        # must not cross the process boundary with a lazy fingerprint
+        state["_fp"] = self.fingerprint()
+        state["_plan_cache"] = None
+        state["_plan_lock"] = None
+        state["_aux"] = None
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._plan_cache = collections.OrderedDict()
+        self._plan_lock = threading.RLock()
+        self._aux = {}
+
     def fingerprint(self) -> str:
         """Identity of the graph this store was built from: the source
         graph's content hash, or — for delta-derived stores — the
@@ -249,6 +273,30 @@ class GraphStore:
                 self._plan_cache.popitem(last=False)
                 self.plan_evictions += 1
         return bundle
+
+    def adopt_plan(self, bundle) -> None:
+        """Insert a pre-built :class:`~.planner.PlanBundle` into the plan
+        LRU under its config's cache key, replacing any cached bundle
+        for that key: one assignment under the plan lock, so concurrent
+        ``plan()`` callers see either the old bundle or the new one,
+        never a partial build."""
+        key = bundle.config.cache_key()
+        with self._plan_lock:
+            self._plan_cache[key] = bundle
+            self._plan_cache.move_to_end(key)
+            while len(self._plan_cache) > self.max_plans:
+                self._plan_cache.popitem(last=False)
+                self.plan_evictions += 1
+
+    def peek_plan(self, config=None):
+        """The cached :class:`~.planner.PlanBundle` for ``config``, or
+        None — never builds and never touches LRU recency (the serving
+        scheduler reads ``plan.est_makespan`` from it as a queued job's
+        cost estimate)."""
+        from .planner import PlanConfig
+        config = config or PlanConfig()
+        with self._plan_lock:
+            return self._plan_cache.get(config.cache_key())
 
     def has_plan(self, config=None) -> bool:
         """True when ``plan(config)`` would hit the cache (a pure peek)."""

@@ -243,9 +243,10 @@ class Tracer:
     a drop counter instead of growing without bound — a tracer wired
     into a long-lived service must never be a leak).
 
-    ``lane_detail`` asks for per-lane spans, as in the reference; the
-    port's executor does not emit them yet (they come with its
-    profiling slice), so today every tracer records coarse spans only.
+    ``lane_detail`` controls whether the executor switches to the
+    per-lane traced execution path (a span and a device synchronization
+    per lane, bit-identical results) when this tracer is active;
+    ``False`` keeps coarse spans only.
     """
 
     def __init__(self, max_traces: int = 256,

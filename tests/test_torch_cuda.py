@@ -3,7 +3,9 @@ version (on graph payloads and on a heavy tile that spans many chunks),
 its launch count, its refusals, the main path on the card, and the
 changing-graph paths through the kernel: sharded == fused, a derived
 store == a cold rebuild after a delta, and reused payloads kept in
-place.
+place; and the serving layer: a served request == a direct executor,
+a spawn pool with CUDA up in the parent, the traced per-lane run ==
+the fused run.
 They import neither JAX nor the reference package, so they also run on
 a machine with a card and no JAX:
 
@@ -302,3 +304,83 @@ def test_delta_on_card_derived_equals_cold_and_keeps_tensors(
                 np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-7)
             else:
                 assert np.array_equal(got, plain), (app, where)
+
+
+# -- the serving layer on the card ---------------------------------------
+
+@pytest.mark.parametrize("app,kw", [("pagerank", {}), ("bfs", {"root": 0})],
+                         ids=["pagerank", "bfs"])
+def test_service_on_card_equals_direct_executor(app, kw, device,
+                                                shard_graph):
+    """A request served on the card (default device) launches the GAS
+    kernel and is bit-equal to a direct Executor on the same store and
+    plan."""
+    with api.GraphService(default_geom=GEOM, workers=2) as svc:
+        assert svc.device == device
+        fp = svc.register(shard_graph)
+        gas_kernel.gas_tiles.launches = 0
+        props, meta = svc.run(fingerprint=fp, app=app, app_kwargs=kw,
+                              n_lanes=4, timeout=300)
+        torch.cuda.synchronize()
+        assert gas_kernel.gas_tiles.launches > 0
+        store = svc.cache.peek((fp, GEOM, True))
+        ex = api.Executor(store, store.plan(api.PlanConfig(n_lanes=4)),
+                          api.BUILTIN_APPS[app](**kw))
+        assert ex.device == device and ex.path == "cuda"
+        want, mw = ex.run()
+    assert meta["iterations"] == mw["iterations"]
+    assert torch.equal(torch.from_numpy(props), torch.from_numpy(want))
+
+
+def test_spawn_pool_with_cuda_initialised(device, shard_graph):
+    """With CUDA up in the parent and the base planned on the card, the
+    spawned workers build and splice (host numpy only, CUDA never
+    initialised there), and the pool's snapshot equals an in-process
+    apply_delta's bit for bit."""
+    from repro_torch.control import WorkerPool
+    from repro_torch.streaming import rebuild_plans
+
+    cfg = api.PlanConfig(n_lanes=4)
+    assert torch.cuda.is_initialized()
+    with WorkerPool(workers=2, warm=True) as pool:
+        store = pool.build_store(shard_graph, geom=GEOM, use_dbg=True,
+                                 fp=shard_graph.fingerprint())
+        api.compile(None, "pagerank", store=store, config=cfg).run(
+            max_iters=2)                       # payloads on the card
+        delta = random_delta(shard_graph, churn=0.01, seed=3, hot_frac=0.05)
+        res = pool.apply(store, delta)
+        res.stats.update(rebuild_plans(store, res.store, res.dirty_pids))
+        for idx in range(pool.workers):
+            assert pool._run(idx, torch.cuda.is_initialized) is False
+    local = apply_delta(store, delta)
+    assert res.stats["packed_lanes_reused"] == \
+        local.stats["packed_lanes_reused"] > 0
+    for app in ("pagerank", "bfs"):
+        got, mg = api.compile(None, app, store=res.store, config=cfg).run()
+        want, mw = api.compile(None, app, store=local.store,
+                               config=cfg).run()
+        assert mg["iterations"] == mw["iterations"]
+        assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
+
+
+def test_traced_run_on_card_equals_fused(device, shard_graph):
+    """The traced per-lane run (a span and a synchronization per lane)
+    launches the same payloads into the same merge: bit-equal."""
+    store = api.GraphStore(shard_graph, geom=GEOM)
+    c = api.compile(None, "pagerank", store=store, n_lanes=4)
+    want, mw = c.run()
+    tracer = api.Tracer(lane_detail=True)
+    root = tracer.start_trace("job")
+    gas_kernel.gas_tiles.launches = 0
+    with tracer.activate(root.context):
+        got, mg = c.run()
+    root.end()
+    torch.cuda.synchronize()
+    assert gas_kernel.gas_tiles.launches == \
+        mg["iterations"] * c.stats()["kernel_dispatches"]
+    assert mg["iterations"] == mw["iterations"]
+    assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
+    lanes = [s for s in tracer.export(root.trace_id)
+             if s["name"] == "executor.lane"]
+    assert lanes and all("est_time" in s["attrs"] and s["attrs"]["gbps"] > 0
+                         for s in lanes)

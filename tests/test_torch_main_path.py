@@ -104,8 +104,9 @@ def test_gather_matches_edge_oracle(stores):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Every module of the port, the streaming, sharding and obs
-    packages among them, imports neither JAX nor the reference."""
+    """Every module of the port, the streaming, sharding, obs, serving
+    and control packages among them, imports neither JAX nor the
+    reference."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -113,7 +114,11 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for name in ('streaming', 'streaming.apply', 'streaming.delta', "
         "'streaming.regroup', 'sharding', 'sharding.executor', "
-        "'sharding.placement', 'obs', 'obs.profile', 'obs.ledger'):\n"
+        "'sharding.placement', 'obs', 'obs.profile', 'obs.ledger', "
+        "'serve_graph', 'serve_graph.service', 'serve_graph.store_cache', "
+        "'serve_graph.metrics', 'serve_graph.fingerprint', 'control', "
+        "'control.scheduler', 'control.pool', 'control.jobs', "
+        "'control.manager', 'control.http_api', 'control.dashboard'):\n"
         "    assert 'repro_torch.' + name in mods, name\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
@@ -125,7 +130,7 @@ def test_port_imports_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 30      # every module was imported
+    assert int(proc.stdout.strip()) >= 42      # every module was imported
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, small_graph,
