@@ -97,6 +97,28 @@ Phases (any failed check exits non-zero before the last line):
    ``launches_by_path`` counts the kernel's launches on the serving and
    control paths (zeroed just before each run of the service, read just
    after; the comparison runs are not counted).
+10. Autotune on phase 3's store: an ``AutoTuner`` whose ``SpecRegistry``
+   lives in a temp dir and an ``Executor(calibrator=...)``;
+   ``tuner.retune(..., force=True)`` sweeps the lanes through the kernel
+   (host clock, each lane ended by a synchronize), fits, searches the
+   candidate plans and adopts the winner. The fit's diagnostics, the
+   scored candidates, the chosen split, ``t_retune_s`` and the time of
+   ``search_plan`` alone are printed. An applied fit: PageRank under the
+   adopted plan within rtol 1e-5 / atol 1e-7 of phase 3's, BFS
+   bit-equal, and the spec file names the card. A fit the guard rejects
+   is printed as such (the guard working, not a failure) and the
+   unchanged plan's results are held to phase 3's. Then a
+   ``GraphService(autotune=tuner)``: a PageRank request,
+   ``ControlPlane.retune_job``, and a PageRank request equal to the
+   first (rtol 1e-5). The plane's lane-detail tracer makes each served
+   run feed the calibrator too; the sample counts and every measured
+   lane time the second fit saw are printed.
+11. ``DistributedEngine`` on a one-rank NCCL group (``FileStore`` in a
+   temp dir): PageRank and BFS held to phase 3's (allclose, bit-equal),
+   its chunks, payloads, launches per iteration, packed bytes and
+   ``iteration_ms``; each launch on its packed payloads held against
+   the plain version and timed beside it, the bound and the library
+   call. ``launches_by_path`` gains ``autotune`` and ``distributed``.
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -493,6 +515,8 @@ def phase_main_path(device, scale=SCALE, edge_factor=EDGE_FACTOR, seed=SEED,
     }
     res["_store"], res["_payloads"], res["_vprops"] = store, payloads, vprops
     res["_pr"], res["_bfs"], res["_config"] = pr_k, bfs_k, config
+    res["_pr_history"] = pr_meta["history"]
+    res["_bfs_result"] = (bfs_props, bfs_meta["iterations"])
     res["_graph"], res["_pr_plain"] = graph, pr_r
     return res
 
@@ -1401,6 +1425,292 @@ def phase_control(main_res: dict, svc, served: dict, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-11: autotune, the SPMD path
+# ---------------------------------------------------------------------------
+
+def _held_to_main(main_res: dict, pr_history: list, bfs: tuple,
+                  what: str) -> dict:
+    """PageRank within rtol 1e-5 / atol 1e-7 of phase 3's (at the last
+    iteration both ran; iteration counts within one) and BFS bit-equal
+    to phase 3's, with iteration counts equal."""
+    import numpy as np
+    want_hist = main_res["_pr_history"]
+    want_bfs, want_bfs_iters = main_res["_bfs_result"]
+    n = min(len(pr_history), len(want_hist))
+    check(n > 0 and abs(len(pr_history) - len(want_hist)) <= 1,
+          f"{what}: PageRank ran {len(pr_history)} iterations, phase 3 "
+          f"{len(want_hist)}")
+    got, want = pr_history[n - 1], want_hist[n - 1]
+    err = _max_rel(got, want)
+    check(np.isfinite(got).all() and np.allclose(got, want, rtol=1e-5,
+                                                 atol=1e-7),
+          f"{what}: PageRank vs phase 3: max rel err {err}")
+    check(bfs[1] == want_bfs_iters and _same(bfs[0], want_bfs),
+          f"{what}: BFS != phase 3's")
+    return {"pagerank_max_rel_err_vs_main": err,
+            "pagerank_bit_equal_to_main": bool(
+                len(pr_history) == len(want_hist) and _same(got, want)),
+            "iterations": {"pagerank": len(pr_history), "bfs": bfs[1]}}
+
+
+def _pr_bfs_full(store, config, device) -> tuple:
+    """PageRank (to convergence, with its history) and BFS on ``store``
+    under ``config``: (pr history, (bfs props, bfs iterations))."""
+    from repro_torch import api
+    _, pm = api.compile(None, "pagerank", store=store, config=config,
+                        device=device).run(collect_history=True)
+    b, bm = api.compile(None, "bfs", store=store, config=config,
+                        device=device).run()
+    return pm["history"], (b, bm["iterations"])
+
+
+def phase_autotune(main_res: dict, device) -> dict:
+    """A forced calibrate-and-replan on phase 3's store: the calibration
+    sweep through the kernel, the guarded fit, the candidate search, the
+    adopted plan's PageRank and BFS against phase 3's, the spec naming
+    the card; then a GraphService(autotune=...) whose
+    ``ControlPlane.retune_job`` runs between two PageRank requests."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.autotune import AutoTuner, SpecRegistry, retuner
+    from repro_torch.serve_graph import store_key
+
+    store, config = main_res["_store"], main_res["_config"]
+    fp = store.fingerprint()
+    # the service's key of the store: the tuner remembers each graph's
+    # winning config under it (a fixed split may win the search)
+    skey = store_key(fp, store.geom, store.use_dbg)
+    card = torch.cuda.get_device_name(device)
+    out = {"launches": 0}
+    with tempfile.TemporaryDirectory() as spec_dir:
+        tuner = AutoTuner(registry=SpecRegistry(spec_dir), device=device)
+        check(tuner.device_kind.startswith(card + "@"),
+              f"device kind {tuner.device_kind!r} does not name the card")
+        ex = api.Executor(store, store.plan(config), api.make_pagerank(),
+                          device=device, calibrator=tuner.calibrator)
+        # time the candidate search inside the retune (the module's own
+        # search_plan, wrapped for this call only)
+        search_s, search_plan = [], retuner.search_plan
+
+        def timed_search(*a, **kw):
+            t0 = time.perf_counter()
+            r = search_plan(*a, **kw)
+            search_s.append(time.perf_counter() - t0)
+            return r
+        retuner.search_plan = timed_search
+        # and each calibration sweep (Executor.time_lanes)
+        sweep_s, time_lanes = [], ex.time_lanes
+
+        def timed_lanes(*a, **kw):
+            t0 = time.perf_counter()
+            r = time_lanes(*a, **kw)
+            sweep_s.append(time.perf_counter() - t0)
+            return r
+        ex.time_lanes = timed_lanes
+        try:
+            t0 = time.perf_counter()
+            event, n = _counted(lambda: tuner.retune(store, ex, config,
+                                                     skey=skey, force=True))
+            t_wall = time.perf_counter() - t0
+        finally:
+            retuner.search_plan = search_plan
+
+        def samples_ms(start=0):
+            """The calibrator's samples from ``start`` on: (kind,
+            measured lane ms)."""
+            return [(k, y * 1e3) for _, k, y in
+                    list(tuner.calibrator._samples)[start:]]
+        n_first = tuner.calibrator.counts()["n"]
+        lanes = sum(1 for lane in ex.lanes if lane)
+        check(n > 0, "the retune's calibration sweep never launched the "
+              "kernel")
+        out["launches"] += n
+        fit = event.get("fit") or {}
+        out.update(
+            device_kind=tuner.device_kind, applied=event["applied"],
+            sweep_launches=n, lanes_timed=lanes,
+            samples=tuner.calibrator.counts(),
+            fit={k: fit.get(k) for k in ("n", "n_little", "n_big", "cond",
+                                         "residual_rel", "fallback",
+                                         "kept_prior")},
+            t_retune_s=event.get("t_retune_s", t_wall),
+            t_search_plan_s=search_s[0] if search_s else None,
+            t_sweeps_s=sweep_s, sweep_lane_ms=samples_ms())
+        if event["applied"]:
+            out.update(candidates=event["candidates"],
+                       chosen=event["chosen"],
+                       hw=tuner.stats()["hw"])
+            cfg_b = tuner.resolve_config(api.PlanConfig(n_lanes=N_LANES),
+                                         skey)
+            check(cfg_b.hw is tuner.hw and store.has_plan(cfg_b)
+                  and (cfg_b.mode, cfg_b.forced_little, cfg_b.forced_big)
+                  == (event["chosen"]["mode"],
+                      *(map(int, event["chosen"]["split"].split(":"))
+                        if event["chosen"]["split"] else (0, 0))),
+                  f"the retune's winning plan {event['chosen']} was not "
+                  "adopted")
+            (pr_hist, bfs), n = _counted(
+                lambda: _pr_bfs_full(store, cfg_b, device))
+            out["launches"] += n
+            out["adopted_plan"] = {
+                "little_lanes": store.plan(cfg_b).plan.num_little_lanes,
+                "big_lanes": store.plan(cfg_b).plan.num_big_lanes,
+                "launches": n,
+                **_held_to_main(main_res, pr_hist, bfs,
+                                "under the adopted plan")}
+            with open(event["spec_path"]) as f:
+                spec = json.load(f)
+            check(card in spec["device_kind"] and spec["version"] == 1
+                  and spec["source"] == "calibrated",
+                  f"spec file: {spec['device_kind']!r}, version "
+                  f"{spec['version']}, source {spec['source']!r}")
+            out["spec"] = {k: spec[k] for k in ("device_kind", "geom_key",
+                                                "version", "source")}
+        else:
+            # the guard rejected the fit: nothing was adopted, and the
+            # plan runs as before
+            out["rejected"] = event["rejected"]
+            check(tuner.hw is None and tuner.version == 0,
+                  "a rejected fit changed the tuner's HW")
+            (pr_hist, bfs), n = _counted(
+                lambda: _pr_bfs_full(store, config, device))
+            out["launches"] += n
+            out["unchanged_plan"] = _held_to_main(
+                main_res, pr_hist, bfs, "after a rejected fit")
+
+        # -- the service and the control plane ----------------------------
+        svc = api.GraphService(cache=_seeded_cache(store), device=device,
+                               autotune=tuner)
+        plane = api.ControlPlane(svc)
+        try:
+            def request():
+                return svc.submit(fingerprint=fp, app="pagerank",
+                                  config=api.PlanConfig(n_lanes=N_LANES)
+                                  ).result(timeout=600)
+            # the plane installs a lane-detail tracer on the service, so
+            # each served run feeds the calibrator one sample per lane per
+            # iteration, beside the retune's sweeps: count them
+            n_samples = {}
+            (pr0, m0), n = _counted(request)
+            out["launches"] += n
+            n_samples["after_request_1"] = tuner.calibrator.counts()["n"]
+            t0 = time.perf_counter()
+            rec, n = _counted(lambda: plane.retune_job(
+                fingerprint=fp, app="pagerank", n_lanes=N_LANES))
+            t_job = time.perf_counter() - t0
+            out["launches"] += n
+            n_samples["after_retune_job"] = tuner.calibrator.counts()["n"]
+            check(rec.state == "done",
+                  f"retune job ended {rec.state}: {rec.error}")
+            (pr1, m1), n = _counted(request)
+            out["launches"] += n
+            n_samples["after_request_2"] = tuner.calibrator.counts()["n"]
+            check(np.isfinite(pr1).all() and np.allclose(
+                pr1, pr0, rtol=1e-5, atol=1e-7),
+                "PageRank after the retune job != before: max rel err "
+                f"{_max_rel(pr1, pr0)}")
+            st = svc.stats()["autotune"]
+            job_fit = rec.metrics.get("fit") or {}
+            out["service"] = {
+                "retune_job_applied": rec.metrics.get("applied"),
+                "retune_job_rejected": rec.metrics.get("rejected"),
+                "retune_job_fit": {k: job_fit.get(k) for k in (
+                    "n", "residual_rel", "cond", "fallback")},
+                "samples_before": n_first, "samples": n_samples,
+                "retune_job_chosen": rec.metrics.get("chosen"),
+                "retune_job_sweep_lane_ms": samples_ms(n_first),
+                "t_retune_job_s": t_job,
+                "iterations": [m0["iterations"], m1["iterations"]],
+                "pagerank_bit_equal": _same(pr0, pr1),
+                "pagerank_max_rel_err": _max_rel(pr1, pr0),
+                "version": st["version"], "retunes": st["retunes"],
+                "fit_rejects": st["fit_rejects"],
+                "retunes_metric": svc.metrics.retunes}
+        finally:
+            plane.close()
+            svc.close()
+    check(out["launches"] > 0, "the autotune path never launched the kernel")
+    return out
+
+
+def phase_distributed(main_res: dict, device, reps: int = REPS) -> dict:
+    """DistributedEngine on a one-rank NCCL group (a FileStore in a temp
+    dir): PageRank and BFS against phase 3's, the launches counted, one
+    iteration timed; then each launch on its packed payloads held
+    against the plain version and timed beside it, the bound and the
+    library call."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core.distributed import DistributedEngine
+
+    store, config, vprops = (main_res["_store"], main_res["_config"],
+                             main_res["_vprops"])
+    geom = store.geom
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "rendezvous"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=600))
+        try:
+            t0 = time.perf_counter()
+            pr_eng = DistributedEngine(store, api.make_pagerank(),
+                                       config=config, device=device)
+            out["t_engine_s"] = time.perf_counter() - t0
+            bfs_eng = DistributedEngine(store, api.make_bfs(),
+                                        config=config, device=device)
+            k = len(main_res["_pr_history"])
+
+            def run():
+                # PageRank one iteration at a time, to keep its history
+                vp, hist = pr_eng.init_props(), []
+                for it in range(k + 1):
+                    new = pr_eng.iteration(vp, it)
+                    done = pr_eng.app.converged(vp, new, it)
+                    vp = new
+                    hist.append(vp.cpu().numpy())     # as run() keeps it
+                    if done:
+                        break
+                return hist, bfs_eng.run()
+            (pr_hist, (bfs, bm)), n = _counted(run)
+            st = pr_eng.stats()
+            per_iter = st["launches_per_iteration"]
+            check(n == per_iter * (len(pr_hist) + bm["iterations"]) > 0,
+                  f"DistributedEngine launched the kernel {n} times; "
+                  f"expected {per_iter} per iteration")
+            out.update(launches=n, **st)
+            out.update(_held_to_main(main_res, pr_hist,
+                                     (bfs, bm["iterations"]),
+                                     "DistributedEngine"))
+            out["iteration_ms"] = pr_eng.time_iteration(reps) * 1e3
+            calls = _calls(pr_eng.payloads, vprops, geom)
+            bound_ms, bound_by, _ = _bound_ms(calls)
+            out["kernel"] = {
+                "per_payload": [{"kind": p["kind"],
+                                 "n_blocks": p["n_blocks"],
+                                 "n_out_tiles": p["n_out_tiles"],
+                                 "n_entries": p["n_entries"]}
+                                for p in pr_eng.payloads],
+                **_held_to_plain(calls, geom, "kernel on the distributed "
+                                 "payloads vs plain"),
+                "kernel_ms": cuda_ms(lambda: [
+                    _pagerank_launch(vwin, p, geom) for vwin, p in calls],
+                    reps),
+                "plain_ms": cuda_ms(lambda: [
+                    _pagerank_plain(vwin, p, geom) for vwin, p in calls],
+                    reps),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": _library_ms(calls, geom, store.V_pad, device,
+                                          reps)}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1530,6 +1840,26 @@ def main(argv=None) -> int:
         log(f"phase 9: control plane ok ({time.perf_counter() - t0:.1f} s; "
             f"{card}): HTTP round trip (POST + GET result) ms: "
             + json.dumps(result["control"]))
+
+        t0 = time.perf_counter()
+        at = result["autotune"] = phase_autotune(main_res, device)
+        verdict = ("applied: chosen " + json.dumps(at.get("chosen"))
+                   if at["applied"] else
+                   f"REJECTED by the guard ({at['rejected']}); nothing "
+                   "adopted, results unchanged")
+        log(f"phase 10: autotune ok ({time.perf_counter() - t0:.1f} s; "
+            f"{card}): fit {json.dumps(at['fit'])}; {verdict}; "
+            f"t_retune_s {at['t_retune_s']:.3f}, search_plan "
+            f"{at['t_search_plan_s']} s; candidates "
+            f"{json.dumps(at.get('candidates'))}; " + json.dumps(at))
+        t0 = time.perf_counter()
+        ds = result["distributed"] = phase_distributed(main_res, device)
+        log(f"phase 11: DistributedEngine (1 rank, NCCL) ok "
+            f"({time.perf_counter() - t0:.1f} s; {card}): "
+            f"{ds['chunks_total']} chunks, {ds['payloads']} payloads, "
+            f"{ds['launches_per_iteration']} launches per iteration, "
+            f"{ds['packed_bytes']} packed B, iteration "
+            f"{ds['iteration_ms']:.3f} ms: " + json.dumps(ds))
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -1538,7 +1868,9 @@ def main(argv=None) -> int:
         "sharded": result["sharded"]["launches"],
         "streaming": result["streaming"]["launches"],
         "serving": result["serving"]["launches"],
-        "control": result["control"]["launches"]}
+        "control": result["control"]["launches"],
+        "autotune": result["autotune"]["launches"],
+        "distributed": result["distributed"]["launches"]}
     result["kernels"] = [kernel]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

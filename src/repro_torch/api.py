@@ -19,7 +19,9 @@ clean lane's device payloads). Many graphs, apps and tenants are served
 through :class:`GraphService` (:mod:`repro_torch.serve_graph`: a
 scheduled queue, store and plan caches, coalescing, a process pool for
 store builds and delta splices) and managed as jobs, over HTTP too,
-through :class:`ControlPlane` (:mod:`repro_torch.control`).
+through :class:`ControlPlane` (:mod:`repro_torch.control`), and
+``GraphService(autotune=...)`` refits the perf model to lane times
+measured on the card and re-plans (:mod:`repro_torch.autotune`).
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no ``device="cpu"`` the entry points raise.
@@ -40,6 +42,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Union
 
+from .autotune import (AutoTuner, Calibrator, DeviceSpec, RetunePolicy,
+                       SpecRegistry)
 from .control import (ControlPlane, DeadlineExpired, JobRecord,
                       JobScheduler, JobStore, QueueFull, QuotaExceeded,
                       RejectedJob, TenantQuota, WorkerCrashed, WorkerPool,
@@ -65,14 +69,16 @@ from .streaming import (GraphDelta, RegroupPolicy, apply_delta,
                         rebuild_plans, reregister, splice_delta)
 
 __all__ = [
-    "BUILTIN_APPS", "CompiledApp", "ControlPlane", "DEFAULT_HW",
-    "DeadlineExpired", "DriftAccumulator", "Executor", "GASApp",
+    "AutoTuner", "BUILTIN_APPS", "Calibrator", "CompiledApp",
+    "ControlPlane", "DEFAULT_HW", "DeadlineExpired", "DeviceSpec",
+    "DriftAccumulator", "Executor", "GASApp",
     "Geometry", "Graph", "GraphDelta", "GraphService", "GraphStore",
     "GraphStoreCache", "HW", "JobRecord", "JobScheduler", "JobStore",
     "LaneFootprint", "LanePlacement", "PerfLedger", "PlanBundle",
     "PlanConfig", "Planner", "QueueFull", "QuotaExceeded",
-    "RegroupPolicy", "RejectedJob", "RequestHandle", "SCATTER_OPS",
-    "SchedulePlan", "ServiceMetrics", "ShardedExecutor", "ShardedLanes",
+    "RegroupPolicy", "RejectedJob", "RequestHandle", "RetunePolicy",
+    "SCATTER_OPS", "SchedulePlan", "ServiceMetrics", "ShardedExecutor",
+    "ShardedLanes", "SpecRegistry",
     "Span", "SpanContext", "TenantQuota", "Tracer", "UpdateResult",
     "UtilizationAccumulator", "WorkerCrashed", "WorkerPool",
     "apply_delta", "apply_delta_to_graph", "chain_fingerprint",

@@ -26,7 +26,6 @@ imports the serving layer back.
 
 The port of the reference package's ``control``; the scheduler, job
 store, HTTP routes and dashboard are framework-free copies.
-``ControlPlane.retune_job`` waits for the autotuner (ROADMAP item 11).
 """
 from .pool import WorkerCrashed, WorkerPool
 from .scheduler import (DeadlineExpired, JobScheduler, QueueFull,

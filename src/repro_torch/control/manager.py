@@ -256,12 +256,28 @@ class ControlPlane:
                      f"under threshold")
         return self.jobs.get(rec.id)
 
-    def retune_job(self, *args, **kwargs) -> JobRecord:
-        """Not ported yet: a forced calibrate-and-replan job needs the
-        autotuner (ROADMAP item 11). Raises NotImplementedError."""
-        raise NotImplementedError(
-            "ControlPlane.retune_job is not ported yet: drift-driven "
-            "autotuning is ROADMAP item 11")
+    def retune_job(self, graph=None, *, fingerprint: Optional[str] = None,
+                   app: str = "pagerank", tenant: str = "default",
+                   **kw) -> JobRecord:
+        """Force a calibrate-and-replan cycle (GraphService.retune_now)
+        as a tracked admin job. Requires the service to have been built
+        with ``autotune=``; the record's metrics carry the retune event
+        (fit diagnostics, candidate scores, chosen plan)."""
+        rec = self.jobs.create(kind="retune", tenant=tenant, app=app,
+                               fingerprint=fingerprint or "")
+        self.jobs.transition(rec.id, JobState.RUNNING)
+        try:
+            event = self.service.retune_now(graph, fingerprint=fingerprint,
+                                            app=app, **kw)
+        except Exception as exc:
+            self.jobs.transition(rec.id, JobState.FAILED, error=str(exc))
+            raise
+        chosen = event.get("chosen") or {}
+        self.jobs.transition(
+            rec.id, JobState.DONE, metrics=event,
+            log=("retune applied: " + str(chosen)) if event.get("applied")
+                else f"retune rejected: {event.get('rejected')}")
+        return self.jobs.get(rec.id)
 
     # -- reporting ------------------------------------------------------
     def metrics_snapshot(self) -> dict:

@@ -5,10 +5,11 @@ plan's lane payloads on its device, runs the iteration (GAS kernel
 launches → tile merge → Apply) eagerly, and owns ``run`` /
 ``time_iteration`` / ``time_lanes``. The store's aux (out-degrees etc.)
 is shared across every Executor on the same store and device.
-``time_lanes`` samples feed the perf-model drift report and the
-utilization profiler (``utilization()``), and so does a ``run`` under a
-tracer with lane detail (one span and one device synchronization per
-lane); the multi-device counterpart is
+``time_lanes`` samples feed the perf-model drift report, the
+utilization profiler (``utilization()``) and an attached autotune
+calibrator, and so does a ``run`` under a tracer with lane detail (one
+span and one device synchronization per lane); the multi-device
+counterpart is
 :class:`repro_torch.sharding.executor.ShardedExecutor`.
 
 Execution is FUSED by default: each lane is one packed payload run as a
@@ -78,6 +79,9 @@ class Executor:
              ``device="cpu"`` was not passed.
     drift_parent / util_parent: service-level accumulators the
              executor's drift and utilization samples also feed.
+    calibrator: an optional :class:`~repro_torch.autotune.Calibrator`
+             that every measured lane time (``time_lanes``, traced
+             runs) feeds as a calibration sample.
 
     Invariants: ``run`` returns properties in ORIGINAL vertex ids; one
     iteration runs exactly one merge (``dispatch_stats``).
@@ -87,6 +91,7 @@ class Executor:
                  path: Optional[str] = None, fuse_lanes: bool = True,
                  device=None,
                  drift_parent: Optional[obs.DriftAccumulator] = None,
+                 calibrator=None,
                  util_parent: Optional[obs.UtilizationAccumulator] = None):
         self.store = store
         self.bundle = bundle
@@ -99,10 +104,26 @@ class Executor:
                              f"{self.path!r}")
         self.V_pad = store.V_pad
         self.fuse_lanes = bool(fuse_lanes)
-        # measured-vs-model drift: whole iterations vs the plan's
-        # estimated makespan, time_lanes samples vs lane estimates
+        # measured-vs-model drift: whole iterations vs _est_iteration,
+        # time_lanes samples vs lane estimates
         self.drift = obs.DriftAccumulator(parent=drift_parent)
         self._lane_est = perf_model.lane_estimates(bundle.plan)
+        # the estimate a measured iteration is compared against for the
+        # "makespan" drift kind: plan.est_makespan assumes lanes run in
+        # parallel; under a serial calibration (combine == "sum", what
+        # every fit returns) the lanes' times add, so the like-for-like
+        # estimate is the SUM of lane estimates — otherwise a
+        # perfectly-fitted model on a well-balanced plan would show
+        # ~n_lanes of phantom drift and thrash the retuner
+        if bundle.config.hw.combine == "sum":
+            self._est_iteration = sum(e for e, _ in self._lane_est)
+        else:
+            self._est_iteration = bundle.plan.est_makespan
+        # optional autotune sink: measured lane times land here as
+        # (feature row, kind, seconds) calibration samples, from traced
+        # runs and time_lanes sweeps alike (repro_torch.autotune)
+        self._calibrator = calibrator
+        self._lane_rows = None       # lazy perf_model.lane_feature_rows
         # pipeline utilization profiler (obs.profile): the bytes each
         # lane must move x measured lane times -> achieved GB/s and
         # %-of-peak of the card's rate (none on the CPU); derived lazily
@@ -215,6 +236,7 @@ class Executor:
                     measured = time.perf_counter() - t0
                     self._util_add(li, measured, span=sp)
                 self.drift.add(kind_i, e_i, measured)
+                self._calib_add(li, kind_i, measured)
             with obs.span("executor.merge_apply", "executor", it=it):
                 new = self.app.apply(self._merge(outs), vprops, self.aux, it)
                 _synchronize(self.device)
@@ -243,7 +265,7 @@ class Executor:
             new = (self._iteration_traced(vprops, it) if lane_detail
                    else self.iteration(vprops, it))
             done = self.app.converged(vprops, new, it)   # syncs the device
-            self.drift.add("makespan", self.plan.est_makespan,
+            self.drift.add("makespan", self._est_iteration,
                            time.perf_counter() - t_it)
             it_done = it + 1
             if collect_history:
@@ -293,8 +315,23 @@ class Executor:
             if i < len(self._lane_est):
                 e_i, kind_i = self._lane_est[i]
                 self.drift.add(kind_i, e_i, med)
+                self._calib_add(i, kind_i, med)
             self._util_add(i, med)
         return out
+
+    def _calib_add(self, lane_idx: int, kind: str, measured_s: float):
+        """Forward one measured lane time to the attached Calibrator as a
+        (feature row, kind, seconds) sample. Rows are per-lane sums of
+        unit-coefficient model terms (perf_model.lane_feature_rows) and
+        depend only on the plan and the base HW constants, so they are
+        computed once per executor."""
+        if self._calibrator is None:
+            return
+        if self._lane_rows is None:
+            self._lane_rows = perf_model.lane_feature_rows(self.bundle)
+        if lane_idx < len(self._lane_rows):
+            self._calibrator.add_lane(self._lane_rows[lane_idx], kind,
+                                      measured_s)
 
     # ------------------------------------------------------------------
     def memory_footprint(self) -> int:

@@ -11,18 +11,21 @@ where combine = max(...) for pipelined, overlapped stages and
 combine = sum(...) for serial execution. The Big vertex term keeps the
 paper's linear a*x+b law with x = number of unique sources.
 
-This module carries over what the planner and executor use (``HW``,
-``_terms``, ``_combine``, ``estimate``, ``classify``,
-``estimate_big_batch``, ``lane_estimates``), and the device-aware
-bandwidth ceiling the utilization profiler divides by
-(``peak_bandwidth_bps``); calibration comes with the autotune slice of
-the port.
+This module carries over the reference's model (``HW``, ``_terms``,
+``_combine``, ``estimate``, ``classify``, ``estimate_big_batch``,
+``lane_estimates``) and its calibration (``feature_row``, the guarded
+``fit_terms``, ``calibrate_full``, ``calibrate``, ``lane_feature_rows``:
+numpy, so fits equal the reference's on the same samples), and adds the
+device-aware bandwidth ceiling the utilization profiler divides by
+(``peak_bandwidth_bps``). The analytic prior of every fit is
+:data:`DEFAULT_HW`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Sequence
+from typing import Iterable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .types import Geometry, PartitionInfo
@@ -68,6 +71,20 @@ class HW:
 DEFAULT_HW = HW()
 S_EDGE = 12          # src + dst + weight, 4 B each
 S_PROP = 4           # scalar f32/int32 property
+
+
+def effective_peak_bandwidth_bps(hw: HW) -> float:
+    """The bandwidth (bytes/s) a calibrated HW profile believes in, which
+    :attr:`repro_torch.autotune.DeviceSpec.peak_bandwidth_gbps` reports:
+    an explicitly calibrated ``peak_bandwidth_gbps`` wins; otherwise the
+    base stream rate deflated by the calibrated edge-stream multiplier —
+    ``c_edges`` scales modelled *time*, so the bandwidth the model
+    believes this device sustains on the dominant (edge) stream is
+    ``bw_hbm / c_edges``. The utilization profiler's %-of-peak
+    denominator on the card is :func:`peak_bandwidth_bps`."""
+    if hw.peak_bandwidth_gbps > 0:
+        return hw.peak_bandwidth_gbps * 1e9
+    return hw.bw_hbm / max(hw.c_edges, 1e-9)
 
 
 # data-sheet HBM rate (GB/s) by CUDA device name: the utilization
@@ -150,6 +167,177 @@ def classify(infos: Iterable[PartitionInfo], geom: Geometry,
         i.is_dense = bool(i.t_little < i.t_big)
         out.append(i)
     return out
+
+
+def feature_row(info: PartitionInfo, geom: Geometry, kind: str,
+                hw: HW) -> List[float]:
+    """The additive-model design row of one (partition, kind) sample:
+    ``[te_little, te_big, tv, tc, ts, 1.0]`` with unit multipliers —
+    the column order :func:`fit_terms` fits coefficients for. Rows
+    depend only on the base rate constants (bw/mac/gather), not the
+    multipliers, so they stay valid across recalibrations."""
+    te, tv, tc, ts = _terms(info, geom, kind, hw.clone(
+        c_edges=1, c_edges_big=0, c_vertices=1, c_compute=1, c_store=1))
+    is_big = 1.0 if kind == "big" else 0.0
+    return [te * (1 - is_big), te * is_big, tv, tc, ts, 1.0]
+
+
+def fit_terms(rows: Sequence[Sequence[float]], ys: Sequence[float],
+              hw: HW, min_per_class: int = 3, max_cond: float = 1e8,
+              max_residual: float = 0.75) -> Tuple[HW, dict]:
+    """Fit the five term multipliers + t_const from design rows (see
+    :func:`feature_row`) against measured seconds. The guarded core of
+    :func:`calibrate` — also fed directly by the autotune Calibrator
+    with per-LANE rows (sums of entry rows).
+
+    Guards (the un-guarded fit silently returned ~0 coefficients on
+    underdetermined systems, collapsing every estimate of the starved
+    term class):
+
+    * a term class (Little edges / Big edges) with fewer than
+      ``min_per_class`` samples keeps its PRIOR coefficient and its
+      column is excluded from the solve;
+    * fewer usable rows than active columns keeps the prior entirely;
+    * the solve is weakly regularized toward the prior, so directions
+      the data cannot identify (te and tc are exactly collinear within
+      a kind: both scale with padded edges) stay at the prior instead
+      of being zeroed arbitrarily;
+    * a relative residual above ``max_residual`` (inconsistent
+      timings) keeps the prior entirely.
+
+    Returns ``(fitted HW (combine="sum"), diagnostics)`` — diagnostics
+    carry n/n_little/n_big, the scaled design's condition number, the
+    relative residual, which coefficients kept their prior, and a
+    ``fallback`` reason (None when the fit was used).
+    """
+    A = np.asarray(rows, dtype=float)
+    y = np.asarray(ys, dtype=float)
+    diag = {"n": int(A.shape[0]) if A.ndim == 2 else 0,
+            "n_little": 0, "n_big": 0, "cond": None,
+            "residual_rel": None, "kept_prior": [], "fallback": None}
+    if A.ndim != 2 or A.shape[0] == 0:
+        diag["fallback"] = "no_samples"
+        return hw, diag
+    names = ["c_edges", "c_edges_big", "c_vertices", "c_compute",
+             "c_store", "t_const"]
+    prior = np.array([hw.c_edges, hw.c_edges_big or hw.c_edges,
+                      hw.c_vertices, hw.c_compute, hw.c_store,
+                      max(hw.t_const, 0.0)])
+    diag["n_little"] = int(np.count_nonzero(A[:, 0] > 0))
+    diag["n_big"] = int(np.count_nonzero(A[:, 1] > 0))
+
+    active = []
+    for j in range(6):
+        if j == 0 and diag["n_little"] < min_per_class:
+            continue
+        if j == 1 and diag["n_big"] < min_per_class:
+            continue
+        if j < 5 and not np.any(A[:, j] > 0):
+            continue
+        active.append(j)
+    inactive = [j for j in range(6) if j not in active]
+    diag["kept_prior"] = [names[j] for j in inactive]
+    if not active or A.shape[0] < len(active):
+        diag["fallback"] = "insufficient_samples"
+        return hw, diag
+
+    Aa = A[:, active]
+    # residual target: measured minus what the PRIOR attributes to the
+    # frozen (inactive) columns
+    ya = y - A[:, inactive] @ prior[inactive] if inactive else y.copy()
+    norms = np.linalg.norm(Aa, axis=0)
+    norms[norms == 0] = 1.0
+    As = Aa / norms
+    sv = np.linalg.svd(As, compute_uv=False)
+    tiny = sv[0] * 1e-12 if sv.size else 0.0
+    diag["cond"] = float(sv[0] / sv[-1]) if sv.size and sv[-1] > tiny \
+        else float("inf")
+    # weak Tikhonov pull toward the prior: negligible where the data
+    # identifies a coefficient, decisive in null-space directions
+    # (exactly-collinear te/tc) and near max_cond conditioning
+    reg = 1e-3 if diag["cond"] <= max_cond else 3e-2
+    prior_scaled = prior[active] * norms
+    A_solve = np.vstack([As, reg * np.eye(len(active))])
+    y_solve = np.concatenate([ya, reg * prior_scaled])
+    try:
+        from scipy.optimize import nnls
+        coef_s, _ = nnls(A_solve, y_solve)
+    except Exception:
+        coef_s, *_ = np.linalg.lstsq(A_solve, y_solve, rcond=None)
+        coef_s = np.clip(coef_s, 0.0, None)
+    coef_active = coef_s / norms
+
+    pred = Aa @ coef_active
+    ref = np.linalg.norm(ya)
+    diag["residual_rel"] = (float(np.linalg.norm(pred - ya) / ref)
+                            if ref > 0 else 0.0)
+    if diag["residual_rel"] is not None \
+            and diag["residual_rel"] > max_residual:
+        diag["fallback"] = "high_residual"
+        return hw, diag
+
+    coef = prior.copy()
+    coef[active] = coef_active
+    c = [float(max(x, 1e-12)) for x in coef[:5]]
+    if 1 in inactive and hw.c_edges_big == 0.0:
+        # preserve the "share c_edges" sentinel: a Big class that kept
+        # its prior must track the FITTED little edge coefficient, not
+        # a stale absolute value
+        c[1] = 0.0
+    return hw.clone(c_edges=c[0], c_edges_big=c[1], c_vertices=c[2],
+                    c_compute=c[3], c_store=c[4],
+                    t_const=float(max(coef[5], 0.0)),
+                    combine="sum"), diag
+
+
+def calibrate_full(samples: Sequence[tuple], hw: HW,
+                   min_per_class: int = 3) -> Tuple[HW, dict]:
+    """Fit per-term multipliers from measured (info, geom, kind, seconds)
+    samples via guarded non-negative least squares on the additive form
+    (see :func:`fit_terms`). Mirrors the paper's latency benchmarking
+    used to fit Eq. (4)'s a and b. Returns ``(HW, fit diagnostics)`` —
+    the diagnostics end up in the persisted DeviceSpec."""
+    if not samples:
+        return hw, {"n": 0, "fallback": "no_samples"}
+    rows = [feature_row(info, geom, kind, hw)
+            for info, geom, kind, _secs in samples]
+    ys = [secs for *_ignored, secs in samples]
+    return fit_terms(rows, ys, hw, min_per_class=min_per_class)
+
+
+def calibrate(samples: Sequence[tuple], hw: HW) -> HW:
+    """Back-compat wrapper over :func:`calibrate_full` (HW only)."""
+    return calibrate_full(samples, hw)[0]
+
+
+def lane_feature_rows(bundle) -> List[np.ndarray]:
+    """Per-LANE design rows for a PlanBundle: each lane's row is the
+    sum of its entries' :func:`feature_row` vectors, scaled by the
+    entry's block fraction of its work (entries on one lane run
+    serially, so their term contributions add), with the constant
+    column counting kernel launches (one per (lane, kind) packed
+    payload). Zipped against measured lane times (``time_lanes`` or
+    traced runs) these feed the Calibrator's :func:`fit_terms`."""
+    hw = bundle.config.hw
+    infos_by_pid = {i.pid: i for i in bundle.infos}
+    rows = []
+    for lane in bundle.plan.lanes:
+        row = np.zeros(6)
+        kinds = set()
+        for e in lane:
+            work = (bundle.little_works[e.work_id] if e.kind == "little"
+                    else bundle.big_works[e.work_id])
+            batch = [infos_by_pid[p] for p in work.pids]
+            n_blocks = max(int(work.n_blocks), 1)
+            frac = (e.block_hi - e.block_lo) / n_blocks
+            for info in batch:
+                r = np.asarray(feature_row(info, work.geom, e.kind, hw))
+                r[5] = 0.0           # const handled per payload below
+                row += frac * r
+            kinds.add(e.kind)
+        row[5] = float(len(kinds))   # one launch per (lane, kind)
+        rows.append(row)
+    return rows
 
 
 def lane_estimates(plan) -> List[tuple]:

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Literal
+from typing import Dict, List, Literal, Optional
 
 from .. import obs
 from . import perf_model, schedule
@@ -74,6 +74,23 @@ class PlanConfig:
                        for v in dataclasses.astuple(self.hw))
         return (self.mode, self.forced_little, self.forced_big,
                 self.n_lanes, hw_key)
+
+    @classmethod
+    def from_legacy(cls, plan_mode, n_lanes: int,
+                    hw: Optional[perf_model.HW] = None) -> "PlanConfig":
+        """Convert the legacy ``plan_mode: str | tuple`` union of the
+        deprecated ``HeterogeneousEngine``."""
+        hw = hw or perf_model.DEFAULT_HW
+        if plan_mode == "model":
+            return cls(mode="model", n_lanes=n_lanes, hw=hw)
+        if plan_mode == "monolithic":
+            return cls(mode="monolithic", n_lanes=n_lanes, hw=hw)
+        if isinstance(plan_mode, tuple) and len(plan_mode) == 3:
+            _, m, n = plan_mode
+            # legacy semantics: the tuple overrides n_lanes entirely
+            return cls(mode="fixed", forced_little=int(m), forced_big=int(n),
+                       n_lanes=int(m) + int(n), hw=hw)
+        raise ValueError(f"unrecognized legacy plan_mode: {plan_mode!r}")
 
 
 @dataclasses.dataclass

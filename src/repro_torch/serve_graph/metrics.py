@@ -170,7 +170,7 @@ class ServiceMetrics:
         self._stage: Dict[str, _Reservoir] = {
             s: _Reservoir(reservoir_size) for s in self.STAGES}
         self._queue_depth_fn = None  # wired by the service
-        # drift-triggered recalibrations (ROADMAP item 11: not ported yet); the gauge
+        # drift-triggered recalibrations (repro_torch.autotune); the gauge
         # details (version, age) come from the pull hook below
         self.retunes = 0
         self._calibration_info_fn = None  # wired when autotune= is on

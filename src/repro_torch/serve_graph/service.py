@@ -313,8 +313,15 @@ class GraphService:
         after a ``keep=``-pinned re-placement is dropped and re-placed
         from scratch (fresh LPT, no residency pins). None = keep pins
         regardless of skew.
-    autotune: drift-driven autotuning is not ported yet (ROADMAP item
-        11); anything but None raises NotImplementedError.
+    autotune: drift-driven autotuning (:mod:`repro_torch.autotune`): an
+        :class:`~repro_torch.autotune.AutoTuner`, True (one with
+        defaults) or a dict of its keyword arguments; a tuner the
+        service builds fits this service's ``device``. The tuner adopts
+        the persisted spec of its device kind for ``default_geom``,
+        rewrites default-shaped configs on submit to its calibrated HW,
+        feeds its calibrator from every single-device executor, and
+        after each execution may retune (outside the request's
+        latency; a failing retune never fails serving).
     """
 
     def __init__(self, *, cache: Optional[GraphStoreCache] = None,
@@ -339,10 +346,6 @@ class GraphService:
                  max_chain_depth: Optional[int] = None,
                  regroup: Union[RegroupPolicy, bool, dict, None] = None,
                  rebalance_threshold: Optional[float] = None):
-        if autotune is not None:
-            raise NotImplementedError(
-                "GraphService(autotune=...) is not ported yet: drift-driven "
-                "autotuning is ROADMAP item 11")
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
         if executor_byte_budget is not None and executor_byte_budget < 1:
@@ -421,6 +424,24 @@ class GraphService:
         self._retire_pending: set = set()
         self._next_id = 0
         self._closed = False
+        # optional drift-driven autotuning (repro_torch.autotune): accepts
+        # an AutoTuner instance, True (defaults), or a kwargs dict. The
+        # tuner's clearable drift accumulator is spliced ABOVE the
+        # service-level one so every executor sample reaches both.
+        self._autotuner = None
+        if autotune:
+            from ..autotune import AutoTuner
+            if isinstance(autotune, AutoTuner):
+                self._autotuner = autotune
+            elif isinstance(autotune, dict):
+                self._autotuner = AutoTuner(
+                    **{"device": self.device, **autotune})
+            else:
+                self._autotuner = AutoTuner(device=self.device)
+            self._autotuner.load(self.default_geom)
+            self.metrics.drift.set_parent(self._autotuner.drift)
+            self.metrics._calibration_info_fn = \
+                self._autotuner.calibration_info
         self._workers = [
             threading.Thread(target=self._worker_loop, daemon=True,
                              name=f"graph-serve-{i}")
@@ -1053,6 +1074,12 @@ class GraphService:
                     f"fingerprint {fp[:12]}… is neither registered nor "
                     f"cached; pass the Graph or register() it first")
 
+        if self._autotuner is not None:
+            # rewrite default-shaped configs to the current calibrated HW
+            # and best-known split BEFORE keying: coalescing, cost
+            # estimation and plan lookup all see the effective config
+            config = self._autotuner.resolve_config(config, skey)
+
         job_key = (skey, app_token, config.cache_key(), max_iters, path,
                    shard)
         # cost estimation reads the store/plan caches (their own locks;
@@ -1331,10 +1358,13 @@ class GraphService:
                     ex = ShardedExecutor(store, bundle, job.make_app(),
                                          devices=devices, path=job.path)
                 else:
+                    calib = (self._autotuner.calibrator
+                             if self._autotuner is not None else None)
                     ex = Executor(store, bundle, job.make_app(),
                                   path=job.path, device=self.device,
                                   drift_parent=self.metrics.drift,
-                                  util_parent=self.metrics.utilization)
+                                  util_parent=self.metrics.utilization,
+                                  calibrator=calib)
                 nbytes = ex.memory_footprint()
                 with self._lock:
                     if exec_key in self._executors:
@@ -1344,14 +1374,9 @@ class GraphService:
                     self._trim_executors()
 
             t0 = time.perf_counter()
-            # worker threads each have their own current CUDA device: make
-            # the executor's current so every launch and allocation of
-            # the run lands on it
-            on_device = (torch.cuda.device(ex.device)
-                         if ex.device.type == "cuda"
-                         else contextlib.nullcontext())
             with obs.span("service.execute", "service", app=job.app_name,
-                          executor_hit=hit is not None) as sp, on_device:
+                          executor_hit=hit is not None) as sp, \
+                    _on_device(ex.device):
                 result = ex.run(max_iters=job.max_iters)
                 sp.set(iterations=result[1]["iterations"])
             t_execute_ms = (time.perf_counter() - t0) * 1e3
@@ -1363,6 +1388,20 @@ class GraphService:
                      plan_hit=plan_hit, t_queue_ms=t_queue_ms,
                      t_store_ms=t_store_ms, t_plan_ms=t_plan_ms,
                      t_execute_ms=t_execute_ms)
+        # drift policy check AFTER the handles resolve: a retune sweeps
+        # time_lanes + rebuilds plans, and must not delay the request
+        # that happened to trip it. Sharded executors have no time_lanes
+        # path; single-device drift covers the same model constants.
+        if self._autotuner is not None and job.shard is None:
+            try:
+                with _on_device(ex.device):
+                    ev = self._autotuner.observe(store, ex, job.config,
+                                                 skey=job.skey)
+                if ev is not None and ev.get("applied"):
+                    self.metrics.record_retune()
+            except Exception as e:   # autotuning must never fail serving
+                self._autotuner._push_event(
+                    {"error": repr(e), "applied": False})
 
     def _finish(self, job: _Job, result=None, error=None, store_hit=None,
                 plan_hit=None, t_queue_ms=None, t_store_ms=None,
@@ -1424,12 +1463,63 @@ class GraphService:
                      error=(None if error is None else str(error)))
 
     # -- autotune -------------------------------------------------------
-    def retune_now(self, *args, **kwargs) -> dict:
-        """Not ported yet: a forced calibrate-and-replan cycle needs the
-        autotuner (ROADMAP item 11). Raises NotImplementedError."""
-        raise NotImplementedError(
-            "GraphService.retune_now is not ported yet: drift-driven "
-            "autotuning is ROADMAP item 11")
+    @property
+    def autotuner(self):
+        """The attached :class:`~repro_torch.autotune.AutoTuner`, or
+        None."""
+        return self._autotuner
+
+    def retune_now(self, graph: Union[Graph, str, None] = None, *,
+                   fingerprint: Optional[str] = None,
+                   app="pagerank", geom: Optional[Geometry] = None,
+                   use_dbg: Optional[bool] = None,
+                   config: Optional[PlanConfig] = None, **cfg) -> dict:
+        """Force a calibrate-and-replan cycle for one graph, bypassing
+        the drift policy (admin/debug path; the normal trigger is the
+        post-execution drift check). The sweep runs on an executor on
+        the service's device. Returns the retune event dict."""
+        if self._autotuner is None:
+            raise RuntimeError("service was built without autotune=")
+        if config is not None and cfg:
+            raise ValueError("pass either config= or PlanConfig kwargs, "
+                             "not both")
+        config = config or PlanConfig(**cfg)
+        geom = geom or self.default_geom
+        use_dbg = self.default_use_dbg if use_dbg is None else bool(use_dbg)
+        graph_obj = graph if isinstance(graph, Graph) else None
+        fp = resolve_fingerprint(graph, fingerprint)
+        skey = store_key(fp, geom, use_dbg)
+        if graph_obj is None:
+            with self._lock:
+                graph_obj = self._registry.get(fp)
+            if graph_obj is None and skey not in self.cache:
+                raise KeyError(
+                    f"fingerprint {fp[:12]}… is neither registered nor "
+                    f"cached; pass the Graph or register() it first")
+        config = self._autotuner.resolve_config(config, skey)
+
+        def build():
+            g = graph_obj
+            if g is None:
+                raise KeyError("store evicted and graph not registered")
+            if isinstance(g, _LazyGraph):
+                g = g.materialize()
+            return self._build_store(g, geom, use_dbg, fp=fp)
+
+        _, _, make_app = _normalize_app(app, None)
+        with self.cache.lease(skey, build) as (store, _hit), \
+                _on_device(self.device):
+            bundle = store.plan(config)
+            ex = Executor(store, bundle, make_app(),
+                          path=self.default_path, device=self.device,
+                          drift_parent=self.metrics.drift,
+                          util_parent=self.metrics.utilization,
+                          calibrator=self._autotuner.calibrator)
+            event = self._autotuner.retune(store, ex, config, skey=skey,
+                                           force=True)
+        if event.get("applied"):
+            self.metrics.record_retune()
+        return event
 
     # -- reporting ------------------------------------------------------
     def stats(self) -> dict:
@@ -1447,10 +1537,19 @@ class GraphService:
             "executor_bytes": exec_bytes,
             "executor_byte_budget": self.executor_byte_budget,
             "drift": self.metrics.drift.report(),
-            "autotune": None,
+            "autotune": (self._autotuner.stats()
+                         if self._autotuner is not None else None),
             "tracer": (self.tracer.stats()
                        if self.tracer is not None else None),
         }
+
+
+def _on_device(device: torch.device):
+    """Make ``device`` current on this thread when it is a card (worker
+    threads each have their own current CUDA device), so every launch
+    and allocation of a run lands on it."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _normalize_app(app: Union[GASApp, str],

@@ -5,7 +5,8 @@ changing-graph paths through the kernel: sharded == fused, a derived
 store == a cold rebuild after a delta, and reused payloads kept in
 place; and the serving layer: a served request == a direct executor,
 a spawn pool with CUDA up in the parent, the traced per-lane run ==
-the fused run.
+the fused run; a forced autotune retune on the card, and
+``DistributedEngine`` on a one-rank NCCL group.
 They import neither JAX nor the reference package, so they also run on
 a machine with a card and no JAX:
 
@@ -384,3 +385,73 @@ def test_traced_run_on_card_equals_fused(device, shard_graph):
              if s["name"] == "executor.lane"]
     assert lanes and all("est_time" in s["attrs"] and s["attrs"]["gbps"] > 0
                          for s in lanes)
+
+
+# -- autotune and the SPMD path on the card -----------------------------
+
+def test_forced_retune_on_card(device, shard_graph, tmp_path):
+    """A forced retune sweeps the lanes through the kernel, fits, adopts
+    the winning plan and persists a spec that names the card; the
+    adopted plan's results agree with the old plan's (PageRank within
+    rtol 1e-5, BFS exactly)."""
+    from repro_torch.autotune import (AutoTuner, Calibrator, RetunePolicy,
+                                      SpecRegistry)
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    cfg = api.PlanConfig(n_lanes=4)
+    tuner = AutoTuner(policy=RetunePolicy(cooldown_s=0.0),
+                      calibrator=Calibrator(max_residual=float("inf")),
+                      registry=SpecRegistry(str(tmp_path)))
+    assert tuner.device == device
+    assert tuner.device_kind.startswith(torch.cuda.get_device_name(device))
+    pr = api.compile(None, "pagerank", store=store, config=cfg)
+    bfs = api.compile(None, "bfs", store=store, config=cfg)
+    pr_a, _ = pr.run()
+    bfs_a, _ = bfs.run()
+    ex = api.Executor(store, store.plan(cfg), pr.app,
+                      calibrator=tuner.calibrator)
+    gas_kernel.gas_tiles.launches = 0
+    event = tuner.retune(store, ex, cfg, skey="g", force=True)
+    torch.cuda.synchronize()
+    assert gas_kernel.gas_tiles.launches > 0       # the sweep's launches
+    assert event["applied"], event
+    with open(event["spec_path"]) as f:
+        assert torch.cuda.get_device_name(device) in f.read()
+    cfg_b = tuner.resolve_config(api.PlanConfig(n_lanes=4), "g")
+    assert cfg_b.hw is tuner.hw and store.has_plan(cfg_b)
+    pr_b, _ = api.compile(None, "pagerank", store=store, config=cfg_b).run()
+    bfs_b, _ = api.compile(None, "bfs", store=store, config=cfg_b).run()
+    np.testing.assert_allclose(pr_b, pr_a, rtol=1e-5, atol=1e-7)
+    assert np.array_equal(bfs_b, bfs_a)
+
+
+def test_distributed_engine_on_one_rank_nccl(device, shard_graph,
+                                             tmp_path):
+    """DistributedEngine on a one-rank NCCL group: its two packed
+    payloads through the kernel, one all_reduce, equal to the fused
+    executor (PageRank within rtol 1e-5, the min apps exactly)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core.distributed import DistributedEngine
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    cfg = api.PlanConfig(n_lanes=4, hw=api.DEFAULT_HW.clone(gather_b=0.0))
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "rendezvous"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        for app in ("pagerank", "bfs", "sssp", "closeness"):
+            want, mw = api.compile(None, app, store=store,
+                                   config=cfg).run()
+            eng = DistributedEngine(store, api.BUILTIN_APPS[app](),
+                                    config=cfg, blocks_per_chunk=8)
+            assert eng.path == "cuda" and eng.stats()["payloads"] == 2
+            gas_kernel.gas_tiles.launches = 0
+            got, mg = eng.run()
+            torch.cuda.synchronize()
+            assert gas_kernel.gas_tiles.launches == 2 * mg["iterations"]
+            if app == "pagerank":
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+            else:
+                assert mg["iterations"] == mw["iterations"]
+                assert np.array_equal(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -104,9 +104,9 @@ def test_gather_matches_edge_oracle(stores):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Every module of the port, the streaming, sharding, obs, serving
-    and control packages among them, imports neither JAX nor the
-    reference."""
+    """Every module of the port, the streaming, sharding, obs, serving,
+    control and autotune packages and the SPMD path among them, imports
+    neither JAX nor the reference."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -118,7 +118,9 @@ def test_port_imports_no_jax_and_no_reference():
         "'serve_graph', 'serve_graph.service', 'serve_graph.store_cache', "
         "'serve_graph.metrics', 'serve_graph.fingerprint', 'control', "
         "'control.scheduler', 'control.pool', 'control.jobs', "
-        "'control.manager', 'control.http_api', 'control.dashboard'):\n"
+        "'control.manager', 'control.http_api', 'control.dashboard', "
+        "'autotune', 'autotune.specs', 'autotune.calibrator', "
+        "'autotune.retuner', 'core.distributed', 'core.engine'):\n"
         "    assert 'repro_torch.' + name in mods, name\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
@@ -130,7 +132,7 @@ def test_port_imports_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 42      # every module was imported
+    assert int(proc.stdout.strip()) >= 52      # every module was imported
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, small_graph,
@@ -196,3 +198,40 @@ def test_plan_cache_spans_and_clear(small_graph, small_geom):
     assert store.clear_plans() == {"plans": 1,
                                    "freed_bytes": ex.memory_footprint()}
     assert not store.has_plan(two)
+
+
+@pytest.mark.parametrize("combine", ["sum", "max"])
+def test_makespan_drift_estimate_matches_reference(combine, stores):
+    """The "makespan" drift kind compares a measured iteration with the
+    reference's like-for-like estimate: the SUM of lane estimates under
+    a serial calibration (combine="sum", what every fit returns; lanes
+    run back to back), the plan's parallel ``est_makespan`` otherwise.
+    The same store and plan through both packages give the same
+    estimate, and a run's makespan samples are taken against it."""
+    from repro.core import perf_model as jpm
+    from repro.core.executor import Executor as JExecutor
+    from repro_torch.core import perf_model as tpm
+
+    store_j, store_t = stores["small"]
+    kw = {"c_edges": 2.0, "combine": "sum"} if combine == "sum" else {}
+    hw_j = jpm.TPU_V5E.clone(**kw) if kw else jpm.TPU_V5E
+    hw_t = tpm.DEFAULT_HW.clone(**kw) if kw else tpm.DEFAULT_HW
+    app_j, app_t = japi.make_pagerank(max_iters=2), tapi.make_pagerank(
+        max_iters=2)
+    ex_j = JExecutor(store_j, store_j.plan(japi.PlanConfig(n_lanes=4,
+                                                           hw=hw_j)),
+                     app_j, path="ref")
+    ex_t = Executor(store_t, store_t.plan(tapi.PlanConfig(n_lanes=4,
+                                                          hw=hw_t)),
+                    app_t, device="cpu")
+    assert ex_t._lane_est == ex_j._lane_est
+    assert ex_t._est_iteration == ex_j._est_iteration
+    if combine == "sum":
+        lane_sum = sum(e for e, _ in ex_t._lane_est)
+        assert ex_t._est_iteration == pytest.approx(lane_sum)
+        assert ex_t._est_iteration > ex_t.plan.est_makespan
+    else:
+        assert ex_t._est_iteration == ex_t.plan.est_makespan
+    ex_t.run()
+    rep = ex_t.drift.report()["makespan"]
+    assert rep["est_s"] == pytest.approx(rep["n"] * ex_t._est_iteration)

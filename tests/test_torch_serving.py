@@ -10,7 +10,7 @@ events. Inside the port, bit for bit: a served result == a direct
 ``Executor`` run on the same store and plan, sharded == fused, an
 update's snapshot == ``apply_delta``'s, and the traced per-lane run ==
 the fused run. Plus the refusals: no CUDA and no ``device="cpu"``, and
-``autotune=``.
+a retune on a service without ``autotune=``.
 """
 import dataclasses
 import pickle
@@ -409,17 +409,29 @@ def test_raises_without_cuda(monkeypatch):
         assert svc.device == torch.device("cpu")
 
 
-def test_autotune_is_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tapi.GraphService(device="cpu", autotune=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tapi.GraphService(device="cpu", autotune={})
+def test_autotune_is_refused(monkeypatch):
+    """Autotuning is refused where it cannot run: a service without
+    ``autotune=`` has no retune (``retune_now`` raises and
+    ``retune_job`` records a failed job), and without CUDA neither a
+    tuner nor a service with ``autotune=`` starts unless
+    ``device="cpu"``."""
     with tapi.GraphService(device="cpu") as svc:
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(RuntimeError, match="without autotune"):
             svc.retune_now(fingerprint="x")
         assert svc.stats()["autotune"] is None
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tapi.ControlPlane(svc).retune_job(fingerprint="x")
+        plane = tapi.ControlPlane(svc)
+        with pytest.raises(RuntimeError, match="without autotune"):
+            plane.retune_job(fingerprint="x")
+        (rec,) = plane.jobs.list()
+        assert rec["kind"] == "retune" and rec["state"] == "failed"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.GraphService(autotune=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.AutoTuner(registry=False)
+    with tapi.GraphService(device="cpu", autotune={"registry": False}) \
+            as svc:
+        assert svc.autotuner.device == torch.device("cpu")
 
 
 def _record_events(metrics_cls, request_cls):
