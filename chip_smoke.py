@@ -119,6 +119,26 @@ Phases (any failed check exits non-zero before the last line):
    ``iteration_ms``; each launch on its packed payloads held against
    the plain version and timed beside it, the bound and the library
    call. ``launches_by_path`` gains ``autotune`` and ``distributed``.
+12. LM serving on the card (``phase_lm``), weights from a seeded
+   ``torch.Generator``. 12a: qwen2-1.5B at full width (28 layers,
+   d_model 1536, vocab padded to 153,600) in fp32: forward on 2 x 256
+   tokens, then prefill the first half and decode the rest step by
+   step, each step within the reference's tolerances of forward (2e-2,
+   5e-2); the same widths at 2 layers on the card and on the CPU within
+   rtol 1e-4 / atol 1e-4. 12b: the same model in bf16 behind
+   ``ServeEngine(max_batch=8)``: 16 requests, prompts of 128-512 tokens
+   (numpy ``default_rng(0)``), 32 new tokens each at temperature 0;
+   tokens/s, mean TTFT, prefill and decode-step device ms (CUDA events)
+   at the first wave's shape, parameter and cache bytes, peak device
+   memory; one request through a ``max_batch=1`` engine token for token
+   equal to a manual prefill + decode loop. 12c: granite-MoE (32 layers,
+   40 experts padded to 48, top-8, biglittle dispatch) in bf16: one
+   layer's dispatch on 256 tokens at a capacity nothing overflows
+   against ``ref.moe_dispatch_ref`` (fp32 rtol 1e-4 / atol 1e-5, bf16
+   rtol = atol = 2e-2), then 8 of the same requests served as in 12b,
+   with ``biglittle_split``'s (n_hot, C_hot, C_cold). The LM path
+   launches no hand-written kernel, so the ``kernels`` line keeps its
+   one row.
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -1711,6 +1731,359 @@ def phase_distributed(main_res: dict, device, reps: int = REPS) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: LM serving on the card
+# ---------------------------------------------------------------------------
+
+LM_DENSE, LM_MOE = "qwen2_1p5b", "granite_moe_3b_a800m"
+LM_SEED = 0                       # the weights' torch.Generator seed
+LM_REQUESTS, LM_MOE_REQUESTS, LM_NEW = 16, 8, 32
+LM_PROMPT = (128, 512)            # prompt lengths, numpy default_rng(0)
+LM_TF_B, LM_TF_S = 2, 256         # teacher-forced decode: prefill S/2
+LM_CPU_LAYERS = 2                 # card vs CPU: full widths, 2 layers
+LM_DISPATCH_T = 256               # tokens of the one-layer dispatch check
+LM_BF16_TOL = 2e-2                # rtol = atol, bf16 (model parity tests)
+
+
+def _lm_requests(cfg, n: int):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    return [Request(tokens=rng.integers(0, cfg.vocab_size, int(n_tok))
+                    .astype(np.int32), max_new_tokens=LM_NEW)
+            for n_tok in lens][:n]
+
+
+def _grown(cache, extra: int):
+    import torch
+    return {k: torch.cat([v, v.new_zeros(v.shape[:2] + (extra,)
+                                         + v.shape[3:])], dim=2)
+            for k, v in cache.items()}
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _within(got, want, tol: float) -> bool:
+    """|got - want| <= tol + tol * |want| everywhere."""
+    import torch
+    g, w = got.double().cpu(), want.double().cpu()
+    return bool(torch.isfinite(g).all()) and bool(
+        ((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+def _param_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(_param_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+def _lm_teacher_forced(model, params, device) -> dict:
+    """Full width, fp32: forward on 2 x 256 tokens; prefill the first
+    half, then decode the rest step by step, each step's logits against
+    forward's at the reference's tolerances (2e-2 for the prefill's
+    last logits, 5e-2 per step: tests/test_models.py:67-98)."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (LM_TF_B, LM_TF_S)).astype(np.int32)).to(device)
+    half = LM_TF_S // 2
+    with torch.inference_mode():
+        full = model.forward(params, {"tokens": tok})
+        check(tuple(full.shape) == (LM_TF_B, LM_TF_S, cfg.vocab_padded)
+              and bool(torch.isfinite(full).all()),
+              f"forward logits {tuple(full.shape)} not finite / wrong shape")
+        cache, last = model.prefill(params, {"tokens": tok[:, :half]})
+        cache = _grown(cache, LM_TF_S - half)
+        check(_within(last[:, 0], full[:, half - 1], 2e-2),
+              "prefill's last logits != forward's (2e-2)")
+        errs = [_max_err(last[:, 0], full[:, half - 1])]
+        for t in range(half, LM_TF_S):
+            logits, cache = model.decode_step(params, cache, tok[:, t:t + 1],
+                                              t)
+            check(_within(logits[:, 0], full[:, t], 5e-2),
+                  f"decode step at {t} != forward (5e-2)")
+            errs.append(_max_err(logits[:, 0], full[:, t]))
+    return {"tokens": [LM_TF_B, LM_TF_S], "decode_steps": LM_TF_S - half,
+            "max_abs_err_prefill": errs[0],
+            "max_abs_err_decode": max(errs[1:])}
+
+
+def _lm_card_vs_cpu(cfg, device) -> dict:
+    """The same model at full widths and LM_CPU_LAYERS layers, fp32,
+    the same weights and tokens on the card and on the CPU: forward
+    logits within rtol 1e-4 / atol 1e-4 (TF32 off)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models.api import build_model
+    model = build_model(dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS))
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    tok = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (LM_TF_B, LM_TF_S)).astype(np.int32)
+    with torch.inference_mode():
+        card = model.forward(params, {
+            "tokens": torch.from_numpy(tok).to(device)}).cpu()
+        cpu_params = {k: ({n: t.cpu() for n, t in v.items()}
+                          if isinstance(v, dict) else v.cpu())
+                      for k, v in params.items()}
+        del params
+        t0 = time.perf_counter()
+        host = model.forward(cpu_params, {"tokens": torch.from_numpy(tok)})
+        t_cpu = time.perf_counter() - t0
+    err = _max_err(card, host)
+    check(bool(torch.allclose(card, host, rtol=1e-4, atol=1e-4)),
+          f"card != CPU at {LM_CPU_LAYERS} layers: max abs err {err}")
+    return {"layers": LM_CPU_LAYERS, "max_abs_err": err,
+            "t_cpu_forward_s": t_cpu}
+
+
+def _device_profile(fn, reps: int) -> dict:
+    """Device busy time of ``fn()`` per run from ``torch.profiler``
+    (the sum of its kernels' device time; CUDA activity only, after one
+    warm-up) and its five costliest kernels; None where the profiler
+    sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / reps)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        return {"busy_ms": None, "top": []}
+    kernels.sort(key=lambda kv: -kv[1])
+    return {"busy_ms": sum(ms for _, ms in kernels),
+            "kernels": len(kernels),
+            "top": [[name[:60], ms] for name, ms in kernels[:5]]}
+
+
+def _lm_serving(model, params, n_requests: int, device) -> dict:
+    """ServeEngine(max_batch=8) on the card at temperature 0: a warm-up
+    request, then ``n_requests`` requests; prefill and decode-step
+    device ms (CUDA events) at the first wave's shape and the decode
+    step's host-clock ms; one request through a max_batch=1 engine
+    token for token against a manual prefill + decode loop."""
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.kvcache import cache_bytes
+    cfg = model.cfg
+    reqs = _lm_requests(cfg, n_requests)
+    max_seq = LM_PROMPT[1] + LM_NEW
+    eng = ServeEngine(model, params, max_batch=8, max_seq=max_seq,
+                      device=device)
+    eng.run_wave([Request(tokens=reqs[0].tokens[:32], max_new_tokens=2)])
+    torch.cuda.synchronize(device)
+    stats = eng.serve(reqs)
+    check(all(r.done and len(r.out) == LM_NEW for r in reqs),
+          "a served request did not get its 32 tokens")
+    check(all(((r.out >= 0) & (r.out < cfg.vocab_size)).all() for r in reqs),
+          "a served token is outside the vocabulary")
+
+    wave = reqs[:8]
+    plen = max(len(r.tokens) for r in wave)
+    toks = torch.zeros((len(wave), plen), dtype=torch.int32)
+    for i, r in enumerate(wave):
+        toks[i, plen - len(r.tokens):] = torch.from_numpy(r.tokens)
+    toks = toks.to(device)
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": toks}),
+                             3)
+        cache, logits = model.prefill(params, {"tokens": toks})
+        cache = _grown(cache, LM_NEW + 1)
+        cur = torch.argmax(logits[:, -1, :cfg.vocab_size], -1) \
+            .to(torch.int32)[:, None]
+        decode_ms = cuda_ms(
+            lambda: model.decode_step(params, cache, cur, plen), REPS)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            model.decode_step(params, cache, cur, plen)
+        torch.cuda.synchronize(device)
+        decode_host_ms = (time.perf_counter() - t0) * 1e3 / REPS
+        decode_prof = _device_profile(
+            lambda: model.decode_step(params, cache, cur, plen), REPS)
+        prefill_prof = _device_profile(
+            lambda: model.prefill(params, {"tokens": toks}), 1)
+    del cache, logits
+
+    one = ServeEngine(model, params, max_batch=1, max_seq=max_seq,
+                      device=device)
+    prompt = reqs[0].tokens
+    [req] = one.run_wave([Request(tokens=prompt, max_new_tokens=LM_NEW)])
+
+    def greedy(logits):        # the engine's rule: argmax of f32 logits
+        lf = logits[0, -1, :cfg.vocab_size].float()
+        top = torch.topk(lf, 2).values
+        return int(torch.argmax(lf)), float(top[0] - top[1])
+
+    with torch.inference_mode():
+        cache, logits = model.prefill(
+            params, {"tokens": torch.from_numpy(prompt)[None].to(device)})
+        cache = _grown(cache, LM_NEW + 1)
+        manual, gaps = zip(greedy(logits))
+        manual, gaps = list(manual), list(gaps)
+        for t in range(LM_NEW - 1):
+            logits, cache = model.decode_step(
+                params, cache,
+                torch.tensor([[manual[-1]]], dtype=torch.int32,
+                             device=device), len(prompt) + t)
+            tok, gap = greedy(logits)
+            manual.append(tok)
+            gaps.append(gap)
+    diff = [i for i, (a, b) in enumerate(zip(req.out.tolist(), manual))
+            if a != b]
+    check(not diff,
+          "max_batch=1 engine tokens != the manual prefill + decode loop "
+          f"from token {diff[0] if diff else None}: engine "
+          f"{req.out.tolist()}, manual {manual}, top-2 logit gaps {gaps}")
+    return {"requests": stats["requests"],
+            "generated_tokens": stats["generated_tokens"],
+            "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+            "mean_ttft_s": stats["mean_ttft_s"],
+            "prompt_lens": [len(r.tokens) for r in reqs],
+            "param_bytes": _param_bytes(params),
+            "cache_bytes": cache_bytes(cfg, 8, max_seq),
+            "prefill_shape": [len(wave), plen], "prefill_ms": prefill_ms,
+            "decode_step_ms": decode_ms,
+            "decode_step_host_ms": decode_host_ms,
+            "decode_step_device_profile": decode_prof,
+            "prefill_device_profile": prefill_prof,
+            "request0_tokens": req.out.tolist(),
+            "served_request0_tokens": reqs[0].out.tolist(),
+            "greedy_equals_manual_loop": True}
+
+
+def _lm_dispatch(model, params, device) -> dict:
+    """One MoE layer's dispatch (``moe._moe_ffn_tokens``, biglittle) on
+    LM_DISPATCH_T tokens at a capacity every expert's share fits (each
+    expert takes at most T tokens, so nothing drops), with the model's
+    router and distinct random expert weights, against the exact
+    mixture ``ref.moe_dispatch_ref``: fp32 within rtol 1e-4 / atol 1e-5
+    (the reference's own test), bf16 within rtol = atol = 2e-2 (the
+    dispatch adds each token's 8 expert rows in bf16)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.moe_schedule import biglittle_split
+    cfg = model.cfg
+    E, D = cfg.num_experts_padded, cfg.d_model
+    F = cfg.moe_d_ff or cfg.d_ff
+    cf = 50.0
+    n_hot, c_hot, c_cold = biglittle_split(E, cfg.top_k, LM_DISPATCH_T, cf)
+    check(min(c_hot, c_cold) >= LM_DISPATCH_T,
+          f"capacities {c_hot}/{c_cold} could drop tokens")
+    gen = torch.Generator(device).manual_seed(LM_SEED + 1)
+    x = torch.randn((LM_DISPATCH_T, D), generator=gen, device=device)
+    w = {"we_gate": torch.randn((E, D, F), generator=gen, device=device)
+         / D ** 0.5,
+         "we_up": torch.randn((E, D, F), generator=gen, device=device)
+         / D ** 0.5,
+         "we_down": torch.randn((E, F, D), generator=gen, device=device)
+         / F ** 0.5}
+    router = params["layers"]["router"][0]
+    out = {"tokens": LM_DISPATCH_T, "capacity_factor": cf,
+           "split": [n_hot, c_hot, c_cold]}
+    with torch.inference_mode():
+        for name, dt, tol in (("fp32", torch.float32, (1e-4, 1e-5)),
+                              ("bf16", torch.bfloat16,
+                               (LM_BF16_TOL, LM_BF16_TOL))):
+            xd = x.to(dt)
+            wd = {k: v.to(dt) for k, v in w.items()}
+            logits = xd.float() @ router          # as moe._route's
+            logits[:, cfg.num_experts:] = -1e30
+            got, _ = moe_mod._moe_ffn_tokens(
+                cfg, router, wd["we_gate"], wd["we_up"], wd["we_down"], xd,
+                0, E, 1, cf)
+            want = ref.moe_dispatch_ref(xd, logits, wd["we_gate"],
+                                        wd["we_up"], wd["we_down"],
+                                        cfg.top_k)
+            err = _max_err(got, want)
+            check(bool(torch.allclose(got.float(), want.float(),
+                                      rtol=tol[0], atol=tol[1])),
+                  f"MoE dispatch ({name}) != moe_dispatch_ref: max abs "
+                  f"err {err}")
+            out[f"max_abs_err_{name}"] = err
+            out[f"ref_max_abs_{name}"] = float(want.float().abs().max())
+    return out
+
+
+def phase_lm(device) -> dict:
+    """Phase 12: 12a qwen2-1.5B at full width in fp32 (teacher-forced
+    decode against forward; 2 layers at full widths, card against CPU),
+    12b the same model in bf16 served by ServeEngine, 12c granite-MoE at
+    full width in bf16 (one layer's dispatch against its oracle, then
+    served)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.moe_schedule import biglittle_split
+
+    out = {}
+    torch.cuda.init()                 # the memory stats need a context
+    # 12a: full width, fp32
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(get_config(LM_DENSE), dtype="float32")
+    model = build_model(cfg32)
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    a = _lm_teacher_forced(model, params, device)
+    a["param_bytes"] = _param_bytes(params)
+    del params
+    torch.cuda.empty_cache()
+    a["card_vs_cpu"] = _lm_card_vs_cpu(cfg32, device)
+    a["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    a["t_s"] = time.perf_counter() - t0
+    out["fp32_" + LM_DENSE] = a
+    torch.cuda.empty_cache()
+
+    # 12b: full width, bf16 serving
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = build_model(get_config(LM_DENSE))
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    b = _lm_serving(model, params, LM_REQUESTS, device)
+    b["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    b["t_s"] = time.perf_counter() - t0
+    out["bf16_" + LM_DENSE] = b
+    del params
+    torch.cuda.empty_cache()
+
+    # 12c: MoE, full width, bf16
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cfg = get_config(LM_MOE)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    c = {"dispatch": _lm_dispatch(model, params, device)}
+    c.update(_lm_serving(model, params, LM_MOE_REQUESTS, device))
+    E = cfg.num_experts_padded
+    c["biglittle_split"] = {
+        "prefill": [c["prefill_shape"][0] * c["prefill_shape"][1],
+                    *biglittle_split(E, cfg.top_k, c["prefill_shape"][0]
+                                     * c["prefill_shape"][1],
+                                     cfg.capacity_factor)],
+        "decode": [c["prefill_shape"][0],
+                   *biglittle_split(E, cfg.top_k, c["prefill_shape"][0],
+                                    cfg.capacity_factor)]}
+    c["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    c["t_s"] = time.perf_counter() - t0
+    out["bf16_" + LM_MOE] = c
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1730,6 +2103,8 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products as the reference's dot: one rounding of an f32 sum
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
     result = {"card": card, "torch": torch.__version__,
@@ -1860,6 +2235,36 @@ def main(argv=None) -> int:
             f"{ds['launches_per_iteration']} launches per iteration, "
             f"{ds['packed_bytes']} packed B, iteration "
             f"{ds['iteration_ms']:.3f} ms: " + json.dumps(ds))
+        t0 = time.perf_counter()
+        lm = result["lm"] = phase_lm(device)
+        a, b, c = (lm["fp32_" + LM_DENSE], lm["bf16_" + LM_DENSE],
+                   lm["bf16_" + LM_MOE])
+        log(f"phase 12a: {LM_DENSE} full width fp32 ({a['param_bytes']} "
+            f"param B): teacher-forced decode == forward (max abs err "
+            f"prefill {a['max_abs_err_prefill']:.3g}, decode "
+            f"{a['max_abs_err_decode']:.3g}); card == CPU at "
+            f"{a['card_vs_cpu']['layers']} layers (max abs err "
+            f"{a['card_vs_cpu']['max_abs_err']:.3g}) ({card})")
+        for name, r in ((LM_DENSE, b), (LM_MOE, c)):
+            log(f"phase 12{'b' if r is b else 'c'}: {name} bf16 served "
+                f"{r['requests']} requests x {LM_NEW} tokens: "
+                f"{r['tokens_per_s']:.1f} tokens/s, mean TTFT "
+                f"{r['mean_ttft_s'] * 1e3:.1f} ms, prefill "
+                f"{r['prefill_shape']} {r['prefill_ms']:.2f} ms, decode step "
+                f"{r['decode_step_ms']:.3f} ms (host clock "
+                f"{r['decode_step_host_ms']:.3f} ms; device busy "
+                f"{r['decode_step_device_profile']['busy_ms']} ms by "
+                f"torch.profiler, prefill's "
+                f"{r['prefill_device_profile']['busy_ms']} ms), params "
+                f"{r['param_bytes']} B, cache_bytes {r['cache_bytes']} B, "
+                f"max_memory_allocated {r['max_memory_allocated']} B; greedy "
+                f"== manual loop ({card})")
+        log(f"phase 12c: dispatch == moe_dispatch_ref (fp32 max abs err "
+            f"{c['dispatch']['max_abs_err_fp32']:.3g}, bf16 "
+            f"{c['dispatch']['max_abs_err_bf16']:.3g}); biglittle_split "
+            f"(tokens, n_hot, C_hot, C_cold) {json.dumps(c['biglittle_split'])}")
+        log(f"phase 12: LM serving ok ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(lm))
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1

@@ -1,0 +1,9 @@
+"""InternLM2-1.8B — GQA [arXiv:2403.17297; hf]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-1.8b", family="dense",
+    num_layers=24, d_model=2048, num_heads=16, num_kv_heads=8,
+    d_ff=8192, vocab_size=92544,
+    source="arXiv:2403.17297; hf",
+)

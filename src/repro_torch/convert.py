@@ -1,12 +1,15 @@
 """Carry state across from the reference package's host form.
 
-The reference's graphs and host payloads are numpy, so the port takes
-them without importing the reference: the tests use these helpers to
-feed both packages the same graph and the same blocked inputs.
+The reference's graphs, host payloads and (through ``np.asarray``) LM
+parameter trees and decode caches are numpy, so the port takes them
+without importing the reference: the tests use these helpers to feed
+both packages the same graph, the same blocked inputs and the same
+weights.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.types import Geometry
 from .graphs.formats import Graph, canonicalize
@@ -42,3 +45,31 @@ def payload_from_numpy(p: dict, device) -> dict:
         np.asarray(p["tile_id"]), int(p["n_out_tiles"]))
     p["tile_chunk_start"] = ops.tile_chunk_start(p["tile_block_start"])
     return ops._upload_payload(p, ops.resolve_device(device))
+
+
+# numpy dtypes without a torch twin for from_numpy (ml_dtypes' bfloat16
+# and float8, which the reference's bf16 / f8 arrays carry), found by
+# name: the same-width unsigned view crosses, then re-views as the
+# torch dtype
+_BITCAST = {"bfloat16": (np.uint16, torch.bfloat16),
+            "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.array(a)                 # a writable, contiguous copy
+    if a.dtype.name in _BITCAST:
+        view, dt = _BITCAST[a.dtype.name]
+        return torch.from_numpy(a.view(view)).view(dt).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_numpy(tree, device):
+    """A port LM tree from the reference's, leaf for leaf: nested dicts
+    (lists, tuples) of numpy arrays, e.g. ``jax.tree.map(np.asarray,
+    params)`` or a decode cache, become the same nesting of tensors on
+    ``device`` with the same shapes and dtypes (bf16 and f8 included)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(lm_params_from_numpy(v, device) for v in tree)
+    return _leaf_from_numpy(np.asarray(tree), device)

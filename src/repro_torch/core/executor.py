@@ -264,9 +264,12 @@ class Executor:
             t_it = time.perf_counter()
             new = (self._iteration_traced(vprops, it) if lane_detail
                    else self.iteration(vprops, it))
-            done = self.app.converged(vprops, new, it)   # syncs the device
+            # the sample ends with the new properties on the device and
+            # before the convergence test, as the reference's
+            _synchronize(self.device)
             self.drift.add("makespan", self._est_iteration,
                            time.perf_counter() - t_it)
+            done = self.app.converged(vprops, new, it)
             it_done = it + 1
             if collect_history:
                 history.append(new.cpu().numpy())
@@ -294,8 +297,11 @@ class Executor:
     def time_lanes(self, repeats: int = 3):
         """Per-lane median wall times (s) — the quantity the scheduler
         balances. Lanes run one after another here; ``max()`` is the
-        modelled makespan's analogue. Each lane sample also feeds the
-        drift report and the utilization profiler."""
+        modelled makespan's analogue. Each sample times what the
+        reference's lane function does: the identity fill, the lane's
+        launches and ``merge_all``, ended by a synchronize. Each lane
+        sample also feeds the drift report and the utilization
+        profiler."""
         vprops = self.init_props()
         out = []
         for i, lane in enumerate(self.lanes):
@@ -305,8 +311,7 @@ class Executor:
             ts = []
             for r in range(repeats + 1):                   # 1 warm-up
                 t0 = time.perf_counter()
-                for p in lane:
-                    self._run_payload(p, vprops)
+                self._merge([self._run_payload(p, vprops) for p in lane])
                 _synchronize(self.device)
                 if r:
                     ts.append(time.perf_counter() - t0)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the GAS kernel.
+"""Plain PyTorch versions of the GAS kernel, and the LM oracles.
 
 Each computes the same function as :mod:`.gas_kernel` from the same
 blocked inputs with stock tensor ops only (index gather +
@@ -12,9 +12,11 @@ bit 31 included, because closeness masks are signed.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.gas import GATHER_IDENTITY
+from ..models.common import silu
 
 _REDUCE = {"sum": "sum", "min": "amin", "max": "amax"}
 
@@ -64,3 +66,37 @@ def edge_ref(graph_src, graph_dst, graph_w, vprops, scatter_fn, mode,
     vals = scatter_fn(vprops[graph_src], graph_w).to(vprops.dtype)
     return _scatter_combine(graph_dst.to(torch.int64), vals, num_vertices,
                             mode)
+
+
+def moe_dispatch_ref(tokens, router_logits, w_gate, w_up, w_down, top_k):
+    """Oracle for the heterogeneous MoE dispatch: exact top-k gated
+    mixture-of-experts FFN (no capacity drop), one top-k rank at a time
+    over each token's own expert weights."""
+    weights, idx = torch.topk(router_logits, top_k, dim=-1)   # (n_tok, k)
+    weights = torch.softmax(weights, dim=-1)
+    out = torch.zeros_like(tokens)
+    for k in range(top_k):
+        e = idx[:, k]                                          # (n_tok,)
+        h = silu(torch.einsum("td,tdf->tf", tokens, w_gate[e])) \
+            * torch.einsum("td,tdf->tf", tokens, w_up[e])
+        y = torch.einsum("tf,tfd->td", h, w_down[e])
+        out = out + weights[:, k:k + 1] * y
+    return out
+
+
+def flash_attention_ref(q, k, v, causal=True, window=None):
+    """Oracle for the blockwise attention: exact softmax attention.
+    q,k,v: (heads, seq, head_dim). Optional sliding window."""
+    h, s, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    logits = torch.einsum("hqd,hkd->hqk", q, k) * scale
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    logits = torch.where(mask[None], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", p, v)

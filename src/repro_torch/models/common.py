@@ -1,0 +1,258 @@
+"""Shared model building blocks (pure functions over param trees).
+
+Conventions (the reference's, ``src/repro/models/common.py``):
+  * params are nested dicts of tensors; layer-stacked leaves carry a
+    leading L axis, and the models loop over it, indexing each leaf.
+  * dtype policy: params/activations in cfg.dtype (bf16 default), softmax
+    and reductions in f32. Where the reference asks for exact products
+    with an f32 accumulator and an f32 result (``einsum(...,
+    preferred_element_type=f32)`` on bf16 or f8 operands), the operands
+    are upcast to f32 first: a torch bf16 matmul would round its result
+    to bf16.
+  * attention is an online-softmax blockwise implementation in plain
+    torch ops, the same math as the reference's ``_flash_fwd_impl``.
+    Forward only: no backward yet.
+  * no mesh exists here, so the reference's sharding constraints are
+    identities.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs import torch_dtype
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sharding constraints: identities (no mesh in the single-device port)
+# ---------------------------------------------------------------------------
+
+def constrain_logits(x):
+    return x
+
+
+def constrain_act(x):
+    return x
+
+
+# ---------------------------------------------------------------------------
+# initialisers: tensors are made on the current default device (the
+# ``torch.device`` context; ``models.api.Model.init`` sets it to the
+# generator's device, ``param_specs`` to "meta")
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in, d_out, dtype, scale=None):
+    scale = scale if scale is not None else (1.0 / np.sqrt(d_in))
+    return (torch.randn((d_in, d_out), generator=gen) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, v, d, dtype):
+    return (torch.randn((v, d), generator=gen) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms: normalize in f32, cast to the activation dtype, then scale
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, gamma, eps=1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def layernorm(x, gamma, beta, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
+# ---------------------------------------------------------------------------
+# RoPE (standard / partial a.k.a. chatglm "2d" / none)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def rope_freqs(head_dim, base=10000.0, rotary_dim=None, device=None):
+    """The inverse frequencies, computed in numpy as the reference does;
+    one tensor per (shape, device), shared and never written, so a
+    decode step makes no host-to-device copy for them."""
+    rd = rotary_dim or head_dim
+    inv = 1.0 / (base ** (np.arange(0, rd, 2, dtype=np.float32) / rd))
+    return torch.from_numpy(np.asarray(inv, np.float32)).to(device)
+
+
+def apply_rope(x, positions, inv_freq, rotary_dim=None):
+    """x: (..., S, H, hd); positions: (..., S) int. Rotates the first
+    rotary_dim dims in interleaved pairs (0::2, 1::2); partial rotary is
+    chatglm3's 2D RoPE on half the dims."""
+    hd = x.shape[-1]
+    rd = rotary_dim or hd
+    ang = positions[..., :, None].float() * inv_freq          # (...,S,rd/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    xr = x[..., :rd].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    rot = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    if rd == hd:
+        return rot
+    return torch.cat([rot, x[..., rd:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# blockwise causal attention (online softmax)
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k, n_rep):
+    if n_rep == 1:
+        return k
+    b, s, kh, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kh, n_rep, hd) \
+        .reshape(b, s, kh * n_rep, hd)
+
+
+def _block_mask(qi_ids, kj_ids, causal, window, sq, skv):
+    mask = (kj_ids < skv) & (qi_ids < sq)
+    if causal:
+        mask &= kj_ids <= qi_ids
+    if window is not None:
+        mask &= kj_ids > qi_ids - window
+    return mask
+
+
+def _blocks(x, n, blk):
+    """(B, S, H, hd) -> (n, B, H, blk, hd), zero-padded to n * blk."""
+    b, s, h, hd = x.shape
+    x = F.pad(x, (0, 0, 0, 0, 0, n * blk - s))
+    return x.reshape(b, n, blk, h, hd).permute(1, 0, 3, 2, 4)
+
+
+def blockwise_attention(q, k, v, *, causal=True, window: Optional[int] = None,
+                        q_block=512, kv_block=512):
+    """q,k,v: (B, S, H, hd) / (B, S, KH, hd) with H % KH == 0.
+    Online softmax over KV blocks, in f32: the reference's
+    ``_flash_fwd_impl`` (-inf masking with its ``m_safe`` / ``alpha``
+    guards). Every q block runs the same recurrence over the KV blocks,
+    so the q blocks go through it side by side. Returns q's dtype."""
+    h = q.shape[2]
+    k = _repeat_kv(k, h // k.shape[2])
+    v = _repeat_kv(v, h // v.shape[2])
+    b, sq, _, hd = q.shape
+    skv = k.shape[1]
+    scale = 1.0 / np.sqrt(hd)
+    nq = -(-sq // q_block)
+    nk = -(-skv // kv_block)
+    dev = q.device
+    qb = _blocks(q, nq, q_block).float()            # (nq, B, H, qb, hd)
+    kb = _blocks(k, nk, kv_block)                   # (nk, B, H, kb, hd)
+    vb = _blocks(v, nk, kv_block)
+    q_ids = torch.arange(nq * q_block, device=dev).reshape(nq, q_block)
+    k_ids = torch.arange(nk * kv_block, device=dev).reshape(nk, kv_block)
+    m = torch.full((nq, b, h, q_block), float("-inf"), device=dev)
+    l = torch.zeros((nq, b, h, q_block), device=dev)
+    o = torch.zeros((nq, b, h, q_block, hd), device=dev)
+    for kj in range(nk):
+        s = torch.einsum("nbhqd,bhkd->nbhqk", qb, kb[kj].float()) * scale
+        mask = _block_mask(q_ids[:, :, None], k_ids[kj][None, None, :],
+                           causal, window, sq, skv)[:, None, None]
+        s = torch.where(mask, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum("nbhqk,bhkd->nbhqd", p,
+                                                vb[kj].float())
+        m = m_new
+    o = o / torch.clamp(l[..., None], min=1e-20)
+    out = o.permute(1, 0, 3, 2, 4).reshape(b, nq * q_block, h, hd)
+    return out[:, :sq].to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, window=None):
+    """Single-token attention against a cache.
+    q: (B, 1, H, hd); caches: (B, S_max, KH, hd); length: current length
+    (int, 0-d tensor or (B,) tensor) — positions >= length are masked
+    (-1e30, as the reference). GQA is grouped against the KH-headed
+    cache. Products are exact with an f32 accumulator: the operands are
+    upcast, and the softmax weights are first rounded to the cache's
+    dtype, as the reference's ``p.astype(v_cache.dtype)``."""
+    b, one, h, hd = q.shape
+    kh = k_cache.shape[2]
+    rep = h // kh
+    qg = q.reshape(b, one, kh, rep, hd)
+    scale = 1.0 / np.sqrt(hd)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), k_cache.float()) * scale
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    ln = length             # a Python int stays one: no copy to the device
+    if isinstance(ln, torch.Tensor):
+        ln = ln.to(q.device)
+        ln = ln[:, None, None, None, None] if ln.ndim else ln
+    mask = pos[None, None, None, None, :] < ln
+    if window is not None:
+        mask &= pos[None, None, None, None, :] >= (ln - window)
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrqs,bskd->bqkrd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(b, one, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# products, MLP and loss
+# ---------------------------------------------------------------------------
+
+def matmul(a, b):
+    """``a @ b`` (batched where the operands are) as the reference's XLA
+    dot computes it in bf16: exact products, an f32 accumulator, one
+    rounding to the operands' dtype. cuBLAS does that on the card (TF32
+    and reduced-precision reductions off); torch's CPU kernels round
+    bf16 partial sums, so there the operands are upcast."""
+    if a.device.type == "cpu" and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.matmul(a.float(), b.float()).to(a.dtype)
+    return torch.matmul(a, b)
+
+
+def silu(x):
+    """``jax.nn.silu``'s formula, op by op in x's dtype: in bf16 each op
+    rounds, and ``F.silu`` (one rounding) differs in 4 of 10 values."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x):
+    """``jax.nn.gelu`` (tanh approximation, its default), op by op."""
+    cdf = 0.5 * (1.0 + torch.tanh(float(np.sqrt(2 / np.pi))
+                                  * (x + 0.044715 * (x * x * x))))
+    return x * cdf
+
+
+def gated_mlp(x, w_gate, w_up, w_down):
+    h = silu(matmul(x, w_gate)) * matmul(x, w_up)
+    return matmul(h, w_down)
+
+
+def gelu_mlp(x, w_up, b_up, w_down, b_down):
+    h = gelu(matmul(x, w_up) + b_up)
+    return matmul(h, w_down) + b_down
+
+
+def cross_entropy(logits, labels, vocab_real: Optional[int] = None):
+    """Mean CE in f32; labels < 0 masked; vocab padding masked."""
+    lf = logits.float()
+    if vocab_real is not None and vocab_real < lf.shape[-1]:
+        vid = torch.arange(lf.shape[-1], device=lf.device)
+        lf = torch.where(vid < vocab_real, lf, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = labels >= 0
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

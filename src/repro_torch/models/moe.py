@@ -1,0 +1,279 @@
+"""Mixture-of-Experts transformer (kimi-k2 / granite-moe).
+
+Attention blocks are shared with models.transformer; the FFN is a top-k
+routed expert layer with sort-based (one-hot-free) dispatch.
+
+Two dispatch modes:
+  * "dense"     — uniform capacity per expert (GShard/Switch style).
+  * "biglittle" — the paper's heterogeneous-pipeline idea applied to
+    experts: expert load under top-k routing is power-law (same skew the
+    paper exploits in graph partitions). Experts are offline-relabelled
+    by historical load (the DBG analogue), the first n_hot experts get
+    Little treatment (large capacity, long regular batches) and the tail
+    gets Big treatment (small capacity, compacted batch), cutting padded
+    FLOPs/memory vs. provisioning every expert for the worst case. The
+    split (n_hot, C_hot, C_cold) comes from models.moe_schedule — the
+    model-guided scheduling analogue.
+
+This is the reference's single-device path (``moe_ffn`` with no mesh);
+its expert-sharded branch comes with the sharding slice. The combine
+adds each token's expert rows in the reference's order without float
+atomics (``_combine``), so results repeat bit for bit on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs import torch_dtype
+from . import common as c
+from . import transformer as tfm
+from .moe_schedule import biglittle_split
+
+
+def init_layer_params(cfg, gen):
+    dt = c.dtype_of(cfg)
+    D, E, Fd = cfg.d_model, cfg.num_experts_padded, cfg.moe_d_ff or cfg.d_ff
+    p = tfm.init_layer_params(cfg, gen)
+    for nm in ("w_gate", "w_up", "w_down", "b_up", "b_down"):
+        p.pop(nm, None)
+    p["router"] = c.dense_init(gen, D, E, torch.float32)
+    # as the reference: one matrix per projection, broadcast to every expert
+    p["we_gate"] = c.dense_init(gen, D, Fd, dt).expand(E, D, Fd).clone()
+    p["we_up"] = c.dense_init(gen, D, Fd, dt).expand(E, D, Fd).clone()
+    p["we_down"] = c.dense_init(gen, Fd, D, dt).expand(E, Fd, D).clone()
+    return p
+
+
+def init_params(cfg, gen):
+    dt = c.dtype_of(cfg)
+    p = {
+        "embed": c.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt),
+        "lm_head": c.dense_init(gen, cfg.d_model, cfg.vocab_padded, dt),
+        "layers": tfm.stack_layers([init_layer_params(cfg, gen)
+                                    for _ in range(cfg.num_layers)]),
+    }
+    for suffix, v in tfm._norm_params(cfg).items():
+        p["ln_f" + suffix] = v
+    return p
+
+
+# ---------------------------------------------------------------------------
+# sort-based dispatch
+# ---------------------------------------------------------------------------
+
+def _ranks_in_expert(sorted_e):
+    """rank of each sorted element within its expert segment."""
+    n = sorted_e.shape[0]
+    ar = torch.arange(n, dtype=torch.int64, device=sorted_e.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=sorted_e.device)
+    is_start[1:] = sorted_e[1:] != sorted_e[:-1]
+    start = torch.where(is_start, ar, 0)
+    start = torch.cummax(start, dim=0).values
+    return ar - start
+
+
+def _route(x, router_w, top_k, e_real=None):
+    logits = x.float() @ router_w                        # (T, E_pad)
+    if e_real is not None and e_real < router_w.shape[1]:
+        eid = torch.arange(logits.shape[1], device=logits.device)
+        logits = torch.where(eid < e_real, logits, -1e30)
+    gw, gi = torch.topk(logits, top_k, dim=-1)
+    gw = torch.softmax(gw, dim=-1)
+    # aux load-balance loss (Switch): E * mean(frac_tokens * frac_router)
+    probs = torch.softmax(logits, dim=-1)
+    E = router_w.shape[1]
+    frac_router = probs.mean(dim=0)
+    hard = torch.zeros(E, device=x.device).index_add_(
+        0, gi.reshape(-1), torch.ones(gi.numel(), device=x.device)) \
+        / gi.numel()
+    aux = E * torch.sum(hard * frac_router)
+    return gw, gi, aux
+
+
+def _expert_ffn(buf, wg, wu, wd):
+    h = c.silu(c.matmul(buf, wg)) * c.matmul(buf, wu)
+    return c.matmul(h, wd)
+
+
+def _scatter_rows(x_rows, slot, size):
+    """buf[slot[i]] = x_rows[i] for slot < size; slot == size is dropped
+    (the reference's ``.at[slot].set(..., mode="drop")``): one spare row
+    takes every dropped write and is cut off."""
+    buf = torch.zeros((size + 1, x_rows.shape[1]), dtype=x_rows.dtype,
+                      device=x_rows.device)
+    buf[slot] = x_rows
+    return buf[:size]
+
+
+def _combine(x, tok_id, keep, slot, y, gatew):
+    """out[t] = the sum over token t's assignments of gate * expert row
+    (zero where dropped), added one at a time in the sorted (expert)
+    order with a rounding to x's dtype after each add: the reference's
+    ``.at[tok_id].add``, a scatter-add in update order, without float
+    atomics, so the card's result is reproducible. Every token has
+    exactly ``top_k`` assignments."""
+    size = y.shape[0]
+    rows = torch.where(keep[:, None], y[torch.clamp(slot, max=size - 1)],
+                       0.0) * gatew[:, None]
+    by_token = rows[torch.argsort(tok_id, stable=True)].view(
+        x.shape[0], -1, x.shape[1])
+    out = torch.zeros_like(x)
+    for j in range(by_token.shape[1]):
+        out = out + by_token[:, j]
+    return out
+
+
+def _dispatch_group(x, tok_id, sorted_e, rank, gatew, group_lo, group_hi,
+                    cap, wg, wu, wd):
+    """Dispatch+compute+combine for experts in [group_lo, group_hi) with
+    uniform capacity ``cap``. The weight slices wg/wu/wd cover EXACTLY
+    the group. Returns the (T, D) contribution."""
+    T, D = x.shape
+    n_exp = group_hi - group_lo
+    in_group = (sorted_e >= group_lo) & (sorted_e < group_hi)
+    keep = in_group & (rank < cap)
+    slot = torch.where(keep, (sorted_e - group_lo) * cap + rank, n_exp * cap)
+    buf = _scatter_rows(x[tok_id], slot, n_exp * cap)
+    y = _expert_ffn(buf.reshape(n_exp, cap, D), wg, wu, wd) \
+        .reshape(n_exp * cap, D)
+    return _combine(x, tok_id, keep, slot, y, gatew)
+
+
+def _moe_ffn_tokens(cfg, router, wg, wu, wd, x, r, e_per, n_model,
+                    capacity_factor):
+    """Dispatch a (T, D) token block against rank ``r``'s ``e_per``
+    experts (the single-device path: r=0, e_per=E_pad, n_model=1).
+
+    Storage order is the offline load-based relabel (the DBG analogue)
+    INTERLEAVED across ranks; the buffer layout is
+
+        [ h_per experts x C_hot | (e_per - h_per) experts x C_cold ]
+
+    Hot experts ("Little": few, long regular batches) and cold experts
+    ("Big": many, compact batches) each get their own batched product —
+    the paper's two pipeline types at the expert level.
+    """
+    T, D = x.shape
+    E, K = cfg.num_experts_padded, cfg.top_k
+    gw, gi, aux = _route(x, router, K, cfg.num_experts)
+    flat_e = gi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    rank = _ranks_in_expert(sorted_e)
+    tok_id = order // K
+    gatew = gw.reshape(-1)[order].to(x.dtype)
+
+    if cfg.moe_dispatch == "biglittle":
+        n_hot, c_hot, c_cold = biglittle_split(
+            E, K, T, capacity_factor, round_to=n_model)
+    else:
+        n_hot, c_hot = 0, 8
+        c_cold = max(8, int(T * K / E * capacity_factor))
+    h_per = n_hot // n_model
+    e_lo = r * e_per
+    j = sorted_e - e_lo                      # local expert index
+    in_rank = (j >= 0) & (j < e_per)
+    is_hot = j < h_per
+    cap_j = torch.where(is_hot, c_hot, c_cold)
+    off_j = torch.where(is_hot, j * c_hot,
+                        h_per * c_hot + (j - h_per) * c_cold)
+    keep = in_rank & (rank < cap_j)
+    bufsize = h_per * c_hot + (e_per - h_per) * c_cold
+    slot = torch.where(keep, off_j + rank, bufsize)
+    buf = _scatter_rows(x[tok_id], slot, bufsize)
+    hb = h_per * c_hot
+    parts = []
+    if h_per > 0:                            # Little: hot experts
+        parts.append(_expert_ffn(
+            buf[:hb].reshape(h_per, c_hot, D),
+            wg[:h_per], wu[:h_per], wd[:h_per]).reshape(hb, D))
+    if e_per > h_per:                        # Big: cold experts
+        parts.append(_expert_ffn(
+            buf[hb:].reshape(e_per - h_per, c_cold, D),
+            wg[h_per:], wu[h_per:], wd[h_per:]).reshape(bufsize - hb, D))
+    y = torch.cat(parts)
+    return _combine(x, tok_id, keep, slot, y, gatew), aux
+
+
+def moe_ffn(cfg, lp, h, capacity_factor=None):
+    """h: (B, S, D) -> (out, aux_loss), on one device."""
+    capacity_factor = (cfg.capacity_factor if capacity_factor is None
+                       else capacity_factor)
+    B, S, D = h.shape
+    out, aux = _moe_ffn_tokens(cfg, lp["router"], lp["we_gate"],
+                               lp["we_up"], lp["we_down"], h.reshape(B * S, D),
+                               0, cfg.num_experts_padded, 1, capacity_factor)
+    return out.reshape(B, S, D), aux
+
+
+def _layer(cfg, x, lp, positions, inv_freq):
+    h = tfm._norm(cfg, x, lp, "ln1")
+    q, k, v = tfm._qkv(cfg, lp, h, positions, inv_freq)
+    attn = c.blockwise_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window or None)
+    B, S = x.shape[:2]
+    x = x + c.matmul(attn.reshape(B, S, -1), lp["wo"])
+    h2 = tfm._norm(cfg, x, lp, "ln2")
+    y, aux = moe_ffn(cfg, lp, h2)
+    return x + y, aux, k, v
+
+
+def backbone(cfg, params, x, positions, collect_kv=False):
+    inv_freq = tfm._inv_freq(cfg, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, a, k, v = _layer(cfg, x, tfm.layer_params(params, i), positions,
+                            inv_freq)
+        aux = aux + a
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    x = tfm._norm(cfg, x, params, "ln_f")
+    return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv
+                    else None)
+
+
+def forward(cfg, params, batch):
+    x = tfm.embed_input(cfg, params, batch)
+    x, aux, _ = backbone(cfg, params, x, tfm._positions(x))
+    return c.constrain_logits(c.matmul(x, params["lm_head"])), aux
+
+
+def loss_fn(cfg, params, batch, aux_weight=0.01):
+    logits, aux = forward(cfg, params, batch)
+    return c.cross_entropy(logits, batch["labels"], cfg.vocab_size) \
+        + aux_weight * aux / cfg.num_layers
+
+
+def prefill(cfg, params, batch):
+    x = tfm.embed_input(cfg, params, batch)
+    x, _, (k, v) = backbone(cfg, params, x, tfm._positions(x),
+                            collect_kv=True)
+    cdt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
+    return ({"k": k.to(cdt), "v": v.to(cdt)},
+            c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"])))
+
+
+def decode_step(cfg, params, cache, token, length):
+    """One token with a KV cache (written at position ``length``; the
+    cache's leaves are updated in place and returned). As the
+    reference, the decode attention takes no sliding window here."""
+    length = int(length)
+    x = params["embed"][token]
+    B = x.shape[0]
+    inv_freq = tfm._inv_freq(cfg, x.device)
+    pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    for i in range(cfg.num_layers):
+        lp = tfm.layer_params(params, i)
+        kc, vc = cache["k"][i], cache["v"][i]
+        h = tfm._norm(cfg, x, lp, "ln1")
+        q, k, v = tfm._qkv(cfg, lp, h, pos, inv_freq)
+        tfm.write_kv(kc, vc, k, v, length)
+        attn = c.decode_attention(q, kc, vc, length + 1)
+        x = x + c.matmul(attn.reshape(B, 1, -1), lp["wo"])
+        h2 = tfm._norm(cfg, x, lp, "ln2")
+        y, _ = moe_ffn(cfg, lp, h2)
+        x = x + y
+    x = tfm._norm(cfg, x, params, "ln_f")
+    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache

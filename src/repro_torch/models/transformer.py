@@ -1,0 +1,221 @@
+"""Dense decoder-only transformer (qwen2 / internlm2 / chatglm3 /
+command-r / llava-mistral backbone).
+
+Covers: GQA with arbitrary H:KH ratios, optional QKV bias, full/partial
+RoPE, sliding-window attention, command-r parallel attn+FFN blocks,
+RMSNorm/LayerNorm, gated-SiLU or GELU MLPs. The parameter tree is the
+reference's (``src/repro/models/transformer.py``) leaf for leaf: every
+leaf of ``layers`` carries a leading L axis, and a Python loop over the
+layers indexes it where the reference scans. Exposes init/forward/loss/
+prefill/decode_step used by the serving engine.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs import torch_dtype
+from . import common as c
+
+
+def _norm(cfg, x, lp, name):
+    if cfg.norm == "layernorm":
+        return c.layernorm(x, lp[name + "_g"], lp[name + "_b"], cfg.norm_eps)
+    return c.rmsnorm(x, lp[name + "_g"], cfg.norm_eps)
+
+
+def _norm_params(cfg):
+    out = {"_g": torch.ones((cfg.d_model,), dtype=c.dtype_of(cfg))}
+    if cfg.norm == "layernorm":
+        out["_b"] = torch.zeros((cfg.d_model,), dtype=c.dtype_of(cfg))
+    return out
+
+
+def init_layer_params(cfg, gen):
+    dt = c.dtype_of(cfg)
+    D, H, KH, hd, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    p = {
+        "wq": c.dense_init(gen, D, H * hd, dt),
+        "wk": c.dense_init(gen, D, KH * hd, dt),
+        "wv": c.dense_init(gen, D, KH * hd, dt),
+        "wo": c.dense_init(gen, H * hd, D, dt),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=dt)
+        p["bk"] = torch.zeros((KH * hd,), dtype=dt)
+        p["bv"] = torch.zeros((KH * hd,), dtype=dt)
+    if cfg.mlp == "gelu":
+        p["w_up"] = c.dense_init(gen, D, F, dt)
+        p["b_up"] = torch.zeros((F,), dtype=dt)
+        p["w_down"] = c.dense_init(gen, F, D, dt)
+        p["b_down"] = torch.zeros((D,), dtype=dt)
+    else:
+        p["w_gate"] = c.dense_init(gen, D, F, dt)
+        p["w_up"] = c.dense_init(gen, D, F, dt)
+        p["w_down"] = c.dense_init(gen, F, D, dt)
+    for suffix, v in _norm_params(cfg).items():
+        p["ln1" + suffix] = v
+    if not cfg.parallel_block:
+        for suffix, v in _norm_params(cfg).items():
+            p["ln2" + suffix] = v
+    return p
+
+
+def stack_layers(per_layer):
+    """[{name: leaf}] * L -> {name: (L, ...) leaf}, one leaf at a time."""
+    return {k: torch.stack([lp.pop(k) for lp in per_layer])
+            for k in list(per_layer[0])}
+
+
+def init_params(cfg, gen):
+    dt = c.dtype_of(cfg)
+    p = {
+        "embed": c.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt),
+        "lm_head": c.dense_init(gen, cfg.d_model, cfg.vocab_padded, dt),
+        "layers": stack_layers([init_layer_params(cfg, gen)
+                                for _ in range(cfg.num_layers)]),
+    }
+    for suffix, v in _norm_params(cfg).items():
+        p["ln_f" + suffix] = v
+    return p
+
+
+def layer_params(params, i: int) -> dict:
+    """Layer ``i``'s leaves (views into the stacked tree)."""
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _rotary_dim(cfg):
+    rd = int(cfg.hd * cfg.rotary_pct)
+    return rd - (rd % 2)
+
+
+def _inv_freq(cfg, device):
+    return c.rope_freqs(cfg.hd, cfg.rope_base, _rotary_dim(cfg) or None,
+                        device=torch.device(device))
+
+
+def _qkv(cfg, lp, h, positions, inv_freq):
+    B, S, D = h.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = c.matmul(h, lp["wq"])
+    k = c.matmul(h, lp["wk"])
+    v = c.matmul(h, lp["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KH, hd)
+    v = v.reshape(B, S, KH, hd)
+    rd = _rotary_dim(cfg)
+    if rd:
+        q = c.apply_rope(q, positions, inv_freq, rd)
+        k = c.apply_rope(k, positions, inv_freq, rd)
+    return q, k, v
+
+
+def _mlp(cfg, lp, h):
+    if cfg.mlp == "gelu":
+        return c.gelu_mlp(h, lp["w_up"], lp["b_up"], lp["w_down"],
+                          lp["b_down"])
+    return c.gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _layer(cfg, x, lp, positions, inv_freq):
+    h = _norm(cfg, x, lp, "ln1")
+    q, k, v = _qkv(cfg, lp, h, positions, inv_freq)
+    attn = c.blockwise_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window or None)
+    B, S = x.shape[:2]
+    attn_out = c.matmul(attn.reshape(B, S, -1), lp["wo"])
+    if cfg.parallel_block:            # command-r: attn & FFN from same norm
+        x = x + attn_out + _mlp(cfg, lp, h)
+    else:
+        x = x + attn_out
+        h2 = _norm(cfg, x, lp, "ln2")
+        x = x + _mlp(cfg, lp, h2)
+    return x, k, v
+
+
+def backbone(cfg, params, x, positions, collect_kv=False):
+    """The layer loop and the final norm; with ``collect_kv`` also the
+    per-layer (k, v), stacked to (L, B, S, KH, hd)."""
+    inv_freq = _inv_freq(cfg, x.device)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, k, v = _layer(cfg, x, layer_params(params, i), positions,
+                         inv_freq)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    x = _norm(cfg, x, params, "ln_f")
+    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def embed_input(cfg, params, batch):
+    if "embeds" in batch:
+        return c.constrain_act(batch["embeds"].to(c.dtype_of(cfg)))
+    return c.constrain_act(params["embed"][batch["tokens"]])
+
+
+def _positions(x):
+    B, S = x.shape[:2]
+    return torch.arange(S, dtype=torch.int32,
+                        device=x.device).expand(B, S)
+
+
+def forward(cfg, params, batch):
+    x = embed_input(cfg, params, batch)
+    x, _ = backbone(cfg, params, x, _positions(x))
+    return c.constrain_logits(c.matmul(x, params["lm_head"]))
+
+
+def loss_fn(cfg, params, batch):
+    logits = forward(cfg, params, batch)
+    return c.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+
+
+def prefill(cfg, params, batch):
+    """Full-sequence pass collecting the KV cache."""
+    x = embed_input(cfg, params, batch)
+    x, (k, v) = backbone(cfg, params, x, _positions(x), collect_kv=True)
+    cdt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
+    logits_last = c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"]))
+    return {"k": k.to(cdt), "v": v.to(cdt)}, logits_last
+
+
+def write_kv(kc, vc, k, v, length: int):
+    """Write one position of layer caches (B, S_max, KH, hd) in place.
+    The reference's ``dynamic_update_slice`` clamps a start past the end;
+    here that is an error."""
+    if not 0 <= length < kc.shape[1]:
+        raise IndexError(f"decode position {length} outside a cache of "
+                         f"{kc.shape[1]} positions")
+    kc[:, length:length + 1] = k.to(kc.dtype)
+    vc[:, length:length + 1] = v.to(vc.dtype)
+
+
+def decode_step(cfg, params, cache, token, length):
+    """One token with a KV cache (written at position ``length``).
+    The cache's leaves are updated in place and returned."""
+    length = int(length)
+    x = params["embed"][token]                       # (B, 1, D)
+    B = x.shape[0]
+    inv_freq = _inv_freq(cfg, x.device)
+    window = cfg.sliding_window or None
+    pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params, i)
+        kc, vc = cache["k"][i], cache["v"][i]
+        h = _norm(cfg, x, lp, "ln1")
+        q, k, v = _qkv(cfg, lp, h, pos, inv_freq)
+        write_kv(kc, vc, k, v, length)
+        attn = c.decode_attention(q, kc, vc, length + 1, window=window)
+        attn_out = c.matmul(attn.reshape(B, 1, -1), lp["wo"])
+        if cfg.parallel_block:
+            x = x + attn_out + _mlp(cfg, lp, h)
+        else:
+            x = x + attn_out
+            h2 = _norm(cfg, x, lp, "ln2")
+            x = x + _mlp(cfg, lp, h2)
+    x = _norm(cfg, x, params, "ln_f")
+    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache

@@ -5,8 +5,11 @@ changing-graph paths through the kernel: sharded == fused, a derived
 store == a cold rebuild after a delta, and reused payloads kept in
 place; and the serving layer: a served request == a direct executor,
 a spawn pool with CUDA up in the parent, the traced per-lane run ==
-the fused run; a forced autotune retune on the card, and
-``DistributedEngine`` on a one-rank NCCL group.
+the fused run; a forced autotune retune on the card,
+``DistributedEngine`` on a one-rank NCCL group; and the LM serving
+path: reduced dense and MoE models on the card against the CPU, the
+engine's greedy tokens against a manual decode loop, and no serving
+without a card unless the caller asks for the CPU.
 They import neither JAX nor the reference package, so they also run on
 a machine with a card and no JAX:
 
@@ -455,3 +458,103 @@ def test_distributed_engine_on_one_rank_nccl(device, shard_graph,
                 assert np.array_equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# LM serving path
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def lm_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: runs the LM serving path there")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _lm(arch, dtype=None):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.api import build_model
+    cfg = reduced(get_config(arch))
+    return build_model(dataclasses.replace(cfg, dtype=dtype) if dtype
+                       else cfg)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1p5b", "granite_moe_3b_a800m"])
+def test_lm_on_card_matches_cpu(arch, lm_device):
+    """Reduced models in fp32, the same weights and tokens: forward,
+    prefill and four teacher-forced decode steps on the card within
+    rtol 1e-4 / atol 1e-4 of the CPU, and a second forward on the card
+    bit-equal to the first (the MoE combine uses no float atomics)."""
+    model = _lm(arch, "float32")
+    params = model.init(torch.Generator(lm_device).manual_seed(0))
+    tok = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size, (2, 24)).astype(np.int32))
+    outs = {}
+    for dev in (lm_device, torch.device("cpu")):
+        p = _to(params, dev)
+        t = tok.to(dev)
+        with torch.inference_mode():
+            got = [model.forward(p, {"tokens": t})]
+            cache, last = model.prefill(p, {"tokens": t[:, :16]})
+            cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (8,)
+                                                  + v.shape[3:])], dim=2)
+                     for k, v in cache.items()}
+            got.append(last)
+            for i in range(16, 20):
+                logits, cache = model.decode_step(p, cache, t[:, i:i + 1], i)
+                got.append(logits)
+            if dev.type == "cuda":
+                assert torch.equal(model.forward(p, {"tokens": t}), got[0])
+        outs[dev.type] = [g.cpu() for g in got]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_lm_engine_greedy_equals_decode_loop_on_card(lm_device):
+    """The engine's greedy tokens (bf16, max_batch=1) equal a manual
+    prefill + decode loop on the card, token for token."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    model = _lm("qwen2_1p5b")
+    params = model.init(torch.Generator(lm_device).manual_seed(0))
+    prompt = np.random.RandomState(1).randint(
+        0, model.cfg.vocab_size, 10).astype(np.int32)
+    eng = ServeEngine(model, params, max_batch=1, max_seq=32,
+                      device=lm_device)
+    [req] = eng.run_wave([Request(tokens=prompt, max_new_tokens=8)])
+    with torch.inference_mode():
+        cache, logits = model.prefill(
+            params, {"tokens": torch.from_numpy(prompt)[None].to(lm_device)})
+        cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (9,)
+                                              + v.shape[3:])], dim=2)
+                 for k, v in cache.items()}
+        out = [int(torch.argmax(logits[0, -1, :model.cfg.vocab_size]))]
+        for t in range(7):
+            logits, cache = model.decode_step(
+                params, cache, torch.tensor([[out[-1]]], dtype=torch.int32,
+                                            device=lm_device), 10 + t)
+            out.append(int(torch.argmax(logits[0, 0, :model.cfg.vocab_size])))
+    assert req.out.tolist() == out
+
+
+def test_lm_entry_points_raise_without_a_card(lm_device, monkeypatch):
+    """With CUDA hidden, serving raises unless device="cpu"."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import kvcache
+    from repro_torch.serve.engine import ServeEngine
+    model = _lm("qwen2_1p5b")
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kvcache.init_cache(model.cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--requests", "1"])
+    assert ServeEngine(model, params, device="cpu").device.type == "cpu"

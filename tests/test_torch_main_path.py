@@ -4,9 +4,11 @@
 BFS, SSSP, WCC and closeness must be exactly equal with equal iteration
 counts; PageRank within rtol 1e-5 / atol 1e-7 and iterations within
 one (its 1e-7 stop test can flip on an ULP)."""
+import dataclasses
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -105,8 +107,8 @@ def test_gather_matches_edge_oracle(stores):
 
 def test_port_imports_no_jax_and_no_reference():
     """Every module of the port, the streaming, sharding, obs, serving,
-    control and autotune packages and the SPMD path among them, imports
-    neither JAX nor the reference."""
+    control and autotune packages, the SPMD path and the LM serving path
+    among them, imports neither JAX nor the reference."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -120,7 +122,12 @@ def test_port_imports_no_jax_and_no_reference():
         "'control.scheduler', 'control.pool', 'control.jobs', "
         "'control.manager', 'control.http_api', 'control.dashboard', "
         "'autotune', 'autotune.specs', 'autotune.calibrator', "
-        "'autotune.retuner', 'core.distributed', 'core.engine'):\n"
+        "'autotune.retuner', 'core.distributed', 'core.engine', "
+        "'configs', 'configs.base', 'configs.qwen2_1p5b', "
+        "'configs.kimi_k2_1t_a32b', 'models', 'models.common', "
+        "'models.transformer', 'models.moe', 'models.moe_schedule', "
+        "'models.api', 'serve', 'serve.engine', 'serve.kvcache', "
+        "'launch', 'launch.serve'):\n"
         "    assert 'repro_torch.' + name in mods, name\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
@@ -132,7 +139,7 @@ def test_port_imports_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 52      # every module was imported
+    assert int(proc.stdout.strip()) >= 73      # every module was imported
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, small_graph,
@@ -235,3 +242,60 @@ def test_makespan_drift_estimate_matches_reference(combine, stores):
     ex_t.run()
     rep = ex_t.drift.report()["makespan"]
     assert rep["est_s"] == pytest.approx(rep["n"] * ex_t._est_iteration)
+
+
+@pytest.mark.parametrize("lane_detail", [False, True])
+def test_makespan_sample_excludes_convergence_test(lane_detail, stores):
+    """The "makespan" drift sample ends once the new properties are on
+    the device, before ``app.converged`` runs, as the reference's
+    (``src/repro/core/executor.py:337-343``): a convergence test that
+    sleeps 0.2 s stays out of every sample, fused or per lane."""
+    store_t = stores["small"][1]
+
+    def slow_converged(old, new, it):
+        time.sleep(0.2)
+        return False
+
+    app = dataclasses.replace(tapi.make_pagerank(max_iters=3),
+                              converged=slow_converged)
+    ex = Executor(store_t, store_t.plan(tapi.PlanConfig(n_lanes=4)), app,
+                  device="cpu")
+    if lane_detail:
+        tracer = tapi.Tracer(lane_detail=True)
+        root = tracer.start_trace("job")
+        with tracer.activate(root.context):
+            ex.run()
+        root.end()
+    else:
+        ex.run()
+    rep = ex.drift.report()["makespan"]
+    assert rep["n"] == 3
+    assert rep["measured_s"] / rep["n"] < 0.1
+
+
+def test_time_lanes_times_fill_launches_and_merge(stores, monkeypatch):
+    """Each ``time_lanes`` repeat times what the reference's lane
+    function does (``src/repro/core/executor.py:365-383``): the identity
+    fill, the lane's launches and ``merge_all``, ended by a
+    synchronize. A merge that sleeps 50 ms runs once per repeat and
+    shows in every sample."""
+    store_t = stores["small"][1]
+    ex = Executor(store_t, store_t.plan(tapi.PlanConfig(n_lanes=4)),
+                  tapi.make_pagerank(), device="cpu")
+    merges = []
+    real_merge = ops.merge_all
+
+    def slow_merge(accum, outputs, t):
+        merges.append((accum.clone(), len(outputs)))
+        time.sleep(0.05)
+        return real_merge(accum, outputs, t)
+
+    monkeypatch.setattr(ops, "merge_all", slow_merge)
+    lanes = ex.time_lanes(repeats=2)
+    busy = [i for i, lane in enumerate(ex.lanes) if lane]
+    assert len(merges) == 3 * len(busy)          # 1 warm-up + 2 repeats
+    assert [n for _, n in merges] == [len(ex.lanes[i]) for i in busy
+                                      for _ in range(3)]
+    for accum, _ in merges:                      # the identity fill
+        assert accum.shape == (store_t.V_pad,) and not accum.any()
+    assert all(lanes[i] >= 0.05 for i in busy)
