@@ -139,6 +139,35 @@ Phases (any failed check exits non-zero before the last line):
    with ``biglittle_split``'s (n_hot, C_hot, C_cold). The LM path
    launches no hand-written kernel, so the ``kernels`` line keeps its
    one row.
+13. The recurrent and encoder-decoder families on the card
+   (``phase_lm_recurrent``), each at the repo's full config, weights
+   from ``torch.Generator`` seed 0. 13a: mamba2-2.7B (64 layers, d_model
+   2560, 80 SSM heads of 64, state 128) in fp32: forward on 2 x 512
+   tokens, prefill the first 256 and decode the rest, each step within
+   8e-2 of forward (2e-2 for the prefill's last logits); 2 layers at
+   full widths on the card and the CPU within 1e-4; then in bf16 behind
+   ``ServeEngine(max_batch=8)`` as 12b, with the decode step's bound
+   (every weight and the decode state read once). 13b: hymba-1.5B the
+   same, its fp32 decode crossing the 1,024-token window (prefill 1,000,
+   decode 64). 13c: whisper-tiny (4 + 4 layers, 1,500 seeded encoder
+   frames, batch 8): fp32 decode against forward (prefill 64, decode
+   32), then bf16 prefill of 64 tokens and a manual greedy loop of 32
+   steps, timed (the engine does not serve whisper, as in the
+   reference).
+14. Training on the card (``phase_train``). 14a: the flash backward
+   (``common._Flash``) against plain autograd of dense softmax attention
+   at B 2, S 2048, 12 heads over 2, head dim 128, causal: fp32 within
+   1e-4, bf16 within 2e-2, with forward + backward ms and peak memory.
+   14b: qwen2-1.5B at full width and depth in bf16 (remat on), AdamW
+   with f32 moments, 5 steps of 4 x 512 ``TokenPipeline`` tokens through
+   ``Trainer`` into a temporary directory: step ms (CUDA events, host),
+   tokens/s, peak memory, the final save's seconds and bytes; every loss
+   finite. 14c: the same at 2 layers, AdamW(lr 3e-3): 16 uninterrupted
+   steps against 11 steps + a restart from the step-10 checkpoint to 16
+   under ``torch.use_deterministic_algorithms(True)``, params and
+   moments bit-equal (else within 2e-2); 25 steps without it lower the
+   mean loss of the last 5 below the first 5's; the median step with
+   and without deterministic algorithms.
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -147,11 +176,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
@@ -1755,10 +1786,16 @@ def _lm_requests(cfg, n: int):
             for n_tok in lens][:n]
 
 
-def _grown(cache, extra: int):
+def _grown(cfg, cache, extra: int):
+    """The self-attention cache ("k", "v") grown by ``extra`` positions
+    on axis 2; recurrent state (ssm, hybrid) and whisper's
+    cross-attention cache stay as they are."""
     import torch
-    return {k: torch.cat([v, v.new_zeros(v.shape[:2] + (extra,)
-                                         + v.shape[3:])], dim=2)
+    if cfg.family in ("ssm", "hybrid"):
+        return cache
+    return {k: (torch.cat([v, v.new_zeros(v.shape[:2] + (extra,)
+                                          + v.shape[3:])], dim=2)
+                if k in ("k", "v") else v)
             for k, v in cache.items()}
 
 
@@ -1780,34 +1817,39 @@ def _param_bytes(params) -> int:
     return params.numel() * params.element_size()
 
 
-def _lm_teacher_forced(model, params, device) -> dict:
-    """Full width, fp32: forward on 2 x 256 tokens; prefill the first
-    half, then decode the rest step by step, each step's logits against
-    forward's at the reference's tolerances (2e-2 for the prefill's
-    last logits, 5e-2 per step: tests/test_models.py:67-98)."""
+def _lm_teacher_forced(model, params, device, b: int = LM_TF_B,
+                       s: int = LM_TF_S, half=None, step_tol: float = 5e-2,
+                       extra=None) -> dict:
+    """Full width, fp32: forward on b x s tokens (``extra`` adds inputs,
+    whisper's frames); prefill the first ``half`` (s/2 by default), then
+    decode the rest step by step, each step's logits against forward's
+    at the reference's tolerances (2e-2 for the prefill's last logits,
+    ``step_tol`` per step: 5e-2, 8e-2 for ssm / hybrid;
+    tests/test_models.py:67-98)."""
     import numpy as np
     import torch
     cfg = model.cfg
     tok = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (LM_TF_B, LM_TF_S)).astype(np.int32)).to(device)
-    half = LM_TF_S // 2
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(device)
+    half = s // 2 if half is None else half
+    batch = {"tokens": tok, **(extra or {})}
     with torch.inference_mode():
-        full = model.forward(params, {"tokens": tok})
-        check(tuple(full.shape) == (LM_TF_B, LM_TF_S, cfg.vocab_padded)
+        full = model.forward(params, batch)
+        check(tuple(full.shape) == (b, s, cfg.vocab_padded)
               and bool(torch.isfinite(full).all()),
               f"forward logits {tuple(full.shape)} not finite / wrong shape")
-        cache, last = model.prefill(params, {"tokens": tok[:, :half]})
-        cache = _grown(cache, LM_TF_S - half)
+        cache, last = model.prefill(params, {**batch, "tokens": tok[:, :half]})
+        cache = _grown(cfg, cache, s - half)
         check(_within(last[:, 0], full[:, half - 1], 2e-2),
               "prefill's last logits != forward's (2e-2)")
         errs = [_max_err(last[:, 0], full[:, half - 1])]
-        for t in range(half, LM_TF_S):
+        for t in range(half, s):
             logits, cache = model.decode_step(params, cache, tok[:, t:t + 1],
                                               t)
-            check(_within(logits[:, 0], full[:, t], 5e-2),
-                  f"decode step at {t} != forward (5e-2)")
+            check(_within(logits[:, 0], full[:, t], step_tol),
+                  f"decode step at {t} != forward ({step_tol})")
             errs.append(_max_err(logits[:, 0], full[:, t]))
-    return {"tokens": [LM_TF_B, LM_TF_S], "decode_steps": LM_TF_S - half,
+    return {"tokens": [b, s], "prefill": half, "decode_steps": s - half,
             "max_abs_err_prefill": errs[0],
             "max_abs_err_decode": max(errs[1:])}
 
@@ -1899,7 +1941,8 @@ def _lm_serving(model, params, n_requests: int, device) -> dict:
         prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": toks}),
                              3)
         cache, logits = model.prefill(params, {"tokens": toks})
-        cache = _grown(cache, LM_NEW + 1)
+        cache = _grown(cfg, cache, LM_NEW + 1)
+        state_bytes = _param_bytes(cache)
         cur = torch.argmax(logits[:, -1, :cfg.vocab_size], -1) \
             .to(torch.int32)[:, None]
         decode_ms = cuda_ms(
@@ -1929,7 +1972,7 @@ def _lm_serving(model, params, n_requests: int, device) -> dict:
     with torch.inference_mode():
         cache, logits = model.prefill(
             params, {"tokens": torch.from_numpy(prompt)[None].to(device)})
-        cache = _grown(cache, LM_NEW + 1)
+        cache = _grown(cfg, cache, LM_NEW + 1)
         manual, gaps = zip(greedy(logits))
         manual, gaps = list(manual), list(gaps)
         for t in range(LM_NEW - 1):
@@ -1953,6 +1996,10 @@ def _lm_serving(model, params, n_requests: int, device) -> dict:
             "prompt_lens": [len(r.tokens) for r in reqs],
             "param_bytes": _param_bytes(params),
             "cache_bytes": cache_bytes(cfg, 8, max_seq),
+            "decode_state_bytes": state_bytes,
+            # a decode step reads every weight and its decode state once
+            "decode_bound_ms": (_param_bytes(params) + state_bytes)
+            / H100_BYTES_PER_S * 1e3,
             "prefill_shape": [len(wave), plen], "prefill_ms": prefill_ms,
             "decode_step_ms": decode_ms,
             "decode_step_host_ms": decode_host_ms,
@@ -2084,12 +2131,430 @@ def phase_lm(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the recurrent and encoder-decoder families on the card
+# ---------------------------------------------------------------------------
+
+LM_SSM, LM_HYBRID, LM_AUDIO = "mamba2_2p7b", "hymba_1p5b", "whisper_tiny"
+LM_SSM_TF = (2, 512)              # teacher-forced: prefill S/2, decode S/2
+LM_HYBRID_TF = (2, 1000, 64)      # prefill 1,000, decode 64: past the window
+LM_AUDIO_B, LM_AUDIO_PROMPT = 8, 64   # whisper: batch, prompt tokens
+LM_RECURRENT_STEP_TOL = 8e-2      # ssm / hybrid decode vs forward
+                                  # (tests/test_models.py:89)
+
+
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_recurrent_served(arch: str, device) -> dict:
+    """One recurrent family at full width: fp32 teacher-forced decode
+    against forward (and, for mamba2, 2 layers card against CPU), then
+    bf16 serving as phase 12b."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32)
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    if arch == LM_HYBRID:
+        b, half, n = LM_HYBRID_TF
+        out = _lm_teacher_forced(model, params, device, b, half + n, half,
+                                 LM_RECURRENT_STEP_TOL)
+        check(half < cfg.sliding_window < half + n,
+              "the teacher-forced decode does not cross the window edge")
+    else:
+        out = _lm_teacher_forced(model, params, device, *LM_SSM_TF,
+                                 step_tol=LM_RECURRENT_STEP_TOL)
+    out["fp32_param_bytes"] = _param_bytes(params)
+    del params
+    _free()
+    if arch == LM_SSM:
+        out["card_vs_cpu"] = _lm_card_vs_cpu(cfg32, device)
+    out["fp32_max_memory_allocated"] = torch.cuda.max_memory_allocated(
+        device)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    out.update(_lm_serving(model, params, LM_REQUESTS, device))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    out["t_s"] = time.perf_counter() - t0
+    del params
+    _free()
+    return out
+
+
+def _lm_whisper(device) -> dict:
+    """whisper-tiny at full width (1,500 encoder frames, seeded): fp32
+    teacher-forced decode against forward (prefill 64, decode 32), then
+    bf16 prefill of 64 tokens for a batch of 8 and a manual greedy loop
+    of 32 steps, timed (the reference's engine cannot serve whisper)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config(LM_AUDIO)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device).manual_seed(LM_SEED + 2)
+    frames = torch.randn((LM_AUDIO_B, cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device=device)
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    out = _lm_teacher_forced(model, params, device, LM_AUDIO_B,
+                             LM_AUDIO_PROMPT + LM_NEW, LM_AUDIO_PROMPT,
+                             extra={"enc_embeds": frames})
+    del params
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (LM_AUDIO_B, LM_AUDIO_PROMPT)).astype(np.int32)) \
+        .to(device)
+    batch = {"tokens": tok, "enc_embeds": frames.to(torch.bfloat16)}
+
+    def greedy(logits):
+        return torch.argmax(logits[:, -1, :cfg.vocab_size].float(), -1) \
+            .to(torch.int32)[:, None]
+
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: model.prefill(params, batch), 3)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        cache, logits = model.prefill(params, batch)
+        cache = _grown(cfg, cache, LM_NEW)
+        toks = [greedy(logits)]
+        torch.cuda.synchronize(device)
+        t_prefill = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for t in range(LM_NEW - 1):
+            logits, cache = model.decode_step(params, cache, toks[-1],
+                                              LM_AUDIO_PROMPT + t)
+            toks.append(greedy(logits))
+        out_tok = torch.cat(toks, 1)
+        torch.cuda.synchronize(device)
+        t_loop = time.perf_counter() - t1
+        cur = toks[-1]
+        step_ms = cuda_ms(lambda: model.decode_step(
+            params, cache, cur, LM_AUDIO_PROMPT + LM_NEW - 1), REPS)
+        step_prof = _device_profile(lambda: model.decode_step(
+            params, cache, cur, LM_AUDIO_PROMPT + LM_NEW - 1), REPS)
+    check(tuple(out_tok.shape) == (LM_AUDIO_B, LM_NEW) and bool(
+        ((out_tok >= 0) & (out_tok < cfg.vocab_size)).all()),
+        "whisper's greedy tokens are outside the vocabulary")
+    state_bytes = _param_bytes(cache)
+    out.update({
+        "batch": LM_AUDIO_B, "frames": cfg.encoder_seq,
+        "param_bytes": _param_bytes(params), "decode_state_bytes": state_bytes,
+        "decode_bound_ms": (_param_bytes(params) + state_bytes)
+        / H100_BYTES_PER_S * 1e3,
+        "prefill_ms": prefill_ms, "prefill_host_ms": t_prefill * 1e3,
+        "decode_loop_step_host_ms": t_loop * 1e3 / (LM_NEW - 1),
+        "decode_step_ms": step_ms,
+        "decode_step_device_profile": step_prof,
+        "tokens_per_s": LM_AUDIO_B * LM_NEW / (t_prefill + t_loop),
+        "request0_tokens": out_tok[0].tolist(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+        "t_s": time.perf_counter() - t0})
+    del params, cache, frames
+    _free()
+    return out
+
+
+def phase_lm_recurrent(device) -> dict:
+    """Phase 13: 13a mamba2-2.7B, 13b hymba-1.5B, 13c whisper-tiny, each
+    at the repo's full config with weights from a seeded generator."""
+    import torch
+    torch.cuda.init()
+    return {LM_SSM: _lm_recurrent_served(LM_SSM, device),
+            LM_HYBRID: _lm_recurrent_served(LM_HYBRID, device),
+            LM_AUDIO: _lm_whisper(device)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: training on the card
+# ---------------------------------------------------------------------------
+
+ATTN_BWD = (2, 2048, 12, 2, 128)  # B, S, heads, KV heads, head dim; causal
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 5
+RESTART_LAYERS, RESTART_STEPS, RESTART_AT, FALL_STEPS = 2, 16, 11, 25
+
+
+def _dense_attention(q, k, v):
+    """Plain softmax attention, causal, GQA by repeating the KV heads."""
+    import numpy as np
+    import torch
+    rep = q.shape[2] // k.shape[2]
+    kk, vv = (x.repeat_interleave(rep, dim=2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / np.sqrt(q.shape[-1])
+    n = q.shape[1]
+    mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+
+
+def _attention_backward(device) -> dict:
+    """The flash backward (``common._Flash``) against plain autograd of
+    dense softmax attention in f32 on the same (rounded) inputs: fp32
+    within rtol = atol = 1e-4, bf16 within 2e-2 (the bf16 backward
+    rounds p and ds to bf16, as the reference's). Times of forward +
+    backward and the peak memory each takes."""
+    import torch
+    from repro_torch.models import common as mc
+    B, S, H, KH, hd = ATTN_BWD
+    gen = torch.Generator(device).manual_seed(LM_SEED + 3)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device)
+                   for shape in ((B, S, H, hd), (B, S, KH, hd),
+                                 (B, S, KH, hd), (B, S, H, hd)))
+    out = {"shape": list(ATTN_BWD)}
+    for name, dt, tol in (("fp32", torch.float32, 1e-4),
+                          ("bf16", torch.bfloat16, 2e-2)):
+        x = [t.to(dt).requires_grad_() for t in (q, k, v)]
+        xd = [t.to(dt).float().requires_grad_() for t in (q, k, v)]
+        g_out = do.to(dt)
+
+        def flash():
+            o = mc.blockwise_attention(*x, causal=True)
+            return torch.autograd.grad(o, x, g_out)
+
+        def dense():
+            return torch.autograd.grad(_dense_attention(*xd), xd,
+                                       g_out.float())
+
+        res = {}
+        for which, fn in (("flash", flash), ("dense", dense)):
+            torch.cuda.synchronize(device)
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            grads = fn()
+            torch.cuda.synchronize(device)
+            res[which] = grads
+            out[f"{name}_{which}_peak_bytes"] = \
+                torch.cuda.max_memory_allocated(device) - base
+            out[f"{name}_{which}_fwd_bwd_ms"] = cuda_ms(fn, 3)
+        errs = []
+        for a, b, g in zip(res["flash"], res["dense"], "qkv"):
+            check(a.dtype == dt and _within(a, b, tol),
+                  f"{name} d{g} of the flash backward != dense autograd "
+                  f"({tol}): max abs err {_max_err(a, b)}")
+            errs.append(_max_err(a, b))
+        out[f"{name}_max_abs_err_dq_dk_dv"] = errs
+        out[f"{name}_max_abs_dq_dk_dv"] = [
+            float(b.abs().max()) for b in res["dense"]]
+        del res, x, xd
+        _free()
+    return out
+
+
+class _StepClock:
+    """``on_step`` hook for Trainer.run: each step's host-clock time and
+    its CUDA-event time (an event recorded once the step's loss is on
+    the host), and each step's loss."""
+
+    def __init__(self):
+        import torch
+        self.events = [torch.cuda.Event(enable_timing=True)]
+        self.host = []
+        self.losses = []
+
+    def start(self):
+        self.events[0].record()
+        self.host.append(time.perf_counter())
+
+    def __call__(self, step, metrics):
+        import torch
+        self.losses.append(float(metrics["loss"]))
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        self.host.append(time.perf_counter())
+
+    def summary(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        ev = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+        host = [(b - a) * 1e3 for a, b in zip(self.host, self.host[1:])]
+        return {"step_ms_events": ev, "step_ms_host": host,
+                "losses": self.losses}
+
+
+def _timed_saves(trainer) -> list:
+    """Wrap ``trainer.ckpt.save`` to record each save's seconds."""
+    saves = []
+    save = trainer.ckpt.save
+
+    def timed(step, tree, blocking=False):
+        t0 = time.perf_counter()
+        save(step, tree, blocking=blocking)
+        saves.append({"step": step, "blocking": blocking,
+                      "s": time.perf_counter() - t0})
+    trainer.ckpt.save = timed
+    return saves
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _train_full(device) -> dict:
+    """qwen2-1.5B at full width and depth in bf16 (remat on), AdamW with
+    f32 moments, TokenPipeline batches of 4 x 512, 5 steps through
+    Trainer into a temporary run directory, ending in the Trainer's
+    blocking save; the loss must be finite every step."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.train.loop import Trainer
+    cfg = get_config(LM_DENSE)
+    check(cfg.remat and cfg.dtype == "bfloat16", "qwen2's config changed")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                      global_batch=TRAIN_B)
+    with tempfile.TemporaryDirectory(prefix="train_full_") as d:
+        tr = Trainer(build_model(cfg), adamw(), data, d, checkpoint_every=0,
+                     device=device)
+        saves = _timed_saves(tr)
+        clock = _StepClock()
+        torch.cuda.reset_peak_memory_stats(device)
+        clock.start()
+        # the Trainer makes the state (seed 0 = LM_SEED) and holds no
+        # second copy of it: the first step's times include that
+        params, opt_state, losses = tr.run(TRAIN_STEPS, log_every=0,
+                                           on_step=clock)
+        out = {"param_bytes": _param_bytes(params),
+               "opt_state_bytes": _param_bytes(opt_state)}
+        out.update(clock.summary())
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        # device busy in one more step (after a warm-up one), outside the
+        # Trainer's steps above
+        batch = tr._to_device(tr.pipeline.batch(TRAIN_STEPS))
+        out["step_device_profile"] = _device_profile(
+            lambda: tr.step_fn(params, opt_state, batch), 1)
+        del params, opt_state, batch
+        check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+              f"a training loss is not finite: {losses.tolist()}")
+        out["saves"] = saves
+        out["checkpoint_bytes"] = _dir_bytes(Path(d) / "ckpt")
+        out["disk_free_bytes"] = shutil.disk_usage(d).free
+    steady = sorted(out["step_ms_events"][1:])
+    out["median_step_ms_events"] = steady[len(steady) // 2]
+    out["tokens_per_s"] = TRAIN_B * TRAIN_S / out["median_step_ms_events"] \
+        * 1e3
+    _free()
+    return out
+
+
+class _Deterministic:
+    """``torch.use_deterministic_algorithms(True)`` inside the block (the
+    card's cuBLAS also needs CUBLAS_WORKSPACE_CONFIG, which ``main``
+    sets before CUDA starts)."""
+
+    def __enter__(self):
+        import torch
+        self.prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.use_deterministic_algorithms(self.prev)
+
+
+def _train_restart(device) -> dict:
+    """qwen2-1.5B at full width and 2 layers, bf16, AdamW(lr 3e-3), the
+    reference's integration tests on the card: 16 uninterrupted steps
+    against 11 steps + a restart from the step-10 checkpoint to 16,
+    under deterministic algorithms, params and moments bit-equal; then
+    25 steps without them, the mean loss of the last 5 below that of the
+    first 5 (tests/test_train_serve.py:28-67)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.tree import leaves
+    from repro_torch.train.loop import Trainer
+    cfg = dataclasses.replace(get_config(LM_DENSE), num_layers=RESTART_LAYERS)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                      global_batch=TRAIN_B)
+
+    def trainer(d, every):
+        return Trainer(build_model(cfg), adamw(lr=3e-3, weight_decay=0.0),
+                       data, d, checkpoint_every=every, device=device)
+
+    out = {"layers": RESTART_LAYERS}
+    with _Deterministic(), tempfile.TemporaryDirectory(prefix="rs_") as d:
+        clock = _StepClock()
+        clock.start()
+        p_full, o_full, _ = trainer(Path(d) / "a", 10).run(
+            RESTART_STEPS, log_every=0, on_step=clock)
+        out["deterministic"] = clock.summary()
+        trainer(Path(d) / "b", 10).run(RESTART_AT, log_every=0)
+        tr3 = trainer(Path(d) / "b", 10)
+        p_res, o_res, resumed = tr3.run(RESTART_STEPS, log_every=0)
+        check(len(resumed) == RESTART_STEPS - RESTART_AT,
+              f"the restart resumed {len(resumed)} steps")
+        full = leaves({"p": p_full, "o": o_full})
+        res = leaves({"p": p_res, "o": o_res})
+        equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(full, res))
+        out["restart_bit_equal"] = equal
+        out["restart_max_abs_diff"] = max(_max_err(a, b)
+                                          for a, b in zip(full, res))
+        check(equal or all(_within(a, b, 2e-2) for a, b in zip(full, res)),
+              f"restart != uninterrupted run (2e-2): max abs diff "
+              f"{out['restart_max_abs_diff']}")
+        del p_full, o_full, p_res, o_res, full, res
+    _free()
+    with tempfile.TemporaryDirectory(prefix="fall_") as d:
+        clock = _StepClock()
+        clock.start()
+        _, _, losses = trainer(d, 0).run(FALL_STEPS, log_every=0,
+                                         on_step=clock)
+        out["nondeterministic"] = clock.summary()
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    out["loss_first5"], out["loss_last5"] = first, last
+    check(last < first, f"25 steps did not lower the loss: {first} -> "
+          f"{last}")
+    for k in ("deterministic", "nondeterministic"):
+        steady = sorted(out[k]["step_ms_events"][1:])
+        out[f"median_step_ms_{k}"] = steady[len(steady) // 2]
+    _free()
+    return out
+
+
+def phase_train(device) -> dict:
+    """Phase 14: 14a the attention backward, 14b qwen2-1.5B trained at
+    full width and depth, 14c restart exactness and a falling loss at
+    full width, 2 layers."""
+    import torch
+    torch.cuda.init()
+    return {"attention_backward": _attention_backward(device),
+            "full": _train_full(device),
+            "restart": _train_restart(device)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every number to this JSON file")
     args = ap.parse_args(argv)
 
+    # deterministic cuBLAS for phase 14c's restart check: read when CUDA
+    # starts, so set before anything touches the card
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is false; this check needs "
@@ -2106,6 +2571,7 @@ def main(argv=None) -> int:
     # bf16 products as the reference's dot: one rounding of an f32 sum
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", torch.cuda.current_device())
+    t_start = time.perf_counter()
     card = card_line()
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
@@ -2265,6 +2731,77 @@ def main(argv=None) -> int:
             f"(tokens, n_hot, C_hot, C_cold) {json.dumps(c['biglittle_split'])}")
         log(f"phase 12: LM serving ok ({time.perf_counter() - t0:.1f} s): "
             + json.dumps(lm))
+
+        t0 = time.perf_counter()
+        rec = result["lm_recurrent"] = phase_lm_recurrent(device)
+        for tag, name in (("13a", LM_SSM), ("13b", LM_HYBRID)):
+            r = rec[name]
+            log(f"phase {tag}: {name} full width fp32: teacher-forced "
+                f"decode == forward (prefill {r['prefill']} of "
+                f"{r['tokens']}, max abs err prefill "
+                f"{r['max_abs_err_prefill']:.3g}, decode "
+                f"{r['max_abs_err_decode']:.3g})"
+                + (f"; card == CPU at {r['card_vs_cpu']['layers']} layers "
+                   f"(max abs err {r['card_vs_cpu']['max_abs_err']:.3g})"
+                   if "card_vs_cpu" in r else "")
+                + f"; bf16 served {r['requests']} requests x {LM_NEW} "
+                f"tokens: {r['tokens_per_s']:.1f} tokens/s, mean TTFT "
+                f"{r['mean_ttft_s'] * 1e3:.1f} ms, prefill "
+                f"{r['prefill_shape']} {r['prefill_ms']:.2f} ms, decode step "
+                f"{r['decode_step_ms']:.3f} ms (host clock "
+                f"{r['decode_step_host_ms']:.3f} ms; device busy "
+                f"{r['decode_step_device_profile']['busy_ms']} ms; bound "
+                f"{r['decode_bound_ms']:.3f} ms), params "
+                f"{r['param_bytes']} B, decode state "
+                f"{r['decode_state_bytes']} B, max_memory_allocated "
+                f"{r['max_memory_allocated']} B; greedy == manual loop "
+                f"({card})")
+        w = rec[LM_AUDIO]
+        log(f"phase 13c: {LM_AUDIO} full width ({w['frames']} frames): fp32 "
+            f"teacher-forced decode == forward (max abs err prefill "
+            f"{w['max_abs_err_prefill']:.3g}, decode "
+            f"{w['max_abs_err_decode']:.3g}); bf16 batch {w['batch']}: "
+            f"prefill {LM_AUDIO_PROMPT} tokens {w['prefill_ms']:.2f} ms, "
+            f"greedy loop {w['decode_loop_step_host_ms']:.3f} ms a step on "
+            f"the host clock, decode step {w['decode_step_ms']:.3f} ms "
+            f"(device busy {w['decode_step_device_profile']['busy_ms']} ms; "
+            f"bound {w['decode_bound_ms']:.4f} ms), "
+            f"{w['tokens_per_s']:.1f} tokens/s ({card})")
+        log(f"phase 13: recurrent and encoder-decoder families ok "
+            f"({time.perf_counter() - t0:.1f} s): " + json.dumps(rec))
+
+        t0 = time.perf_counter()
+        tr = result["train"] = phase_train(device)
+        ab, fu, rs = tr["attention_backward"], tr["full"], tr["restart"]
+        log(f"phase 14a: flash backward == dense autograd at "
+            f"{ab['shape']}: fp32 max abs err "
+            f"{max(ab['fp32_max_abs_err_dq_dk_dv']):.3g}, bf16 "
+            f"{max(ab['bf16_max_abs_err_dq_dk_dv']):.3g}; forward + backward "
+            f"fp32 {ab['fp32_flash_fwd_bwd_ms']:.2f} ms (dense "
+            f"{ab['fp32_dense_fwd_bwd_ms']:.2f}), bf16 "
+            f"{ab['bf16_flash_fwd_bwd_ms']:.2f} ms; peak "
+            f"{ab['fp32_flash_peak_bytes']} B (dense "
+            f"{ab['fp32_dense_peak_bytes']} B) ({card})")
+        log(f"phase 14b: {LM_DENSE} full width bf16 trained "
+            f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S}: losses "
+            f"{[round(x, 4) for x in fu['losses']]}, step ms (events) "
+            f"{[round(x, 1) for x in fu['step_ms_events']]}, host "
+            f"{[round(x, 1) for x in fu['step_ms_host']]}, "
+            f"{fu['tokens_per_s']:.1f} tokens/s, device busy "
+            f"{fu['step_device_profile']['busy_ms']} ms a step "
+            f"(torch.profiler), max_memory_allocated "
+            f"{fu['max_memory_allocated']} B; final save "
+            f"{fu['saves'][-1]['s']:.1f} s, {fu['checkpoint_bytes']} B "
+            f"({card})")
+        log(f"phase 14c: {LM_DENSE} full width, {rs['layers']} layers: "
+            f"restart bit-equal {rs['restart_bit_equal']} (max abs diff "
+            f"{rs['restart_max_abs_diff']:.3g}); loss {rs['loss_first5']:.4f}"
+            f" -> {rs['loss_last5']:.4f} over {FALL_STEPS} steps; median "
+            f"step {rs['median_step_ms_deterministic']:.2f} ms "
+            f"deterministic, {rs['median_step_ms_nondeterministic']:.2f} ms "
+            f"not ({card})")
+        log(f"phase 14: training ok ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(tr))
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -2277,12 +2814,14 @@ def main(argv=None) -> int:
         "autotune": result["autotune"]["launches"],
         "distributed": result["distributed"]["launches"]}
     result["kernels"] = [kernel]
+    result["t_total_s"] = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     log("PageRank iteration breakdown: " + json.dumps(result["breakdown"]))
+    log(f"total: {result['t_total_s']:.1f} s")
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": result["kernels"]}))
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 prefill, decode_step). Family dispatch:
   dense, vlm      → transformer (vlm consumes stubbed patch embeds)
   moe             → moe
-  ssm, hybrid, audio → not built yet (ROADMAP.md, Queue 1 item 14b-2:
-                    the mamba2, hymba and whisper serving slice)
+  ssm             → mamba2
+  hybrid          → hymba
+  audio           → whisper (enc-dec; stubbed frame embeds)
 """
 from __future__ import annotations
 
@@ -12,14 +13,16 @@ from typing import Any, Callable
 
 import torch
 
-from . import moe, transformer
+from . import hymba, mamba2, moe, transformer, whisper
 
 _FAMILY = {
     "dense": transformer,
     "vlm": transformer,
     "moe": moe,
+    "ssm": mamba2,
+    "hybrid": hymba,
+    "audio": whisper,
 }
-_NOT_BUILT = {"ssm": "mamba2", "hybrid": "hymba", "audio": "whisper"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,10 +47,6 @@ def _init(mod, cfg, gen: torch.Generator):
 
 
 def build_model(cfg) -> Model:
-    if cfg.family in _NOT_BUILT:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({_NOT_BUILT[cfg.family]}) is not "
-            "ported yet: ROADMAP.md, Queue 1 item 14b-2")
     mod = _FAMILY[cfg.family]
     return Model(
         cfg=cfg,

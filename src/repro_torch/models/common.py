@@ -10,8 +10,10 @@ Conventions (the reference's, ``src/repro/models/common.py``):
     are upcast to f32 first: a torch bf16 matmul would round its result
     to bf16.
   * attention is an online-softmax blockwise implementation in plain
-    torch ops, the same math as the reference's ``_flash_fwd_impl``.
-    Forward only: no backward yet.
+    torch ops, the same math as the reference's ``_flash_fwd_impl``,
+    with its flash backward as a ``torch.autograd.Function``.
+  * ``remat`` is the reference's ``jax.checkpoint`` around each layer
+    when ``cfg.remat`` is set and autograd is recording.
   * no mesh exists here, so the reference's sharding constraints are
     identities.
 """
@@ -23,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..configs import torch_dtype
 
@@ -41,6 +44,17 @@ def constrain_logits(x):
 
 def constrain_act(x):
     return x
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``torch.utils.checkpoint`` (non-reentrant)
+    when ``cfg.remat`` is set and autograd is recording, as the
+    reference wraps each layer in ``jax.checkpoint``: the layer's
+    activations are recomputed in the backward instead of kept."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +100,8 @@ def rope_freqs(head_dim, base=10000.0, rotary_dim=None, device=None):
     decode step makes no host-to-device copy for them."""
     rd = rotary_dim or head_dim
     inv = 1.0 / (base ** (np.arange(0, rd, 2, dtype=np.float32) / rd))
-    return torch.from_numpy(np.asarray(inv, np.float32)).to(device)
+    with torch.inference_mode(False):     # usable where autograd records
+        return torch.from_numpy(np.asarray(inv, np.float32)).to(device)
 
 
 def apply_rope(x, positions, inv_freq, rotary_dim=None):
@@ -141,12 +156,24 @@ def blockwise_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     """q,k,v: (B, S, H, hd) / (B, S, KH, hd) with H % KH == 0.
     Online softmax over KV blocks, in f32: the reference's
     ``_flash_fwd_impl`` (-inf masking with its ``m_safe`` / ``alpha``
-    guards). Every q block runs the same recurrence over the KV blocks,
-    so the q blocks go through it side by side. Returns q's dtype."""
+    guards). Returns q's dtype.
+
+    Differentiable through :class:`_Flash`, the reference's flash
+    ``custom_vjp``: the forward saves only (q, k, v, out, lse) and the
+    backward re-derives each P panel from lse. The KV heads are repeated
+    outside it, so autograd sums dk / dv over each GQA group."""
     h = q.shape[2]
     k = _repeat_kv(k, h // k.shape[2])
     v = _repeat_kv(v, h // v.shape[2])
-    b, sq, _, hd = q.shape
+    return _Flash.apply(q, k, v, causal, window, q_block, kv_block)
+
+
+def _flash_fwd_impl(q, k, v, causal, window, q_block, kv_block):
+    """Every q block runs the same recurrence over the KV blocks, so the
+    q blocks go through it side by side: one (nq, B, H, q_block,
+    kv_block) panel stack is live at a time. Returns (out in q's dtype,
+    lse of shape (nq, B, H, q_block))."""
+    b, sq, h, hd = q.shape
     skv = k.shape[1]
     scale = 1.0 / np.sqrt(hd)
     nq = -(-sq // q_block)
@@ -174,8 +201,76 @@ def blockwise_attention(q, k, v, *, causal=True, window: Optional[int] = None,
                                                 vb[kj].float())
         m = m_new
     o = o / torch.clamp(l[..., None], min=1e-20)
+    lse = torch.where(l > 0, torch.where(torch.isfinite(m), m, 0.0)
+                      + torch.log(torch.clamp(l, min=1e-20)), float("-inf"))
     out = o.permute(1, 0, 3, 2, 4).reshape(b, nq * q_block, h, hd)
-    return out[:, :sq].to(q.dtype)
+    return out[:, :sq].to(q.dtype), lse
+
+
+def _unblock(x, length):
+    """(n, B, H, blk, hd) -> (B, length, H, hd)."""
+    n, b, h, blk, hd = x.shape
+    return x.permute(1, 0, 3, 2, 4).reshape(b, n * blk, h, hd)[:, :length]
+
+
+def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_block,
+                    kv_block):
+    """The reference's ``_flash_bwd``: D_i = rowsum(dout * out), each P
+    panel recomputed from lse; ``p`` is rounded to q's dtype for dv and
+    ``ds`` for dq / dk, every product exact with an f32 sum. The q
+    blocks go side by side, as in the forward: one (nq, B, H, q_block,
+    kv_block) panel stack is live per KV block, never the S x S one."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    scale = 1.0 / np.sqrt(hd)
+    nq = -(-sq // q_block)
+    nk = -(-skv // kv_block)
+    dev = q.device
+    f32 = torch.float32
+    qb, dob = _blocks(q, nq, q_block), _blocks(dout, nq, q_block)
+    ob = _blocks(out, nq, q_block)
+    kb, vb = _blocks(k, nk, kv_block), _blocks(v, nk, kv_block)
+    q_ids = torch.arange(nq * q_block, device=dev).reshape(nq, q_block)
+    k_ids = torch.arange(nk * kv_block, device=dev).reshape(nk, kv_block)
+    Db = (dob.to(f32) * ob.to(f32)).sum(dim=-1)    # (nq, B, H, qb)
+    qf, dof = qb.to(f32), dob.to(f32)
+    dq = torch.zeros((nq, b, h, q_block, hd), dtype=f32, device=dev)
+    dks, dvs = [], []
+    for kj in range(nk):
+        kf, vf = kb[kj].to(f32), vb[kj].to(f32)
+        s = torch.einsum("nbhqd,bhkd->nbhqk", qf, kf) * scale
+        mask = _block_mask(q_ids[:, :, None], k_ids[kj][None, None, :],
+                           causal, window, sq, skv)[:, None, None]
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        pb = p.to(q.dtype).to(f32)
+        dvs.append(torch.einsum("nbhqk,nbhqd->bhkd", pb, dof))
+        dp = torch.einsum("nbhqd,bhkd->nbhqk", dof, vf)
+        ds = p * (dp - Db[..., None]) * scale
+        dsb = ds.to(q.dtype).to(f32)
+        dq = dq + torch.einsum("nbhqk,bhkd->nbhqd", dsb, kf)
+        dks.append(torch.einsum("nbhqk,nbhqd->bhkd", dsb, qf))
+    dk, dv = torch.stack(dks), torch.stack(dvs)
+    return (_unblock(dq, sq).to(q.dtype), _unblock(dk, skv).to(k.dtype),
+            _unblock(dv, skv).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Blockwise attention with the reference's flash VJP
+    (``_flash_fwd`` / ``_flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, q_block,
+                                   kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def decode_attention(q, k_cache, v_cache, length, *, window=None):
@@ -229,9 +324,11 @@ def silu(x):
 
 
 def gelu(x):
-    """``jax.nn.gelu`` (tanh approximation, its default), op by op."""
-    cdf = 0.5 * (1.0 + torch.tanh(float(np.sqrt(2 / np.pi))
-                                  * (x + 0.044715 * (x * x * x))))
+    """``jax.nn.gelu`` (tanh approximation, its default), op by op, its
+    two constants rounded to x's dtype as JAX rounds them."""
+    c1 = x.new_tensor(float(np.sqrt(2 / np.pi)))
+    c2 = x.new_tensor(0.044715)
+    cdf = 0.5 * (1.0 + torch.tanh(c1 * (x + c2 * (x * x * x))))
     return x * cdf
 
 

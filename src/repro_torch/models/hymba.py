@@ -1,0 +1,182 @@
+"""Hymba — hybrid-head architecture (arXiv:2411.13676).
+
+Each layer runs attention heads and SSM (mamba2-style) heads in
+*parallel* on the same normed input and fuses their outputs (here: mean
+of the two projected streams — the paper fuses with learned per-head
+scaling; the reference's documented simplification). Attention is
+sliding-window everywhere, the SSM path is a conv-free SSD.
+
+Decode state: right-aligned sliding KV window (pre-rotated keys) + SSM
+state per layer. The parameter tree is the reference's
+(``src/repro/models/hymba.py``) leaf for leaf.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import common as c
+from . import mamba2
+from . import transformer as tfm
+
+
+def _dims(cfg):
+    din = cfg.din
+    return din, din // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def init_layer_params(cfg, gen):
+    dt = c.dtype_of(cfg)
+    D = cfg.d_model
+    din, H, P, N = _dims(cfg)
+    p = tfm.init_layer_params(cfg, gen)   # attn + mlp + norms
+    A_log, Dd, dt_bias = mamba2.ssm_scalars(H)
+    p.update({
+        "ssm_in": c.dense_init(gen, D, 2 * din + 2 * N + H, dt),
+        "ssm_out": c.dense_init(gen, din, D, dt),
+        "ssm_norm_g": torch.ones((din,), dtype=dt),
+        "A_log": A_log,
+        "Dd": Dd,
+        "dt_bias": dt_bias,
+    })
+    return p
+
+
+def init_params(cfg, gen):
+    return tfm.init_params(cfg, gen, init_layer_params)
+
+
+def _ssm_in(cfg, lp, h):
+    """The SSM branch's projection, split: (z, silu(xBC), dt_raw)."""
+    din, H, P, N = _dims(cfg)
+    zxbcdt = c.matmul(h, lp["ssm_in"])
+    return (zxbcdt[..., :din], c.silu(zxbcdt[..., din:2 * din + 2 * N]),
+            zxbcdt[..., 2 * din + 2 * N:])
+
+
+def _ssm_out(cfg, lp, y, z, dtype):
+    B, S = y.shape[:2]
+    y = y.reshape(B, S, cfg.din).to(dtype)
+    y = c.rmsnorm(y, lp["ssm_norm_g"], cfg.norm_eps) * c.silu(z)
+    return c.matmul(y, lp["ssm_out"])
+
+
+def _ssm_branch(cfg, lp, h):
+    """Returns (out, final SSM state)."""
+    din, H, P, N = _dims(cfg)
+    B, S, _ = h.shape
+    z, xBC, dt_raw = _ssm_in(cfg, lp, h)
+    xs = xBC[..., :din].reshape(B, S, H, P)
+    Bm = xBC[..., din:din + N]
+    Cm = xBC[..., din + N:]
+    dt = mamba2.softplus(dt_raw.float() + lp["dt_bias"])
+    A = -torch.exp(lp["A_log"])
+    y, h_fin = mamba2.ssd_chunked(cfg, xs, Bm, Cm, dt, A, lp["Dd"])
+    return _ssm_out(cfg, lp, y, z, h.dtype), h_fin
+
+
+def _window(t, W):
+    """The last W positions of (B, S, KH, hd), left-padded with zeros
+    when S < W."""
+    S = t.shape[1]
+    return t[:, -W:] if S >= W else F.pad(t, (0, 0, 0, 0, W - S, 0))
+
+
+def _layer(cfg, x, lp, positions, inv_freq, collect_state=False):
+    W = cfg.sliding_window
+    h = tfm._norm(cfg, x, lp, "ln1")
+    q, k, v = tfm._qkv(cfg, lp, h, positions, inv_freq)
+    attn = c.blockwise_attention(q, k, v, causal=True, window=W)
+    B, S = x.shape[:2]
+    attn_out = c.matmul(attn.reshape(B, S, -1), lp["wo"])
+    ssm_out, h_fin = _ssm_branch(cfg, lp, h)
+    x = x + 0.5 * (attn_out + ssm_out)     # parallel-head fusion
+    h2 = tfm._norm(cfg, x, lp, "ln2")
+    x = x + tfm._mlp(cfg, lp, h2)
+    if collect_state:
+        return x, (_window(k, W), _window(v, W), h_fin)
+    return x
+
+
+def backbone(cfg, params, x, positions, collect_state=False):
+    inv_freq = tfm._inv_freq(cfg, x.device)
+    states = []
+    for lp in tfm.layers(params):
+        if collect_state:
+            x, st = _layer(cfg, x, lp, positions, inv_freq, True)
+            states.append(st)
+        else:
+            x = c.remat(cfg, _layer, cfg, x, lp, positions, inv_freq)
+    x = tfm._norm(cfg, x, params, "ln_f")
+    if not collect_state:
+        return x, None
+    return x, tuple(torch.stack(s) for s in zip(*states))
+
+
+def forward(cfg, params, batch):
+    x = params["embed"][batch["tokens"]]
+    x, _ = backbone(cfg, params, x, tfm._positions(x))
+    return c.constrain_logits(c.matmul(x, params["lm_head"]))
+
+
+def loss_fn(cfg, params, batch):
+    return c.cross_entropy(forward(cfg, params, batch), batch["labels"],
+                           cfg.vocab_size)
+
+
+def prefill(cfg, params, batch):
+    x = params["embed"][batch["tokens"]]
+    x, (k, v, h) = backbone(cfg, params, x, tfm._positions(x),
+                            collect_state=True)
+    return ({"k": k, "v": v, "ssm_state": h},
+            c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"])))
+
+
+def _window_attention(cfg, q, kc, vc, length):
+    """One query against the right-aligned window: entry i holds
+    absolute position length-(W-1-i), valid where that is >= 0. Unlike
+    ``common.decode_attention``, the softmax weights stay f32 for the
+    product with v, as the reference's."""
+    W = kc.shape[1]
+    valid = torch.arange(W, device=q.device) >= (W - 1 - length)
+    rep = cfg.num_heads // cfg.num_kv_heads
+    kk = c._repeat_kv(kc, rep).float()
+    vv = c._repeat_kv(vc, rep).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / np.sqrt(cfg.hd)
+    s = torch.where(valid[None, None, None, :], s, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
+
+
+def decode_step(cfg, params, cache, token, length):
+    """Sliding-window KV (right-aligned, newest last) + O(1) SSM step.
+    The cache's leaves are updated in place and returned."""
+    length = int(length)
+    din, H, P, N = _dims(cfg)
+    inv_freq = tfm._inv_freq(cfg, params["embed"].device)
+    x = params["embed"][token]
+    B = x.shape[0]
+    pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    for i, lp in enumerate(tfm.layers(params)):
+        kc, vc = cache["k"][i], cache["v"][i]
+        hn = tfm._norm(cfg, x, lp, "ln1")
+        q, k, v = tfm._qkv(cfg, lp, hn, pos, inv_freq)
+        kc.copy_(torch.cat([kc[:, 1:], k.to(kc.dtype)], dim=1))
+        vc.copy_(torch.cat([vc[:, 1:], v.to(vc.dtype)], dim=1))
+        attn = _window_attention(cfg, q, kc, vc, length).to(x.dtype)
+        attn_out = c.matmul(attn.reshape(B, 1, -1), lp["wo"])
+        # SSM single step (conv-free)
+        z, xBC, dt_raw = _ssm_in(cfg, lp, hn)
+        xs = xBC[:, 0, :din].reshape(B, H, P)
+        dtv = mamba2.softplus(dt_raw[:, 0].float() + lp["dt_bias"])
+        A = -torch.exp(lp["A_log"])
+        y, h = mamba2.ssm_step(cache["ssm_state"][i], xs,
+                               xBC[:, 0, din:din + N], xBC[:, 0, din + N:],
+                               dtv, A, lp["Dd"])
+        cache["ssm_state"][i] = h
+        ssm_out = _ssm_out(cfg, lp, y.reshape(B, 1, din), z, x.dtype)
+        x = x + 0.5 * (attn_out + ssm_out)
+        h2 = tfm._norm(cfg, x, lp, "ln2")
+        x = x + tfm._mlp(cfg, lp, h2)
+    x = tfm._norm(cfg, x, params, "ln_f")
+    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache

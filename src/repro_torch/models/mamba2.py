@@ -1,0 +1,239 @@
+"""Mamba-2 (SSD, state-space duality — arXiv:2405.21060).
+
+Chunked SSD forward: the sequence is split into chunks; within a chunk
+the quadratic dual form runs as batched products, between chunks the
+SSM state (B, H, P, N) is carried by a Python loop over the chunks (the
+reference's ``lax.scan``) — O(S) memory, O(S·Q) compute. Decode is the
+O(1) recurrent step. Attention-free (no KV cache).
+
+Shapes: d_inner = expansion (cfg.din), P = ssm_head_dim, H = din/P heads,
+N = ssm_state. B/C are shared across heads (ngroups=1, as in the paper).
+The parameter tree is the reference's (``src/repro/models/mamba2.py``)
+leaf for leaf; the layer loop takes each layer's views of the stacked
+leaves (``transformer.layers``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import common as c
+from . import transformer as tfm
+
+CONV_K = 4
+CHUNK = 128
+
+
+def _dims(cfg):
+    din = cfg.din
+    H = din // cfg.ssm_head_dim
+    return din, H, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` everywhere (``F.softplus``
+    switches to ``x`` above its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def ssm_scalars(H):
+    """The per-head A_log, D and dt_bias leaves at init (f32)."""
+    return (torch.log(torch.linspace(1.0, 16.0, H)), torch.ones((H,)),
+            torch.zeros((H,)))
+
+
+def init_layer_params(cfg, gen):
+    dt = c.dtype_of(cfg)
+    D = cfg.d_model
+    din, H, P, N = _dims(cfg)
+    conv_dim = din + 2 * N
+    A_log, Dd, dt_bias = ssm_scalars(H)
+    return {
+        "in_proj": c.dense_init(gen, D, 2 * din + 2 * N + H, dt),
+        "conv_w": (torch.randn((CONV_K, conv_dim), generator=gen) * 0.2
+                   ).to(dt),
+        "conv_b": torch.zeros((conv_dim,), dtype=dt),
+        "A_log": A_log,
+        "D": Dd,
+        "dt_bias": dt_bias,
+        "norm_g": torch.ones((din,), dtype=dt),
+        "ln_g": torch.ones((D,), dtype=dt),
+        "out_proj": c.dense_init(gen, din, D, dt),
+    }
+
+
+def init_params(cfg, gen):
+    dt = c.dtype_of(cfg)
+    return {
+        "embed": c.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt),
+        "lm_head": c.dense_init(gen, cfg.d_model, cfg.vocab_padded, dt),
+        "ln_f_g": torch.ones((cfg.d_model,), dtype=dt),
+        "layers": tfm.stack_layers([init_layer_params(cfg, gen)
+                                    for _ in range(cfg.num_layers)]),
+    }
+
+
+def _split_proj(cfg, zxbcdt):
+    din, H, P, N = _dims(cfg)
+    z = zxbcdt[..., :din]
+    xBC = zxbcdt[..., din:2 * din + 2 * N]
+    dt_raw = zxbcdt[..., 2 * din + 2 * N:]
+    return z, xBC, dt_raw
+
+
+def _causal_conv(xBC, w, b):
+    """Depthwise causal conv, kernel CONV_K. xBC: (B, S, C). A Python
+    ``sum`` of the CONV_K products, each rounded to xBC's dtype, as the
+    reference adds them."""
+    S = xBC.shape[1]
+    pads = F.pad(xBC, (0, 0, CONV_K - 1, 0))
+    out = sum(pads[:, i:i + S] * w[i] for i in range(CONV_K))
+    return c.silu(out + b)
+
+
+def ssd_chunked(cfg, x, Bm, Cm, dt, A, D, h0=None):
+    """Chunked SSD scan.
+    x: (B,S,H,P); Bm,Cm: (B,S,N); dt: (B,S,H) (post-softplus); A: (H,)<0.
+    Returns y (B,S,H,P) in f32, final state (B,H,P,N) in f32."""
+    b, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(CHUNK, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    f32 = torch.float32
+    xs = F.pad(x, (0, 0, 0, 0, 0, pad)).float().reshape(b, nc, Q, H, P)
+    Bc = F.pad(Bm, (0, 0, 0, pad)).float().reshape(b, nc, Q, N)
+    Cc = F.pad(Cm, (0, 0, 0, pad)).float().reshape(b, nc, Q, N)
+    dtc = F.pad(dt, (0, 0, 0, pad)).reshape(b, nc, Q, H)
+    h = (torch.zeros((b, H, P, N), dtype=f32, device=x.device) if h0 is None
+         else h0.float())
+    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    ys = []
+    for ci in range(nc):
+        xq, Bq, Cq, dtq = xs[:, ci], Bc[:, ci], Cc[:, ci], dtc[:, ci]
+        dA = dtq * A                                   # (B,Q,H) negative
+        a_cum = torch.cumsum(dA, dim=1)                # (B,Q,H)
+        # intra-chunk dual (quadratic) form
+        G = torch.einsum("bqn,bkn->bqk", Cq, Bq)       # (B,Q,Q)
+        # mask the exponent BEFORE exp: the i>j half would overflow to
+        # inf and poison the backward via inf*0=NaN cotangents
+        delta = a_cum[:, :, None, :] - a_cum[:, None, :, :]
+        delta = torch.where(tril[None, :, :, None], delta, -1e30)
+        decay = torch.exp(delta)
+        M = G[..., None] * decay * dtq[:, None, :, :]  # (B,Q,K,H)
+        y_intra = torch.einsum("bqkh,bkhp->bqhp", M, xq)
+        # inter-chunk from carried state
+        y_inter = torch.einsum("bqn,bhpn->bqhp", Cq, h) \
+            * torch.exp(a_cum)[..., None]
+        # state update
+        w = dtq * torch.exp(a_cum[:, -1:, :] - a_cum)  # (B,Q,H)
+        h = h * torch.exp(a_cum[:, -1])[:, :, None, None] \
+            + torch.einsum("bkh,bkn,bkhp->bhpn", w, Bq, xq)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(b, nc * Q, H, P)[:, :S]
+    y = y + D[None, None, :, None] * x.float()
+    return y, h
+
+
+def layer_forward(cfg, lp, x, return_state=False):
+    """One mamba2 block. x: (B,S,D). With ``return_state`` also the final
+    SSM state and the conv state: the last CONV_K raw (pre-conv) xBC
+    rows, zero-padded on the left when S < CONV_K."""
+    din, H, P, N = _dims(cfg)
+    B, S, D = x.shape
+    hid = c.rmsnorm(x, lp["ln_g"], cfg.norm_eps)
+    zxbcdt = c.matmul(hid, lp["in_proj"])
+    z, xBC_raw, dt_raw = _split_proj(cfg, zxbcdt)
+    xBC = _causal_conv(xBC_raw, lp["conv_w"], lp["conv_b"])
+    xs = xBC[..., :din].reshape(B, S, H, P)
+    Bm = xBC[..., din:din + N]
+    Cm = xBC[..., din + N:]
+    dt = softplus(dt_raw.float() + lp["dt_bias"])
+    A = -torch.exp(lp["A_log"])
+    y, h_fin = ssd_chunked(cfg, xs, Bm, Cm, dt, A, lp["D"])
+    y = y.reshape(B, S, din).to(x.dtype)
+    y = c.rmsnorm(y, lp["norm_g"], cfg.norm_eps) * c.silu(z)
+    out = x + c.matmul(y, lp["out_proj"])
+    if return_state:
+        tail = x.new_zeros((B, CONV_K, din + 2 * N))
+        take = min(CONV_K, S)
+        tail[:, CONV_K - take:] = xBC_raw[:, S - take:]
+        return out, h_fin, tail
+    return out
+
+
+def backbone(cfg, params, x, collect_state=False):
+    """The layer loop and the final norm; with ``collect_state`` also the
+    per-layer (ssm_state, conv_state), stacked on a leading L axis."""
+    hs, convs = [], []
+    for lp in tfm.layers(params):
+        if collect_state:
+            x, h, conv = layer_forward(cfg, lp, x, return_state=True)
+            hs.append(h)
+            convs.append(conv)
+        else:
+            x = c.remat(cfg, layer_forward, cfg, lp, x)
+    x = c.rmsnorm(x, params["ln_f_g"], cfg.norm_eps)
+    return x, ((torch.stack(hs), torch.stack(convs)) if collect_state
+               else None)
+
+
+def forward(cfg, params, batch):
+    x = c.constrain_act(params["embed"][batch["tokens"]])
+    x, _ = backbone(cfg, params, x)
+    return c.constrain_logits(c.matmul(x, params["lm_head"]))
+
+
+def loss_fn(cfg, params, batch):
+    return c.cross_entropy(forward(cfg, params, batch), batch["labels"],
+                           cfg.vocab_size)
+
+
+def prefill(cfg, params, batch):
+    x = params["embed"][batch["tokens"]]
+    x, (h, conv) = backbone(cfg, params, x, collect_state=True)
+    logits = c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"]))
+    return {"ssm_state": h, "conv_state": conv}, logits
+
+
+def ssm_step(h, xs, Bm, Cm, dt, A, D):
+    """One recurrent SSD step in f32. h: (B,H,P,N); xs: (B,H,P); Bm, Cm:
+    (B,N); dt: (B,H) post-softplus. Returns (y (B,H,P), h')."""
+    xf = xs.float()
+    dA = torch.exp(dt * A)                                  # (B,H)
+    h = h * dA[:, :, None, None] + torch.einsum(
+        "bh,bn,bhp->bhpn", dt, Bm.float(), xf)
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), h) + D[None, :, None] * xf
+    return y, h
+
+
+def decode_step(cfg, params, cache, token, length):
+    """O(1) recurrent step. cache: ssm_state (L,B,H,P,N), conv_state
+    (L,B,CONV_K,conv_dim) holding the last raw xBC inputs; both are
+    updated in place and returned. ``length`` is not used."""
+    del length
+    din, H, P, N = _dims(cfg)
+    x = params["embed"][token]                  # (B,1,D)
+    B = x.shape[0]
+    for i, lp in enumerate(tfm.layers(params)):
+        hid = c.rmsnorm(x, lp["ln_g"], cfg.norm_eps)
+        zxbcdt = c.matmul(hid, lp["in_proj"])
+        z, xBC_raw, dt_raw = _split_proj(cfg, zxbcdt)
+        conv = torch.cat([cache["conv_state"][i, :, 1:], xBC_raw], dim=1)
+        cache["conv_state"][i] = conv
+        # exact products, an f32 sum, one rounding: the reference's einsum
+        xBC = c.silu(torch.einsum("bkc,kc->bc", conv.float(),
+                                  lp["conv_w"].float()).to(conv.dtype)
+                     + lp["conv_b"])
+        xs = xBC[:, :din].reshape(B, H, P)
+        Bm = xBC[:, din:din + N]
+        Cm = xBC[:, din + N:]
+        dt = softplus(dt_raw[:, 0].float() + lp["dt_bias"])   # (B,H)
+        A = -torch.exp(lp["A_log"])
+        y, h = ssm_step(cache["ssm_state"][i], xs, Bm, Cm, dt, A, lp["D"])
+        cache["ssm_state"][i] = h
+        y = y.reshape(B, 1, din).to(x.dtype)
+        y = c.rmsnorm(y, lp["norm_g"], cfg.norm_eps) * c.silu(z)
+        x = x + c.matmul(y, lp["out_proj"])
+    x = c.rmsnorm(x, params["ln_f_g"], cfg.norm_eps)
+    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache

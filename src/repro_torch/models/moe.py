@@ -45,16 +45,7 @@ def init_layer_params(cfg, gen):
 
 
 def init_params(cfg, gen):
-    dt = c.dtype_of(cfg)
-    p = {
-        "embed": c.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt),
-        "lm_head": c.dense_init(gen, cfg.d_model, cfg.vocab_padded, dt),
-        "layers": tfm.stack_layers([init_layer_params(cfg, gen)
-                                    for _ in range(cfg.num_layers)]),
-    }
-    for suffix, v in tfm._norm_params(cfg).items():
-        p["ln_f" + suffix] = v
-    return p
+    return tfm.init_params(cfg, gen, init_layer_params)
 
 
 # ---------------------------------------------------------------------------
@@ -222,9 +213,8 @@ def backbone(cfg, params, x, positions, collect_kv=False):
     inv_freq = tfm._inv_freq(cfg, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, a, k, v = _layer(cfg, x, tfm.layer_params(params, i), positions,
-                            inv_freq)
+    for lp in tfm.layers(params):
+        x, a, k, v = c.remat(cfg, _layer, cfg, x, lp, positions, inv_freq)
         aux = aux + a
         if collect_kv:
             ks.append(k)
@@ -264,8 +254,7 @@ def decode_step(cfg, params, cache, token, length):
     B = x.shape[0]
     inv_freq = tfm._inv_freq(cfg, x.device)
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
-    for i in range(cfg.num_layers):
-        lp = tfm.layer_params(params, i)
+    for i, lp in enumerate(tfm.layers(params)):
         kc, vc = cache["k"][i], cache["v"][i]
         h = tfm._norm(cfg, x, lp, "ln1")
         q, k, v = tfm._qkv(cfg, lp, h, pos, inv_freq)

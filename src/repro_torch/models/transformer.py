@@ -6,8 +6,8 @@ RoPE, sliding-window attention, command-r parallel attn+FFN blocks,
 RMSNorm/LayerNorm, gated-SiLU or GELU MLPs. The parameter tree is the
 reference's (``src/repro/models/transformer.py``) leaf for leaf: every
 leaf of ``layers`` carries a leading L axis, and a Python loop over the
-layers indexes it where the reference scans. Exposes init/forward/loss/
-prefill/decode_step used by the serving engine.
+layers' views (:func:`layers`) runs where the reference scans. Exposes
+init/forward/loss/prefill/decode_step used by the serving engine.
 """
 from __future__ import annotations
 
@@ -67,12 +67,15 @@ def stack_layers(per_layer):
             for k in list(per_layer[0])}
 
 
-def init_params(cfg, gen):
+def init_params(cfg, gen, layer_init=None):
+    """embed, lm_head, the stacked layers (``layer_init``, this module's
+    ``init_layer_params`` by default) and the final norm."""
     dt = c.dtype_of(cfg)
+    layer_init = layer_init or init_layer_params
     p = {
         "embed": c.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt),
         "lm_head": c.dense_init(gen, cfg.d_model, cfg.vocab_padded, dt),
-        "layers": stack_layers([init_layer_params(cfg, gen)
+        "layers": stack_layers([layer_init(cfg, gen)
                                 for _ in range(cfg.num_layers)]),
     }
     for suffix, v in _norm_params(cfg).items():
@@ -80,9 +83,14 @@ def init_params(cfg, gen):
     return p
 
 
-def layer_params(params, i: int) -> dict:
-    """Layer ``i``'s leaves (views into the stacked tree)."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def layers(params, key: str = "layers") -> list:
+    """Each layer's leaves, as views into the stacked tree: one
+    ``unbind`` per stacked leaf, so autograd gathers the layers'
+    gradients into each stacked leaf with one stack (indexing layer by
+    layer would give every layer a zero-filled gradient of the whole
+    stacked leaf: O(L^2) work in the backward)."""
+    cols = {k: v.unbind(0) for k, v in params[key].items()}
+    return [dict(zip(cols, vals)) for vals in zip(*cols.values())]
 
 
 def _rotary_dim(cfg):
@@ -141,9 +149,8 @@ def backbone(cfg, params, x, positions, collect_kv=False):
     per-layer (k, v), stacked to (L, B, S, KH, hd)."""
     inv_freq = _inv_freq(cfg, x.device)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, k, v = _layer(cfg, x, layer_params(params, i), positions,
-                         inv_freq)
+    for lp in layers(params):
+        x, k, v = c.remat(cfg, _layer, cfg, x, lp, positions, inv_freq)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -203,8 +210,7 @@ def decode_step(cfg, params, cache, token, length):
     inv_freq = _inv_freq(cfg, x.device)
     window = cfg.sliding_window or None
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(layers(params)):
         kc, vc = cache["k"][i], cache["v"][i]
         h = _norm(cfg, x, lp, "ln1")
         q, k, v = _qkv(cfg, lp, h, pos, inv_freq)

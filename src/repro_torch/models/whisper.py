@@ -1,0 +1,191 @@
+"""Whisper (enc-dec, arXiv:2212.04356) — transformer backbone only.
+
+The conv frontend is a stub, as in the reference: inputs carry
+precomputed frame embeddings (B, S_enc, d_model); the encoder is
+non-causal self-attention over them, the decoder is causal self-attention
++ cross-attention. LayerNorm + GELU MLPs, sinusoidal positions. The
+parameter tree is the reference's (``src/repro/models/whisper.py``) leaf
+for leaf.
+
+The reference's ``ServeEngine`` cannot serve this family (its waves pass
+only tokens, and its cache growth would pad the cross-attention cache),
+so neither does the port's: drive it with ``prefill`` and
+``decode_step``.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import common as c
+from . import transformer as tfm
+
+
+@functools.lru_cache(maxsize=32)
+def sinusoid_pos(S, D, dtype, device=None):
+    """(S, D) sinusoidal positions, computed in numpy f32 as the
+    reference does and cast to ``dtype``; one tensor per (shape, dtype,
+    device), shared and never written."""
+    pos = np.arange(S)[:, None]
+    dim = np.arange(0, D, 2)[None, :]
+    ang = pos / np.power(10000.0, dim / D)
+    out = np.zeros((S, D), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang[:, : out[:, 1::2].shape[1]])
+    with torch.inference_mode(False):     # usable where autograd records
+        return torch.from_numpy(out).to(device=device, dtype=dtype)
+
+
+def init_dec_layer(cfg, gen):
+    dt = c.dtype_of(cfg)
+    D, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    p = tfm.init_layer_params(cfg, gen)
+    p.update({
+        "xq": c.dense_init(gen, D, H * hd, dt),
+        "xk": c.dense_init(gen, D, KH * hd, dt),
+        "xv": c.dense_init(gen, D, KH * hd, dt),
+        "xo": c.dense_init(gen, H * hd, D, dt),
+        "lnx_g": torch.ones((D,), dtype=dt),
+        "lnx_b": torch.zeros((D,), dtype=dt),
+    })
+    return p
+
+
+def init_params(cfg, gen):
+    dt = c.dtype_of(cfg)
+    p = {
+        "embed": c.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt),
+        "lm_head": c.dense_init(gen, cfg.d_model, cfg.vocab_padded, dt),
+        "enc_layers": tfm.stack_layers([tfm.init_layer_params(cfg, gen)
+                                        for _ in range(cfg.encoder_layers)]),
+        "layers": tfm.stack_layers([init_dec_layer(cfg, gen)
+                                    for _ in range(cfg.num_layers)]),
+    }
+    for nm in ("ln_enc", "ln_f"):
+        p[nm + "_g"] = torch.ones((cfg.d_model,), dtype=dt)
+        p[nm + "_b"] = torch.zeros((cfg.d_model,), dtype=dt)
+    return p
+
+
+def _ln(cfg, x, lp, name):
+    return c.layernorm(x, lp[name + "_g"], lp[name + "_b"], cfg.norm_eps)
+
+
+def _mlp(lp, h):
+    return c.gelu_mlp(h, lp["w_up"], lp["b_up"], lp["w_down"], lp["b_down"])
+
+
+def _self_attn(cfg, lp, h, causal):
+    B, S, D = h.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = c.matmul(h, lp["wq"]).reshape(B, S, H, hd)
+    k = c.matmul(h, lp["wk"]).reshape(B, S, KH, hd)
+    v = c.matmul(h, lp["wv"]).reshape(B, S, KH, hd)
+    o = c.blockwise_attention(q, k, v, causal=causal)
+    return c.matmul(o.reshape(B, S, -1), lp["wo"]), (k, v)
+
+
+def _enc_layer(cfg, x, lp):
+    a, _ = _self_attn(cfg, lp, _ln(cfg, x, lp, "ln1"), causal=False)
+    x = x + a
+    return x + _mlp(lp, _ln(cfg, x, lp, "ln2"))
+
+
+def encode(cfg, params, enc_embeds):
+    dt = c.dtype_of(cfg)
+    B, S, D = enc_embeds.shape
+    x = enc_embeds.to(dt) + sinusoid_pos(S, D, dt, enc_embeds.device)
+    for lp in tfm.layers(params, "enc_layers"):
+        x = c.remat(cfg, _enc_layer, cfg, x, lp)
+    return c.layernorm(x, params["ln_enc_g"], params["ln_enc_b"],
+                       cfg.norm_eps)
+
+
+def _cross_kv(cfg, lp, enc_out):
+    B, Se, D = enc_out.shape
+    KH, hd = cfg.num_kv_heads, cfg.hd
+    xk = c.matmul(enc_out, lp["xk"]).reshape(B, Se, KH, hd)
+    xv = c.matmul(enc_out, lp["xv"]).reshape(B, Se, KH, hd)
+    return xk, xv
+
+
+def _dec_layer(cfg, x, lp, enc_out):
+    B, S = x.shape[:2]
+    a, (k, v) = _self_attn(cfg, lp, _ln(cfg, x, lp, "ln1"), causal=True)
+    x = x + a
+    hx = _ln(cfg, x, lp, "lnx")
+    q = c.matmul(hx, lp["xq"]).reshape(B, S, cfg.num_heads, cfg.hd)
+    xk, xv = _cross_kv(cfg, lp, enc_out)
+    o = c.blockwise_attention(q, xk, xv, causal=False)
+    x = x + c.matmul(o.reshape(B, S, -1), lp["xo"])
+    return x + _mlp(lp, _ln(cfg, x, lp, "ln2")), (k, v, xk, xv)
+
+
+def decode_stack(cfg, params, tokens, enc_out, collect_kv=False):
+    """The decoder layers and the final norm; with ``collect_kv`` also
+    the per-layer (k, v, cross_k, cross_v), stacked on a leading L
+    axis."""
+    dt = c.dtype_of(cfg)
+    S = tokens.shape[1]
+    x = params["embed"][tokens] + sinusoid_pos(S, cfg.d_model, dt,
+                                               tokens.device)
+    kvs = []
+    for lp in tfm.layers(params):
+        x, kv = c.remat(cfg, _dec_layer, cfg, x, lp, enc_out)
+        if collect_kv:
+            kvs.append(kv)
+    x = c.layernorm(x, params["ln_f_g"], params["ln_f_b"], cfg.norm_eps)
+    return x, (tuple(torch.stack(t) for t in zip(*kvs)) if collect_kv
+               else None)
+
+
+def forward(cfg, params, batch):
+    enc_out = encode(cfg, params, batch["enc_embeds"])
+    x, _ = decode_stack(cfg, params, batch["tokens"], enc_out)
+    return c.constrain_logits(c.matmul(x, params["lm_head"]))
+
+
+def loss_fn(cfg, params, batch):
+    return c.cross_entropy(forward(cfg, params, batch), batch["labels"],
+                           cfg.vocab_size)
+
+
+def prefill(cfg, params, batch):
+    enc_out = encode(cfg, params, batch["enc_embeds"])
+    x, (k, v, xk, xv) = decode_stack(cfg, params, batch["tokens"], enc_out,
+                                     collect_kv=True)
+    cache = {"k": k, "v": v, "cross_k": xk, "cross_v": xv}
+    return cache, c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"]))
+
+
+def decode_step(cfg, params, cache, token, length):
+    """One token: self-attention against the cache (written at position
+    ``length``, in place) and cross-attention over every encoder frame.
+    The position row is the reference's, from a table of the cache's
+    length + 1 rows."""
+    length = int(length)
+    dt = c.dtype_of(cfg)
+    B = token.shape[0]
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    pos_tab = sinusoid_pos(cache["k"].shape[2] + 1, cfg.d_model, dt,
+                           token.device)
+    x = params["embed"][token] + pos_tab[length:length + 1][None]
+    for i, lp in enumerate(tfm.layers(params)):
+        kc, vc = cache["k"][i], cache["v"][i]
+        xk, xv = cache["cross_k"][i], cache["cross_v"][i]
+        h = _ln(cfg, x, lp, "ln1")
+        q = c.matmul(h, lp["wq"]).reshape(B, 1, H, hd)
+        k = c.matmul(h, lp["wk"]).reshape(B, 1, KH, hd)
+        v = c.matmul(h, lp["wv"]).reshape(B, 1, KH, hd)
+        tfm.write_kv(kc, vc, k, v, length)
+        a = c.decode_attention(q, kc, vc, length + 1)
+        x = x + c.matmul(a.reshape(B, 1, -1), lp["wo"])
+        hx = _ln(cfg, x, lp, "lnx")
+        qx = c.matmul(hx, lp["xq"]).reshape(B, 1, H, hd)
+        ox = c.decode_attention(qx, xk, xv, xk.shape[1])
+        x = x + c.matmul(ox.reshape(B, 1, -1), lp["xo"])
+        x = x + _mlp(lp, _ln(cfg, x, lp, "ln2"))
+    x = c.layernorm(x, params["ln_f_g"], params["ln_f_b"], cfg.norm_eps)
+    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache

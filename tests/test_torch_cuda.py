@@ -9,7 +9,10 @@ the fused run; a forced autotune retune on the card,
 ``DistributedEngine`` on a one-rank NCCL group; and the LM serving
 path: reduced dense and MoE models on the card against the CPU, the
 engine's greedy tokens against a manual decode loop, and no serving
-without a card unless the caller asks for the CPU.
+without a card unless the caller asks for the CPU; the recurrent and
+encoder-decoder families (mamba2, hymba, whisper) on the card against
+the CPU, the flash-attention backward on the card against the CPU, and
+one Trainer step on the card.
 They import neither JAX nor the reference package, so they also run on
 a machine with a card and no JAX:
 
@@ -558,3 +561,109 @@ def test_lm_entry_points_raise_without_a_card(lm_device, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--requests", "1"])
     assert ServeEngine(model, params, device="cpu").device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# recurrent and encoder-decoder families, the attention backward, training
+# ---------------------------------------------------------------------------
+
+def _lm_batch(cfg, b, s, seed=0):
+    rs = np.random.RandomState(seed)
+    tok = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b, s))
+                           .astype(np.int32))
+    batch = {"tokens": tok, "labels": tok}
+    if cfg.frontend == "audio":
+        batch["enc_embeds"] = torch.from_numpy(
+            rs.randn(b, cfg.encoder_seq, cfg.d_model).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2p7b", "hymba_1p5b",
+                                  "whisper_tiny"])
+def test_recurrent_on_card_matches_cpu(arch, lm_device):
+    """Reduced models in fp32, the same weights and inputs: forward,
+    prefill and four teacher-forced decode steps on the card within rtol
+    1e-4 / atol 1e-4 of the CPU (hymba's 40-token prompt passes its
+    window of 32)."""
+    model = _lm(arch, "float32")
+    params = model.init(torch.Generator(lm_device).manual_seed(0))
+    batch = _lm_batch(model.cfg, 2, 44)
+    outs = []
+    for dev in (lm_device, torch.device("cpu")):
+        p, b = _to(params, dev), _to(batch, dev)
+        with torch.inference_mode():
+            got = [model.forward(p, b)]
+            cache, last = model.prefill(p, {**b, "tokens": b["tokens"][:,
+                                                                      :40]})
+            if model.cfg.family == "audio":
+                cache = {k: (torch.cat([v, v.new_zeros(
+                    v.shape[:2] + (4,) + v.shape[3:])], dim=2)
+                    if k in ("k", "v") else v) for k, v in cache.items()}
+            got.append(last)
+            for i in range(40, 44):
+                logits, cache = model.decode_step(
+                    p, cache, b["tokens"][:, i:i + 1], i)
+                got.append(logits)
+        outs.append([g.cpu() for g in got])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_backward_on_card_matches_cpu(dtype, tol, lm_device):
+    """Blockwise attention's gradients (the flash backward, GQA 4 over 2,
+    causal with a window, S = 300 over 128-wide blocks) on the card
+    against the CPU's (rtol = atol = 1e-4 in fp32, 2e-2 in bf16)."""
+    from repro_torch.models import common as mc
+    g = torch.Generator().manual_seed(0)
+    shapes = [(2, 300, 4, 32), (2, 300, 2, 32), (2, 300, 2, 32),
+              (2, 300, 4, 32)]
+    q, k, v, do = (torch.randn(s, generator=g).to(dtype) for s in shapes)
+    grads = []
+    for dev in (lm_device, torch.device("cpu")):
+        x = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = mc.blockwise_attention(*x, causal=True, window=100,
+                                     q_block=128, kv_block=128)
+        grads.append([t.cpu() for t in torch.autograd.grad(
+            out, x, do.to(dev))])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def test_trainer_step_on_card(lm_device, tmp_path):
+    """One Trainer step on the card (reduced qwen2 in fp32, AdamW, remat
+    on): its loss and grad norm within rtol 1e-4 of the same step on the
+    CPU, params on the card and finite, the checkpoint restored onto the
+    card."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.train.loop import Trainer
+    model = build_model(dataclasses.replace(
+        reduced(get_config("qwen2_1p5b")), dtype="float32", remat=True))
+    data = DataConfig(vocab_size=model.cfg.vocab_size, seq_len=32,
+                      global_batch=4)
+    seen = []
+    for i, dev in enumerate((lm_device, torch.device("cpu"))):
+        tr = Trainer(model, adamw(lr=1e-3), data, tmp_path / str(i),
+                     checkpoint_every=0, device=dev)
+        params = _to(model.init(torch.Generator(lm_device).manual_seed(0)),
+                     dev)
+        norms = []
+        p, o, losses = tr.run(1, params=params,
+                              opt_state=tr.optimizer.init(params),
+                              log_every=0, on_step=lambda s, m: norms.append(
+                                  float(m["grad_norm"])))
+        assert p["embed"].device.type == dev.type
+        assert all(bool(torch.isfinite(t).all()) for t in p["layers"]
+                   .values())
+        seen.append((float(losses[0]), norms[0]))
+        step, back = tr.ckpt.restore(like={"params": p, "opt": o})
+        assert step == 0 and back["params"]["embed"].device == \
+            p["embed"].device
+    (l1, n1), (l2, n2) = seen
+    assert l1 == pytest.approx(l2, rel=1e-4)
+    assert n1 == pytest.approx(n2, rel=1e-4)

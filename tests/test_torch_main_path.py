@@ -107,8 +107,9 @@ def test_gather_matches_edge_oracle(stores):
 
 def test_port_imports_no_jax_and_no_reference():
     """Every module of the port, the streaming, sharding, obs, serving,
-    control and autotune packages, the SPMD path and the LM serving path
-    among them, imports neither JAX nor the reference."""
+    control and autotune packages, the SPMD path, the LM serving path and
+    the training path among them, imports neither JAX, ml_dtypes nor the
+    reference."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -127,12 +128,16 @@ def test_port_imports_no_jax_and_no_reference():
         "'configs.kimi_k2_1t_a32b', 'models', 'models.common', "
         "'models.transformer', 'models.moe', 'models.moe_schedule', "
         "'models.api', 'serve', 'serve.engine', 'serve.kvcache', "
-        "'launch', 'launch.serve'):\n"
+        "'launch', 'launch.serve', 'models.mamba2', 'models.hymba', "
+        "'models.whisper', 'tree', 'data.pipeline', 'optim.schedule', "
+        "'optim.adamw', 'optim.adafactor', 'optim.grad_compress', "
+        "'checkpoint.manager', 'train.fault_tolerance', 'train.step', "
+        "'train.loop', 'launch.train'):\n"
         "    assert 'repro_torch.' + name in mods, name\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'ml_dtypes', 'repro'))\n"
         "print(len(mods))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
