@@ -168,6 +168,40 @@ Phases (any failed check exits non-zero before the last line):
    moments bit-equal (else within 2e-2); 25 steps without it lower the
    mean loss of the last 5 below the first 5's; the median step with
    and without deterministic algorithms.
+15. Custom scatter UDFs on the card (``phase_custom_udf``), on phase 3's
+   store: three apps that are not builtins, their scatter UDFs plain
+   torch callables with no ``scatter_op`` (widest path: max of
+   ``minimum(src, w)``; sum of ``src * w * 0.5 + 0.25``; or of
+   ``src & 0xFFFF`` on int32), each through ``api.compile(...).run()``,
+   which launches the kernel variant generated for its UDF (traced by
+   ``kernels/udf_codegen.py``, built in phase 1 beside the sweep, one
+   ``nvcc`` each). Launches counted, results against the plain path on
+   the card (max and or bit-equal, sum within rtol 1e-5 / atol 1e-7);
+   each launch of one gather on random properties and weights against
+   its plain version (bit-equal, or within the fp32 summation error of
+   the exact sum). Per variant: nvcc seconds, one iteration's launches'
+   device ms beside PageRank's copy variant (phase 4), the bound, the
+   plain version and the library call (the UDF in torch ops, then one
+   ``scatter_reduce``; none for or); the ``kernels`` line lists each
+   variant with its ``launches_by_path``. (The smoke graph has no
+   weights, so its edges carry 0; the random weights exercise ``w``.)
+16. The LM substrate's sharding (``phase_sharding``). 16a: qwen2-1.5B at
+   full width in bf16, one AdamW step on 4 x 512 tokens with params,
+   state and batch placed by ``sharding.specs`` on a one-rank NCCL mesh
+   (``make_host_mesh()``), against the unsharded step from the same
+   seeded init (loss and params within 2e-2 relative), both steps'
+   device ms. 16b: granite-MoE's ``moe_ffn`` at full width, f32, one
+   layer, 8 x 512 tokens, capacity 10 (no expert overflows, checked; the
+   reference's test takes 50 on 8 x 16 tokens, which at 8 x 512 would
+   not fit the card beside two ranks), in two spawned processes sharing
+   the card over gloo (NCCL takes one rank per GPU) on a ("data",
+   "model") = (1, 2) mesh: the expert-sharded branch (E_pad 48 / 2)
+   against the single-device ``moe_ffn`` at rtol 1e-4 / atol 1e-5 (its
+   times are not multi-card times). 16c: the dry run
+   (``launch.dryrun``) of qwen2 ``train_4k`` and granite ``decode_32k``
+   at the production pod mesh on a fake group of 256 ranks: each
+   record's status, rank 0's argument bytes, traced peak and collective
+   bytes.
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -2546,6 +2580,469 @@ def phase_train(device) -> dict:
             "restart": _train_restart(device)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: custom scatter UDFs on the card
+# ---------------------------------------------------------------------------
+
+def custom_apps() -> dict:
+    """The apps of phase 15, none a builtin: their scatter UDFs are
+    plain torch callables with no ``scatter_op``, so the card runs the
+    kernel variant generated for each."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gas
+
+    def hub_init(aux):
+        p = np.full(aux["num_v_pad"], -gas.INF, np.float32)
+        p[int(np.argmax(aux["outdeg"]))] = gas.INF
+        return p
+
+    def equal(a, b, it):
+        return bool(torch.equal(a, b))
+
+    return {
+        # widths from the vertex of most out-edges: max of min(src, w)
+        "widest": gas.GASApp(
+            "widest", "max", lambda s, w: torch.minimum(s, w),
+            lambda acc, p, aux, it: torch.maximum(p, acc), hub_init, equal,
+            needs_weights=True, max_iters=64),
+        # a sum-mode UDF with a product and two constants
+        "scaled_sum": gas.GASApp(
+            "scaled_sum", "sum", lambda s, w: s * w * 0.5 + 0.25,
+            lambda acc, p, aux, it: acc / (1.0 + acc),
+            lambda aux: np.full(aux["num_v_pad"], 0.5, np.float32),
+            lambda a, b, it: False, needs_weights=True, max_iters=8),
+        # the low 16 source bits of closeness's bitmask, or-mode on int32
+        "low_bits": gas.GASApp(
+            "low_bits", "or", lambda s, w: s & 0xFFFF,
+            lambda acc, p, aux, it: p | acc, gas.make_closeness().init,
+            equal, prop_dtype="int32", max_iters=32),
+    }
+
+
+def _udf_launch(vwin, p, geom, app):
+    from repro_torch.kernels import gas_kernel
+    from repro_torch.kernels.little_pipeline import _blocked
+    return gas_kernel.gas_tiles(vwin, *_blocked(p), scatter_op=None,
+                                mode=app.gather, t=geom.T,
+                                scatter_fn=app.scatter)
+
+
+def _udf_plain(vwin, p, geom, app, fn=None):
+    from repro_torch.kernels import ref
+    return ref.gas_ref(vwin, p["src_local"], p["dst_local"], p["weights"],
+                       p["valid"], p["window_id"], p["tile_id"],
+                       scatter_fn=fn or app.scatter, mode=app.gather,
+                       t=geom.T, n_out_tiles=p["n_out_tiles"])
+
+
+def _udf_held_to_plain(calls, geom, app) -> dict:
+    """Each launch of ``calls`` with ``app``'s generated variant against
+    its plain version on the same payload: bit-equal for min, max and
+    or; for sum, slot by slot within the fp32 in-order summation error
+    of the exact sum (``fp32_sum_share``), and its largest gap to the
+    plain fp32 sum."""
+    import torch
+    share = err = 0.0
+    try:
+        for vwin, p in calls:
+            k = _udf_launch(vwin, p, geom, app)
+            plain = _udf_plain(vwin, p, geom, app)
+            if app.gather == "sum":
+                share = max(share, fp32_sum_share(k, lambda f, v=vwin, q=p: (
+                    _udf_plain(v.double(), q, geom, app,
+                               lambda x, w: f(app.scatter(
+                                   x.float(), w).double())))))
+                err = max(err, float((k - plain).abs().max()))
+            else:
+                check(torch.equal(k, plain), "kernel != plain")
+    except CheckFailed as exc:
+        raise CheckFailed(f"custom UDF {app.name}: {exc}") from None
+    return {"fp32_sum_bound_used": share, "max_abs_err": err}
+
+
+def _udf_library_ms(calls, geom, app, v_pad: int, device,
+                    reps: int):
+    """The library yardstick: the UDF over the pre-gathered sources and
+    weights in torch ops, then one ``scatter_reduce`` into the padded
+    vertex vector (device ms). None for ``or``: torch has no bitwise-or
+    reduction."""
+    import torch
+    if app.gather == "or":
+        return None
+    src_parts, w_parts, idx_parts = [], [], []
+    for vwin, p in calls:
+        keep = p["valid"] != 0
+        flat_src = p["window_id"].to(torch.int64)[:, None] * geom.W \
+            + p["src_local"]
+        src_parts.append(vwin.reshape(-1)[flat_src[keep]])
+        w_parts.append(p["weights"][keep])
+        tile_global = p["tile_idx"].to(torch.int64)[
+            p["tile_id"].to(torch.int64)]
+        idx_parts.append((tile_global[:, None] * geom.T
+                          + p["dst_local"])[keep])
+    src, w, idx = torch.cat(src_parts), torch.cat(w_parts), \
+        torch.cat(idx_parts)
+    reduce = {"sum": "sum", "min": "amin", "max": "amax"}[app.gather]
+    out = torch.zeros(v_pad, device=device)
+    return cuda_ms(lambda: out.zero_().scatter_reduce_(
+        0, idx, app.scatter(src, w), reduce=reduce, include_self=True),
+        reps)
+
+
+def _udf_bound_ms(calls, udf) -> tuple:
+    """(bound ms, what bounds it) of one iteration's launches: the bytes
+    and operations ``obs.launch_traffic`` counts (the weight of every
+    real edge too when the UDF reads it)."""
+    from repro_torch.obs import launch_traffic
+    op = "add_weight" if udf.uses_weight else "copy"
+    nbytes = n_ops = 0
+    for _, p in calls:
+        b, o = launch_traffic(p, op)
+        nbytes, n_ops = nbytes + b, n_ops + o
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = n_ops / H100_FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def phase_custom_udf(main_res: dict, kernel: dict, build_s: dict, device,
+                     reps: int = REPS) -> list:
+    """Phase 15: each app of :func:`custom_apps` through
+    ``api.compile(...).run()`` on phase 3's store, its launches counted
+    (``gas_tiles.launches`` zeroed just before, read just after), held
+    to the plain path on the card (min/max/or bit-equal, sum at rtol
+    1e-5 / atol 1e-7); each launch of one gather on random properties
+    and weights held to the plain version (``_udf_held_to_plain``); the
+    time of one iteration's launches beside PageRank's copy variant
+    (phase 4), the bound, the plain version and the library call.
+    Returns one ``kernels`` entry per generated variant."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import gas_kernel
+
+    store, config = main_res["_store"], main_res["_config"]
+    geom = store.geom
+    gen = torch.Generator(device).manual_seed(SEED)
+    entries = []
+    for name, app in custom_apps().items():
+        udf = gas_kernel.scatter_udf(app.scatter, app.gather)
+        gas_kernel.gas_tiles.launches = 0
+        kern = api.compile(None, app, store=store, config=config,
+                           device=device)
+        got, meta = kern.run()
+        _sync(device)
+        launches = gas_kernel.gas_tiles.launches
+        payloads = [p for lane in kern.executor.lanes for p in lane]
+        check(launches == len(payloads) * meta["iterations"] > 0,
+              f"{name}: the generated variant launched {launches} times; "
+              f"expected one per payload per iteration")
+        plain = api.compile(None, app, store=store, config=config,
+                            device=device, path="ref")
+        want, meta_r = plain.run()
+        check(meta["iterations"] == meta_r["iterations"],
+              f"{name}: {meta['iterations']} iterations on the kernel path, "
+              f"{meta_r['iterations']} on the plain path")
+        if app.gather == "sum":
+            check(np.allclose(got, want, rtol=1e-5, atol=1e-7),
+                  f"{name}: kernel path vs plain path: max rel err "
+                  f"{_max_rel(got, want)}")
+        else:
+            check(np.array_equal(got, want),
+                  f"{name}: kernel path != plain path")
+        # one gather's launches on random properties and weights
+        vp = kern.executor.init_props()
+        rnd = (torch.randint(-2 ** 31, 2 ** 31 - 1, vp.shape, device=device,
+                             dtype=torch.int32, generator=gen)
+               if app.gather == "or" else
+               torch.rand(vp.shape, device=device, generator=gen) * 4 - 1)
+        rcalls = [(v, dict(p, weights=torch.rand(
+            p["weights"].shape, device=device, generator=gen)))
+            for v, p in _calls(payloads, rnd, geom)]
+        held = _udf_held_to_plain(rcalls, geom, app)
+        calls = _calls(payloads, vp, geom)
+        bound_ms, bound_by, nbytes = _udf_bound_ms(calls, udf)
+        entries.append({
+            "name": f"gas_tile_kernel[udf:{name}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gas_kernel.cu",
+            "replaces": "src/repro/kernels/gas_kernel.py:67",
+            "launches": launches,
+            "max_abs_err": held["max_abs_err"],
+            "fp32_sum_bound_used": held["fp32_sum_bound_used"],
+            "ms": cuda_ms(lambda: [_udf_launch(v, p, geom, app)
+                                   for v, p in calls], reps),
+            "plain_ms": cuda_ms(lambda: [_udf_plain(v, p, geom, app)
+                                         for v, p in calls], reps),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": _udf_library_ms(calls, geom, app, store.V_pad,
+                                          device, reps),
+            "bound_bytes": nbytes,
+            "pagerank_copy_ms": kernel["kernel_ms"],
+            "build_s": build_s[name],
+            "mode": app.gather,
+            "expr": udf.expr,
+            "iterations": meta["iterations"],
+            "launches_by_path": {"custom_udf": launches},
+            "shapes": f"{name} ({app.gather}), one iteration's launches "
+                      f"({len(payloads)} payloads)",
+        })
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the LM substrate's sharding on the card
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN = (4, 512)            # 16a: qwen2-1.5B bf16, one step, B x S
+# 16b: granite-MoE f32, B x S, capacity factor. The reference's test
+# uses capacity 50 on 8 x 16 tokens so that nothing overflows; at 8 x 512
+# full-width tokens that is a 23 GB dispatch buffer and ~70 GB for the
+# single-device run, more than one card holds beside two ranks, so 10,
+# with every expert's load checked to stay within its capacity
+SHARD_MOE = (8, 512, 10.0)
+SHARD_TOL = 2e-2                  # 16a: loss and params, relative
+DRYRUN_CELLS = [(LM_DENSE, "train_4k"), (LM_MOE, "decode_32k")]
+
+
+def _rel_err(a, b) -> float:
+    import torch
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _shard_train(device) -> dict:
+    """16a: one AdamW step of qwen2-1.5B at full width in bf16 on 4 x 512
+    tokens, unsharded and with params, state and batch placed by
+    ``specs`` on a one-rank NCCL mesh (``make_host_mesh()``), from the
+    same seeded init: loss and every param within SHARD_TOL relative;
+    both steps' device ms (CUDA events, a warm-up and two steps each)
+    and the peak memory each first step allocates over its
+    arguments."""
+    import datetime
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.sharding import specs
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    b, s = SHARD_TRAIN
+    cfg = get_config(LM_DENSE)
+    model = build_model(cfg)
+    opt = adamw()
+    step = make_train_step(model, opt)
+    params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+    state = opt.init(params)
+    tok = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (b, s), dtype=np.int64).astype(np.int32)).to(
+            device)
+    batch = {"tokens": tok, "labels": tok}
+    out = {"shape": [b, s]}
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    p1, _, m1 = step(params, state, batch)
+    out["unsharded_peak_over_args_bytes"] = \
+        torch.cuda.max_memory_allocated(device) - base
+    want = tree_map(lambda t: t.cpu(), p1)
+    loss1 = float(m1["loss"])
+    del p1, m1
+    out["unsharded_step_ms"] = cuda_ms(lambda: step(params, state, batch), 2)
+    _free()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "rendezvous"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=600))
+        try:
+            mesh = make_host_mesh()
+            pd = specs.distribute_tree(params, specs.tree_placements(
+                params, mesh))
+            sd = specs.distribute_tree(state, specs.tree_placements(
+                state, mesh))
+            bd = specs.distribute_tree(batch, specs.batch_placements(
+                batch, mesh))
+            del params, state             # the DTensors hold them now
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            p2, _, m2 = step(pd, sd, bd)
+            out["sharded_peak_over_args_bytes"] = \
+                torch.cuda.max_memory_allocated(device) - base
+            out["loss"] = [loss1, float(m2["loss"])]
+            check(abs(out["loss"][1] - loss1) <= SHARD_TOL * abs(loss1),
+                  f"16a: sharded loss {out['loss'][1]} vs {loss1}")
+            errs = [_rel_err(g.full_tensor().cpu(), w)
+                    for g, w in zip(leaves(p2), leaves(want))]
+            out["params_max_rel_err"] = max(errs)
+            check(max(errs) <= SHARD_TOL,
+                  f"16a: sharded params off by {max(errs)} relative")
+            out["placements"] = str(pd["layers"]["wq"].placements)
+            del p2, m2
+            out["sharded_step_ms"] = cuda_ms(lambda: step(pd, sd, bd), 2)
+            del pd, sd
+        finally:
+            dist.destroy_process_group()
+    _free()
+    return out
+
+
+def _moe_rank(rank: int, world: int, tmp: str) -> None:
+    """16b, one of two processes on the one card: granite-MoE's
+    ``moe_ffn`` (one layer, f32) over a ("data", "model") = (1, 2) gloo
+    mesh (the expert-sharded branch, E_pad 48 / 2); rank 0 also runs the
+    single-device ``moe_ffn`` first. Writes rank 0's findings to
+    ``tmp/moe.json``. Rank 0 also checks that no expert overflows its
+    capacity under either split (``round_to`` 1 and 2), so that the two
+    dispatches keep every assignment and must agree."""
+    import dataclasses
+    import datetime
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, moe
+    from repro_torch.models.moe_schedule import biglittle_split
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    b, s, cf = SHARD_MOE
+    cfg = dataclasses.replace(get_config(LM_MOE), dtype="float32")
+    with torch.device(device):
+        lp = moe.init_layer_params(cfg, torch.Generator(device).manual_seed(
+            LM_SEED))
+    lp = {k: lp[k].float() for k in ("router", "we_gate", "we_up",
+                                     "we_down")}
+    x = torch.randn((b, s, cfg.d_model), device=device,
+                    generator=torch.Generator(device).manual_seed(1)) * 0.5
+    res = {"E_pad": cfg.num_experts_padded, "d_model": cfg.d_model,
+           "moe_d_ff": cfg.moe_d_ff, "shape": [b, s], "capacity": cf}
+    if rank == 0:
+        E, K, T = cfg.num_experts_padded, cfg.top_k, b * s
+        _, gi, _ = moe._route(x.reshape(T, -1), lp["router"], K,
+                              cfg.num_experts)
+        load = torch.bincount(gi.reshape(-1), minlength=E).cpu()
+        res["max_expert_load"] = int(load.max())
+        res["capacities"] = {}
+        for r in (1, world):
+            n_hot, c_hot, c_cold = biglittle_split(E, K, T, cf, round_to=r)
+            res["capacities"][r] = [n_hot, c_hot, c_cold]
+            res.setdefault("drop_free", True)
+            res["drop_free"] &= bool((load[:n_hot] <= c_hot).all()
+                                     and (load[n_hot:] <= c_cold).all())
+        local, _ = moe.moe_ffn(cfg, lp, x, capacity_factor=cf)
+        res["single_ms"] = cuda_ms(
+            lambda: moe.moe_ffn(cfg, lp, x, capacity_factor=cf), 2)
+        local = local.cpu()
+        torch.cuda.empty_cache()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "rendezvous"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = init_device_mesh("cpu", (1, world),
+                                mesh_dim_names=("data", "model"))
+        with common.use_mesh(mesh):
+            out, _ = moe.moe_ffn(cfg, lp, x, capacity_factor=cf)
+            torch.cuda.synchronize()
+            dist.barrier()
+            start = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            moe.moe_ffn(cfg, lp, x, capacity_factor=cf)
+            ev[1].record()
+            torch.cuda.synchronize()
+            res["sharded_ms_events"] = ev[0].elapsed_time(ev[1])
+            res["sharded_ms_host"] = (time.perf_counter() - start) * 1e3
+        res["e_per_rank"] = cfg.num_experts_padded // mesh.size(1)
+        if rank == 0:
+            got = out.cpu()
+            res["max_abs_err"] = float((got - local).abs().max())
+            res["allclose"] = bool(torch.allclose(got, local, rtol=1e-4,
+                                                  atol=1e-5))
+            res["finite"] = bool(torch.isfinite(got).all())
+            with open(os.path.join(tmp, "moe.json"), "w") as f:
+                json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_moe() -> dict:
+    """16b: :func:`_moe_rank` in two spawned processes sharing the card
+    (NCCL takes one rank per GPU, so the group is gloo): the
+    expert-sharded output against the single-device one at rtol 1e-4 /
+    atol 1e-5, the reference's tolerance. Two ranks on one card: its
+    times are not multi-card times."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    _free()
+    reserved = torch.cuda.memory_reserved()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_moe_rank, args=(2, tmp), nprocs=2)
+        with open(os.path.join(tmp, "moe.json")) as f:
+            res = json.load(f)
+    check(res["drop_free"], f"16b: an expert overflows its capacity "
+          f"({res['max_expert_load']} assignments; {res['capacities']})")
+    check(res["finite"] and res["allclose"],
+          f"16b: expert-sharded moe_ffn vs single device: max abs err "
+          f"{res['max_abs_err']}")
+    res["parent_reserved_bytes"] = reserved
+    return res
+
+
+def _shard_dryrun() -> dict:
+    """16c: one dry-run cell per family at the pod mesh (256 fake ranks):
+    each record's status, rank 0's argument bytes, traced peak and
+    collective bytes."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    out = {}
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, False, force=True)
+            check(rec["status"] == "ok",
+                  f"16c: dry run {arch} {shape}: {rec.get('error')}")
+            out[f"{arch}.{shape}"] = {
+                "status": rec["status"], "mesh": rec["mesh"],
+                "trace_s": rec["trace_s"], "memory": {
+                    k: rec["memory"][k] for k in (
+                        "argument_bytes", "output_bytes", "alias_bytes",
+                        "peak_traced_bytes", "fits_80g_hbm")},
+                "collectives": rec["collectives"],
+                "traced_flops_per_rank": rec["traced_flops_per_rank"],
+                "roofline_dominant": rec["roofline"]["dominant"],
+                "roofline_bound_s": rec["roofline"]["roofline_bound_s"]}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def phase_sharding(device) -> dict:
+    """Phase 16: 16a the sharded train step on a one-rank NCCL mesh, 16b
+    the expert-sharded MoE over two processes on the card, 16c the dry
+    run at the production pod mesh."""
+    import torch
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    out = {"train": _shard_train(device)}
+    out["t_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["moe"] = _shard_moe()
+    out["t_moe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun"] = _shard_dryrun()
+    out["t_dryrun_s"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2579,14 +3076,30 @@ def main(argv=None) -> int:
         log(f"phase 1: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}")
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(CHUNK_SWEEP)) as pool:
-            libs = list(pool.map(lambda c: _build.build(
-                "gas_kernel", GAS_CHUNK_BLOCKS=c), CHUNK_SWEEP))
+        udf_apps = custom_apps()
+
+        def timed_build(prelude="", chunk=gas_kernel.CHUNK_BLOCKS):
+            t = time.perf_counter()
+            lib = _build.build("gas_kernel", prelude, GAS_CHUNK_BLOCKS=chunk)
+            return lib, time.perf_counter() - t
+        # every library at once: the chunk sweep's named-op builds and
+        # phase 15's generated variants, one nvcc each
+        with ThreadPoolExecutor(len(CHUNK_SWEEP) + len(udf_apps)) as pool:
+            sweep = [pool.submit(timed_build, "", c) for c in CHUNK_SWEEP]
+            udf_builds = {n: pool.submit(timed_build, gas_kernel.udf_prelude(
+                a.scatter, a.gather)) for n, a in udf_apps.items()}
+            libs = [f.result()[0] for f in sweep]
+            result["udf_build_s"] = {n: f.result()[1]
+                                     for n, f in udf_builds.items()}
         for c in CHUNK_SWEEP:
             gas_kernel.build(c)
+        for a in udf_apps.values():
+            gas_kernel.build(scatter_fn=a.scatter, mode=a.gather)
         result["build_s"] = time.perf_counter() - t0
         log(f"phase 1: built gas_kernel for chunks of {CHUNK_SWEEP} blocks "
-            f"in {result['build_s']:.1f} s")
+            f"and the variants generated for {len(udf_apps)} custom scatter "
+            f"UDFs in {result['build_s']:.1f} s, all at once (nvcc s per "
+            f"variant: {json.dumps(result['udf_build_s'])})")
         main_lib = libs[CHUNK_SWEEP.index(gas_kernel.CHUNK_BLOCKS)].name
         ptxas = sorted({line.split(":", 1)[-1].strip() for line in
                         _build.build_log.get(main_lib, "").splitlines()
@@ -2802,6 +3315,56 @@ def main(argv=None) -> int:
             f"not ({card})")
         log(f"phase 14: training ok ({time.perf_counter() - t0:.1f} s): "
             + json.dumps(tr))
+        t0 = time.perf_counter()
+        udf_kernels = phase_custom_udf(main_res, kernel,
+                                       result["udf_build_s"], device)
+        result["custom_udf"] = udf_kernels
+        for k in udf_kernels:
+            log(f"phase 15: {k['shapes']}: generated variant "
+                f"`{k['expr']}` built in {k['build_s']:.1f} s, "
+                f"{k['launches']} launches over {k['iterations']} "
+                f"iterations, == plain path; one iteration's launches "
+                f"{k['ms']:.4f} ms (PageRank's copy variant "
+                f"{k['pagerank_copy_ms']:.4f} ms), bound {k['bound_ms']:.4f} "
+                f"ms ({k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
+                f"library {k['library_ms']} ms; random props and weights: "
+                f"max abs err {k['max_abs_err']:.3g}, fp32 sum bound used "
+                f"{k['fp32_sum_bound_used']:.3g} ({card})")
+        log(f"phase 15: custom scatter UDFs ok "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        t0 = time.perf_counter()
+        sh = result["sharding"] = phase_sharding(device)
+        a, m = sh["train"], sh["moe"]
+        log(f"phase 16a: {LM_DENSE} full width bf16, one AdamW step on "
+            f"{a['shape'][0]} x {a['shape'][1]}: placed by specs on a "
+            f"one-rank NCCL mesh ({a['placements']}) == unsharded (loss "
+            f"{a['loss'][1]:.6f} vs {a['loss'][0]:.6f}, params max rel err "
+            f"{a['params_max_rel_err']:.3g}); step {a['sharded_step_ms']:.1f}"
+            f" ms sharded, {a['unsharded_step_ms']:.1f} ms unsharded "
+            f"(CUDA events); peak over the arguments "
+            f"{a['sharded_peak_over_args_bytes']} B sharded, "
+            f"{a['unsharded_peak_over_args_bytes']} B unsharded ({card})")
+        log(f"phase 16b: {LM_MOE} moe_ffn f32, {m['shape'][0]} x "
+            f"{m['shape'][1]} tokens, capacity {m['capacity']}: "
+            f"expert-sharded over 2 gloo ranks on one card ({m['E_pad']} "
+            f"experts, {m['e_per_rank']} a rank) == single device (max abs "
+            f"err {m['max_abs_err']:.3g}); rank 0 "
+            f"{m['sharded_ms_events']:.1f} ms (two processes sharing one "
+            f"card: not a multi-card time), single device "
+            f"{m['single_ms']:.1f} ms ({card})")
+        for cell, r in sh["dryrun"].items():
+            log(f"phase 16c: dry run {cell} at {r['mesh']} (256 fake ranks, "
+                f"meta): {r['status']}, rank 0 argument "
+                f"{r['memory']['argument_bytes']} B, traced peak "
+                f"{r['memory']['peak_traced_bytes']} B (fits 80 GB: "
+                f"{r['memory']['fits_80g_hbm']}), collectives "
+                f"{r['collectives']['total']:.6g} B "
+                f"({json.dumps(r['collectives'])}), traced "
+                f"{r['traced_flops_per_rank']:.6g} FLOP a rank, traced in "
+                f"{r['trace_s']} s")
+        log(f"phase 16: sharding ok ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(sh))
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1
@@ -2813,7 +3376,7 @@ def main(argv=None) -> int:
         "control": result["control"]["launches"],
         "autotune": result["autotune"]["launches"],
         "distributed": result["distributed"]["launches"]}
-    result["kernels"] = [kernel]
+    result["kernels"] = [kernel] + udf_kernels
     result["t_total_s"] = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

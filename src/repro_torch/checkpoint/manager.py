@@ -17,7 +17,14 @@ Fault-tolerance properties:
 
 Leaves are saved as raw bytes and re-viewed on restore, so bf16 and f8
 leaves cross numpy bit for bit without a numpy bfloat16 type. Restore
-puts each leaf on the device of the matching leaf of ``like``. Whether
+puts each leaf on the device of the matching leaf of ``like``, or, with
+``placements``, re-shards it onto a mesh (elastic restore onto another
+mesh layout, the reference's ``shardings=``).
+
+Sharded trees: a DTensor leaf is gathered whole (every rank takes part)
+and rank 0 of the default process group writes; such a save is always
+synchronous and ends at a barrier, so every rank can restore from the
+directory as soon as it returns. Whether
 a checkpoint written by the reference package restores here is not
 promised: its dtype names and leaf order may agree, but nothing tests
 it.
@@ -34,13 +41,25 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..tree import flatten, unflatten
+from ..tree import flatten, flatten_up_to, unflatten
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
-    """A host copy of a leaf: a snapshot even where the leaf is on the
-    CPU already."""
+    """A host copy of a leaf (a DTensor gathered whole first): a
+    snapshot even where the leaf is on the CPU already."""
+    if _is_dtensor(t):
+        t = t.full_tensor()
     return torch.as_tensor(t).detach().to("cpu", copy=True)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _raw(t: torch.Tensor) -> np.ndarray:
@@ -68,8 +87,12 @@ class CheckpointManager:
         step."""
         self.wait()  # one in-flight save at a time
         leaves, treedef = flatten(tree)
+        sharded = any(_is_dtensor(l) for l in leaves)
         # device->host copy happens here (synchronous, consistent snapshot)
         host_leaves = [_host(l) for l in leaves]
+        if sharded and _rank() != 0:        # rank 0 writes the gathered tree
+            torch.distributed.barrier()
+            return
         meta = {
             "step": step,
             "treedef": str(treedef),
@@ -97,8 +120,10 @@ class CheckpointManager:
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
 
-        if blocking:
+        if blocking or sharded:
             write()
+            if sharded:
+                torch.distributed.barrier()
             self._raise_if_failed()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
@@ -133,9 +158,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, like: Any = None):
+    def restore(self, step: Optional[int] = None, like: Any = None,
+                placements: Any = None):
         """Load a checkpoint (the latest by default) into the structure
-        of ``like``, each leaf on the device of ``like``'s leaf. Returns
+        of ``like``, each leaf on the device of ``like``'s leaf.
+        ``placements`` (a tree of ``sharding.specs.Layout`` matching
+        ``like``, or one Layout for every leaf) re-shards each leaf onto
+        its layout's mesh instead, whatever mesh saved it. Returns
         (step, tree), or (None, None) when there is none."""
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -149,11 +178,22 @@ class CheckpointManager:
         if len(like_leaves) != len(meta["shapes"]):
             raise ValueError(f"checkpoint {d} holds {len(meta['shapes'])} "
                              f"leaves, `like` has {len(like_leaves)}")
+        from ..sharding.specs import Layout, distribute
+        if placements is None:
+            layouts = [None] * len(like_leaves)
+        elif isinstance(placements, Layout):
+            layouts = [placements] * len(like_leaves)
+        else:
+            layouts = flatten_up_to(treedef, placements)
         leaves = []
         with np.load(d / "shard_0.npz") as data:
-            for i, ref in enumerate(like_leaves):
+            for i, (ref, lay) in enumerate(zip(like_leaves, layouts)):
                 raw = torch.from_numpy(data[f"leaf_{i}"].copy())
                 t = raw.view(_dtype(meta["dtypes"][i])) \
                     .reshape(meta["shapes"][i])
-                leaves.append(t.to(torch.as_tensor(ref).device))
+                if lay is None:
+                    leaves.append(t.to(torch.as_tensor(ref).device))
+                else:                      # each rank keeps its own slice
+                    leaves.append(distribute(t.to(lay.mesh.device_type),
+                                             lay))
         return step, unflatten(treedef, leaves)

@@ -2,12 +2,15 @@
 
 Users supply three UDFs, like ReGraph's accScatter/accGather/accApply:
 gather is one of the associative modes the kernel implements; apply is a
-vertex-wise function on torch tensors. A Python callable cannot enter a
-CUDA kernel, so the scatter UDF comes twice: as the plain callable
-``scatter`` (the plain path and the CPU run it) and as ``scatter_op``,
-the name of the same function among the kernel's built-in ops
-(:data:`SCATTER_OPS`). On the card an app whose ``scatter_op`` is not one
-of them raises ``NotImplementedError``.
+vertex-wise function on torch tensors. The scatter UDF is the plain
+callable ``scatter`` (the plain path and the CPU run it). A builtin app
+also names it among the kernel's built-in ops (``scatter_op``, one of
+:data:`SCATTER_OPS`). On the card an app whose ``scatter_op`` is None
+launches a kernel variant generated from ``scatter`` itself: it is
+traced with ``torch.fx`` into C++ (``kernels/udf_codegen.py``) and
+built once per UDF. A UDF outside the generator's elementwise ops
+raises ``NotImplementedError`` there; nothing falls back to the plain
+path.
 
 Built-in applications mirror the paper's benchmarks (PR, BFS, CC) plus
 SSSP and WCC. CC is Closeness Centrality via 32-source bit-parallel BFS
@@ -45,7 +48,8 @@ class GASApp:
     prop is a scalar per-vertex property (f32, or i32 for 'or' mode).
     scatter(src_prop, edge_weight) -> update value  [plain callable]
     scatter_op: the kernel's name for ``scatter`` (see SCATTER_OPS), or
-                None when the kernel has no such op
+                None: the kernel then runs a variant generated from
+                ``scatter``
     gather mode in {'sum','min','max','or'}         [the router]
     apply(accum, prop, aux, iteration) -> new prop  [vertex-wise, torch]
     init(graph_aux) -> initial prop                  (numpy)

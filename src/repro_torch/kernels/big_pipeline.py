@@ -15,10 +15,11 @@ from .gas_kernel import gas_tiles
 from .little_pipeline import _blocked
 
 
-def big_pipeline(vprops_padded, payload: dict, *, scatter_op, mode):
+def big_pipeline(vprops_padded, payload: dict, *, scatter_op, mode,
+                 scatter_fn=None):
     """Run one Big payload (a plan entry or a packed lane) over its
     compacted unique-source windows. Returns ``(n_out_tiles, T)``."""
     geom = payload["geom"]
     vwin = vprops_padded[payload["unique_src"]].view(-1, geom.W)
     return gas_tiles(vwin, *_blocked(payload), scatter_op=scatter_op,
-                     mode=mode, t=geom.T)
+                     mode=mode, t=geom.T, scatter_fn=scatter_fn)

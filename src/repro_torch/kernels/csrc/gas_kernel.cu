@@ -23,8 +23,16 @@
 // No atomics anywhere: the order of every fp32 combine depends only on
 // the tile's blocks and their tile-relative positions, so results are
 // bit-stable and the fused and per-entry launch forms agree bit for bit.
+//
+// Scatter ops: the named ops copy and add_weight, and kCustom, a user's
+// scatter UDF that kernels/udf_codegen.py traced into the expression
+// GAS_SCATTER_EXPR(p, w). A build that defines it (with GAS_SCATTER_MODE,
+// the app's gather mode, and GAS_SCATTER_USES_W) holds that one variant
+// only; the named ops are the library built without it.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gas_udf.cuh"
 
 #ifndef GAS_CHUNK_BLOCKS
 #define GAS_CHUNK_BLOCKS 16
@@ -45,7 +53,16 @@ constexpr size_t kMaxSmem = 232448;       // a CTA's dynamic shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kSum = 0, kMin = 1, kMax = 2, kOr = 3 };
-enum ScatterOp { kCopy = 0, kAddWeight = 1 };
+enum ScatterOp { kCopy = 0, kAddWeight = 1, kCustom = 2 };
+
+#ifndef GAS_SCATTER_USES_W
+#define GAS_SCATTER_USES_W 1
+#endif
+
+// whether a scatter op reads the edge weight
+template <int OP>
+constexpr bool kReadsWeight =
+    OP == kAddWeight || (OP == kCustom && GAS_SCATTER_USES_W);
 
 template <int MODE, typename V>
 struct Combine;
@@ -84,6 +101,10 @@ template <int OP, typename V>
 __device__ __forceinline__ V scatter_op(V p, float w) {
   if constexpr (OP == kAddWeight) {
     return p + w;
+#ifdef GAS_SCATTER_EXPR
+  } else if constexpr (OP == kCustom) {
+    return static_cast<V>(GAS_SCATTER_EXPR(p, w));
+#endif
   } else {
     return p;
   }
@@ -199,7 +220,7 @@ gas_chunk_kernel(const V* __restrict__ vwin,
         dst[k] = dst_local[e0 + slot];
         val[k] = scatter_op<OP, V>(
             win[src_local[e0 + slot]],
-            OP == kAddWeight ? weights[e0 + slot] : 0.0f);
+            kReadsWeight<OP> ? weights[e0 + slot] : 0.0f);
       }
     }
 #pragma unroll
@@ -305,6 +326,16 @@ int gas_launch(int mode, int scatter, const void* vwin,
                      tile_block_start, tile_chunk_start};
 #define GAS_ARGS a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], out, \
                  scratch, n_out_tiles, n_chunks, e_blk, w, t, s
+#ifdef GAS_SCATTER_EXPR
+  if (scatter != kCustom || mode != GAS_SCATTER_MODE) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#if GAS_SCATTER_MODE == 3
+  return launch<kOr, kCustom, int>(GAS_ARGS);
+#else
+  return launch<GAS_SCATTER_MODE, kCustom, float>(GAS_ARGS);
+#endif
+#else
   switch (mode * 2 + scatter) {
     case kSum * 2 + kCopy: return launch<kSum, kCopy, float>(GAS_ARGS);
     case kSum * 2 + kAddWeight:
@@ -318,6 +349,7 @@ int gas_launch(int mode, int scatter, const void* vwin,
     case kOr * 2 + kCopy: return launch<kOr, kCopy, int>(GAS_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 #undef GAS_ARGS
 }
 

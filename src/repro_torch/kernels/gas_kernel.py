@@ -8,8 +8,10 @@ for ``sm_90a``, built at first use by :mod:`._build` and bound with
 
 What it computes: for every E_BLK-edge block ``b`` and edge ``e``, gather
 ``vwin[window_id[b], src_local[b, e]]``, apply the scatter op with the
-edge weight, and combine into slot ``dst_local[b, e]`` of the block's
-output tile in mode sum, min, max (float32) or or (int32). Tile ``k``
+edge weight (a named op, or the app's own scatter UDF traced into C++
+by :mod:`.udf_codegen`, one library per UDF), and combine into slot
+``dst_local[b, e]`` of the block's output tile in mode sum, min, max
+(float32) or or (int32). Tile ``k``
 owns blocks ``tile_block_start[k]:tile_block_start[k + 1]``. Pads
 (``valid == 0``) contribute nothing. The output is ``(n_out_tiles, T)``.
 
@@ -57,15 +59,17 @@ entries are tile-snapped) agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, udf_codegen
 
 MODES = {"sum": 0, "min": 1, "max": 2, "or": 3}
 KERNEL_SCATTER_OPS = {"copy": 0, "add_weight": 1}
+SCATTER_CUSTOM = 2        # the kernel's code for a generated UDF variant
 # blocks per CTA chunk; chosen on the card from {16, 32, 64} (PERF.md)
 CHUNK_BLOCKS = 16
 MAX_E_BLK = 1024          # edge slots of a block the kernel takes
@@ -77,8 +81,25 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
     ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def _library(chunk_blocks: int = CHUNK_BLOCKS):
-    lib = _build.load("gas_kernel", GAS_CHUNK_BLOCKS=chunk_blocks)
+def scatter_udf(scatter_fn, mode: str) -> udf_codegen.ScatterUdf:
+    """``scatter_fn`` traced for ``mode``'s property type (cached per
+    function); raises ``NotImplementedError`` for a UDF the code
+    generator does not take."""
+    return udf_codegen.compile_scatter(
+        scatter_fn, "int32" if mode == "or" else "float32")
+
+
+def udf_prelude(scatter_fn, mode: str) -> str:
+    """The build prelude of ``scatter_fn``'s variant in ``mode``: the
+    macros ``csrc/gas_kernel.cu`` reads for scatter op ``kCustom``."""
+    udf = scatter_udf(scatter_fn, mode)
+    return (f"#define GAS_SCATTER_EXPR(p, w) ({udf.expr})\n"
+            f"#define GAS_SCATTER_MODE {MODES[mode]}\n"
+            f"#define GAS_SCATTER_USES_W {int(udf.uses_weight)}\n")
+
+
+def _library(chunk_blocks: int = CHUNK_BLOCKS, prelude: str = ""):
+    lib = _build.load("gas_kernel", prelude, GAS_CHUNK_BLOCKS=chunk_blocks)
     if lib.gas_launch.argtypes is None:
         lib.gas_chunk_blocks.argtypes = []
         lib.gas_chunk_blocks.restype = ctypes.c_int
@@ -91,10 +112,44 @@ def _library(chunk_blocks: int = CHUNK_BLOCKS):
     return lib
 
 
-def build(chunk_blocks: int = CHUNK_BLOCKS) -> None:
+_named_libs: dict = {}                   # chunk_blocks -> library
+# scatter_fn -> {(mode, chunk_blocks): library}, while scatter_fn lives
+_udf_libs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _cached_library(scatter_fn, mode: str, chunk_blocks: int):
+    """The library of a launch if an earlier one loaded it, else None:
+    the named ops' (``scatter_fn`` None) or ``scatter_fn``'s variant in
+    ``mode``; one dict lookup per launch."""
+    if scatter_fn is None:
+        return _named_libs.get(chunk_blocks)
+    try:
+        return _udf_libs.get(scatter_fn, {}).get((mode, chunk_blocks))
+    except TypeError:                 # not weak-referenceable: no cache
+        return None
+
+
+def _load_library(scatter_fn, mode: str, chunk_blocks: int):
+    """Build or load the library :func:`_cached_library` lacks, and
+    cache it."""
+    if scatter_fn is None:
+        lib = _named_libs[chunk_blocks] = _library(chunk_blocks)
+        return lib
+    lib = _library(chunk_blocks, udf_prelude(scatter_fn, mode))
+    try:
+        _udf_libs.setdefault(scatter_fn, {})[(mode, chunk_blocks)] = lib
+    except TypeError:
+        pass
+    return lib
+
+
+def build(chunk_blocks: int = CHUNK_BLOCKS, scatter_fn=None,
+          mode: Optional[str] = None) -> None:
     """Build and load the kernel library now (it is built at first
-    launch otherwise)."""
-    _library(chunk_blocks)
+    launch otherwise): the named ops' library, or with ``scatter_fn``
+    the variant generated for that UDF in ``mode``."""
+    _library(chunk_blocks,
+             "" if scatter_fn is None else udf_prelude(scatter_fn, mode))
 
 
 def tile_chunk_start(tile_block_start: np.ndarray,
@@ -128,13 +183,18 @@ def _check(name, x, dtype, shape, device):
 def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
               tile_block_start, tile_chunk_start, *,
               scatter_op: Optional[str], mode: str, t: int,
-              chunk_blocks: int = CHUNK_BLOCKS) -> torch.Tensor:
+              chunk_blocks: int = CHUNK_BLOCKS,
+              scatter_fn=None) -> torch.Tensor:
     """Run the GAS kernel over one payload (a single plan entry or a
     packed lane of tile-disjoint segments: the same launch). Takes only
     the arrays the kernel reads; output tile ``k`` combines blocks
     ``tile_block_start[k]:tile_block_start[k + 1]``, cut into the
     chunks ``tile_chunk_start`` counts with ``chunk_blocks`` (the sweep
     that chose :data:`CHUNK_BLOCKS` is the only caller of another).
+    ``scatter_op`` names a built-in op; ``None`` launches the variant
+    generated for ``scatter_fn`` (traced once per function, its library
+    built at first use), and a UDF outside the code generator's ops
+    raises ``NotImplementedError``: there is no fallback.
 
     Tensors must lie on one CUDA device: it launches the kernel or
     raises, and raises on CPU tensors (the plain version,
@@ -145,12 +205,22 @@ def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
     """
     if mode not in MODES:
         raise ValueError(f"unknown gather mode {mode!r}")
-    if scatter_op not in KERNEL_SCATTER_OPS or (
+    if scatter_op is None:
+        if scatter_fn is None:
+            raise ValueError("gas kernel: scatter_op=None needs the "
+                             "scatter_fn to generate a variant from")
+        op_code = SCATTER_CUSTOM
+    elif scatter_op not in KERNEL_SCATTER_OPS or (
             mode == "or" and scatter_op != "copy"):
         raise NotImplementedError(
             f"the CUDA GAS kernel has no scatter op {scatter_op!r} for mode "
-            f"{mode!r}; it implements {sorted(KERNEL_SCATTER_OPS)} "
-            "('copy' only for 'or')")
+            f"{mode!r}; it names {sorted(KERNEL_SCATTER_OPS)} ('copy' only "
+            "for 'or'), and scatter_op=None generates one from scatter_fn")
+    else:
+        scatter_fn, op_code = None, KERNEL_SCATTER_OPS[scatter_op]
+    lib = _cached_library(scatter_fn, mode, chunk_blocks)
+    if lib is None and scatter_fn is not None:
+        scatter_udf(scatter_fn, mode)     # an untraceable UDF raises here
     if not vwin.is_cuda:
         raise ValueError(
             f"gas kernel: tensors must lie on a CUDA device, got "
@@ -180,11 +250,11 @@ def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
         return out
     n_chunks = max_chunks(n_blocks, n_out_tiles, chunk_blocks)
     scratch = torch.empty((n_chunks, t), dtype=vdt, device=dev)
-    lib = _library(chunk_blocks)
+    lib = lib or _load_library(scatter_fn, mode, chunk_blocks)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gas_launch(
-            MODES[mode], KERNEL_SCATTER_OPS[scatter_op], vwin.data_ptr(),
+            MODES[mode], op_code, vwin.data_ptr(),
             src_local.data_ptr(), dst_local.data_ptr(), weights.data_ptr(),
             valid.data_ptr(), window_id.data_ptr(),
             tile_block_start.data_ptr(), tile_chunk_start.data_ptr(),
@@ -192,7 +262,8 @@ def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
             e_blk, w, t, stream)
     if err != 0:
         raise RuntimeError(f"gas kernel launch failed: CUDA error {err} "
-                           f"(mode={mode}, E_BLK={e_blk}, W={w}, T={t}, "
+                           f"(mode={mode}, op={scatter_op or 'custom'}, "
+                           f"E_BLK={e_blk}, W={w}, T={t}, "
                            f"tiles={n_out_tiles}, chunks<={n_chunks})")
     gas_tiles.launches += 1
     return out

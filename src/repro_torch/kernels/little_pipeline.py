@@ -11,13 +11,15 @@ from __future__ import annotations
 from .gas_kernel import gas_tiles
 
 
-def little_pipeline(vprops_padded, payload: dict, *, scatter_op, mode):
+def little_pipeline(vprops_padded, payload: dict, *, scatter_op, mode,
+                    scatter_fn=None):
     """Run one Little payload (a plan entry or a packed lane) over the
     raw property windows. ``vprops_padded``: ``(V_pad,)``, V_pad % W == 0.
     Returns ``(n_out_tiles, T)`` tiles."""
     geom = payload["geom"]
     return gas_tiles(vprops_padded.view(-1, geom.W), *_blocked(payload),
-                     scatter_op=scatter_op, mode=mode, t=geom.T)
+                     scatter_op=scatter_op, mode=mode, t=geom.T,
+                     scatter_fn=scatter_fn)
 
 
 def _blocked(p: dict):

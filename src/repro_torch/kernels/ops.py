@@ -473,8 +473,10 @@ def run_lane(packed: dict, vprops_padded, scatter_fn, mode: str,
              path: Optional[str] = None, scatter_op: Optional[str] = None):
     """Run one payload (a packed lane, or a single entry: the same
     launch). ``path="cuda"`` goes through the kernel wrapper, which
-    raises on CPU tensors; ``path="ref"`` runs the plain version, and
-    this is the one place that picks it. Returns
+    raises on CPU tensors: the variant of the named ``scatter_op``, or
+    with ``scatter_op=None`` the one generated for ``scatter_fn``.
+    ``path="ref"`` runs the plain version, and this is the one place
+    that picks it. Returns
     ``(tiles (n_out_tiles, T), tile_idx (n_out_tiles,))``."""
     path = path or default_path(vprops_padded.device)
     if path == "ref":
@@ -492,7 +494,7 @@ def run_lane(packed: dict, vprops_padded, scatter_fn, mode: str,
         pipeline = big_pipeline if packed["kind"] == "big" else \
             little_pipeline
         tiles = pipeline(vprops_padded, packed, scatter_op=scatter_op,
-                         mode=mode)
+                         mode=mode, scatter_fn=scatter_fn)
     else:
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     return tiles, packed["tile_idx"]

@@ -2,9 +2,12 @@
 qwen2_1p5b --steps 200 --scale reduced``.
 
 ``--scale reduced`` trains the CPU-feasible config; ``--scale full``
-trains the full config on one card, unsharded (the mesh and sharding
-rules are not ported). A config that does not fit the card stops with
-an out-of-memory message. Runs on the card unless ``--device cpu``.
+trains the full config on one card, unsharded. The reference's launcher
+builds no mesh either (its docstring promises one); sharded training is
+``train.step.make_train_step`` on DTensor params placed by
+``sharding.specs`` over a ``launch.mesh`` mesh. A config that does not
+fit the card stops with an out-of-memory message. Runs on the card
+unless ``--device cpu``.
 """
 from __future__ import annotations
 

@@ -13,13 +13,20 @@ Conventions (the reference's, ``src/repro/models/common.py``):
     torch ops, the same math as the reference's ``_flash_fwd_impl``,
     with its flash backward as a ``torch.autograd.Function``.
   * ``remat`` is the reference's ``jax.checkpoint`` around each layer
-    when ``cfg.remat`` is set and autograd is recording.
-  * no mesh exists here, so the reference's sharding constraints are
-    identities.
+    when ``cfg.remat`` is set and autograd is recording; a layer of
+    shards (``shards.ShardedLayer``) is gathered inside it, always.
+  * the reference's sharding constraints redistribute a DTensor to their
+    spec where the dims divide, and are identities on plain tensors. The
+    mesh a model runs on (``use_mesh``, the reference's ``with mesh:``)
+    is what the MoE's expert-sharded branch and ``cross_entropy`` read:
+    on a mesh each rank computes on its own batch shard, and the loss is
+    the global batch's.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Optional
 
 import numpy as np
@@ -28,6 +35,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..configs import torch_dtype
+from .shards import ShardedLayer
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -35,22 +43,153 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
-# sharding constraints: identities (no mesh in the single-device port)
+# the mesh a model runs on, and sharding constraints
 # ---------------------------------------------------------------------------
 
-def constrain_logits(x):
+_MESH = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, data_dims=None):
+    """Run the block on ``mesh`` (a ``DeviceMesh``, or None for none):
+    the reference's ``with mesh:``. ``data_dims`` names the mesh dims
+    the batch is split on, each rank holding its own shard ("pod" and
+    "data", those the mesh has, by default)."""
+    prev = (getattr(_MESH, "mesh", None), getattr(_MESH, "data_dims", ()))
+    if mesh is not None and data_dims is None:
+        data_dims = tuple(a for a in ("pod", "data")
+                          if a in mesh.mesh_dim_names)
+    _MESH.mesh = mesh
+    _MESH.data_dims = tuple(a for a in (data_dims or ())
+                            if mesh.size(mesh.mesh_dim_names.index(a)) > 1)
+    try:
+        yield mesh
+    finally:
+        _MESH.mesh, _MESH.data_dims = prev
+
+
+def _context_mesh():
+    return getattr(_MESH, "mesh", None)
+
+
+def _data_dims() -> tuple:
+    """The context mesh's dims (of size > 1) that the batch is split
+    on."""
+    return getattr(_MESH, "data_dims", ())
+
+
+def _all_reduce(x, mesh, dims, op: str = "sum"):
+    """``op`` ("sum" or "max") of ``x`` over the mesh dims named
+    ``dims`` (functional collectives, one per dim)."""
+    import torch.distributed._functional_collectives as funcol
+    for name in dims:
+        x = funcol.all_reduce(x, op, (mesh, mesh.mesh_dim_names.index(
+            name)))
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
     return x
+
+
+class _EnterModel(torch.autograd.Function):
+    """Entry of the model-parallel region: the identity forward; the
+    backward sums each rank's partial gradient over "model" (Megatron's
+    f), so what comes out of the region has one gradient on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ("model",)), None
+
+
+class _ReduceOver(torch.autograd.Function):
+    """Sum over the mesh dims ``dims`` scaled by ``scale`` (a psum, or a
+    pmean with ``1 / n``). Backward: the gradient times ``grad_scale``,
+    with no collective (Megatron's g). Every rank holds the same
+    downstream gradient, so the identity is the psum's transpose over
+    ranks that computed different parts (experts on "model", tokens on
+    the data dims, whose weight gradients ``shards`` sums); a pmean
+    passes ``1 / n`` back to each rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims, scale, grad_scale):
+        ctx.grad_scale = grad_scale
+        out = _all_reduce(x, mesh, dims)
+        return out * scale if scale != 1 else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.grad_scale, None, None, None, None
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def constrain(x, *spec):
+    """Redistribute a DTensor ``x`` to ``spec`` (per dim: None, a mesh
+    dim's name or a tuple of names) on its own mesh, keeping only the
+    names the mesh has and that divide their dim (the reference's
+    ``with_sharding_constraint`` rule); the identity on a plain
+    tensor."""
+    if not _is_dtensor(x):
+        return x
+    from ..sharding.specs import Layout, mesh_sizes
+    mesh = x.device_mesh
+    sizes = mesh_sizes(mesh)
+    fixed = []
+    for d, ax in enumerate(spec):
+        axes = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+        axes = tuple(a for a in axes if a in sizes)
+        n = int(np.prod([sizes[a] for a in axes])) if axes else 1
+        ok = axes and x.shape[d] % n == 0 and x.shape[d] >= n
+        fixed.append((axes if len(axes) > 1 else axes[0]) if ok else None)
+    return x.redistribute(mesh, Layout(mesh, tuple(fixed)).placements)
+
+
+def constrain_logits(x):
+    """(B, S, V) or (B, 1, V): batch over ("pod","data"), vocab on
+    model."""
+    return constrain(x, ("pod", "data"), None, "model")
+
+
+def logits(cfg, x, lm_head):
+    """``x @ lm_head`` under the reference's logits constraint. Where the
+    head comes as this rank's slice of the vocabulary (``shards`` gathers
+    it so on a "model" dim, as the reference places the logits), the
+    result is this rank's slice of the logits, and ``x`` enters the
+    model region: each rank's gradient of it is partial."""
+    mesh = _context_mesh()
+    if mesh is not None and lm_head.shape[-1] != cfg.vocab_padded:
+        x = _EnterModel.apply(x, mesh)
+    return constrain_logits(matmul(x, lm_head))
 
 
 def constrain_act(x):
-    return x
+    """(B, S, D): batch over ("pod","data")."""
+    return constrain(x, ("pod", "data"), *([None] * (x.ndim - 1)))
 
 
 def remat(cfg, fn, *args):
     """``fn(*args)``; under ``torch.utils.checkpoint`` (non-reentrant)
     when ``cfg.remat`` is set and autograd is recording, as the
     reference wraps each layer in ``jax.checkpoint``: the layer's
-    activations are recomputed in the backward instead of kept."""
+    activations are recomputed in the backward instead of kept. A
+    :class:`~.shards.ShardedLayer` argument is gathered inside the
+    checkpoint whatever ``cfg.remat`` says, so that the layer's whole
+    weights are gathered again for the backward, not kept (ZeRO-3)."""
+    if torch.is_grad_enabled() and any(isinstance(a, ShardedLayer)
+                                       for a in args):
+        def run(*a):
+            return fn(*(x.gather() if isinstance(x, ShardedLayer) else x
+                        for x in a))
+        return torch.utils.checkpoint.checkpoint(run, *args,
+                                                 use_reentrant=False)
     if cfg.remat and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(fn, *args,
                                                  use_reentrant=False)
@@ -342,14 +481,42 @@ def gelu_mlp(x, w_up, b_up, w_down, b_down):
     return matmul(h, w_down) + b_down
 
 
-def cross_entropy(logits, labels, vocab_real: Optional[int] = None):
-    """Mean CE in f32; labels < 0 masked; vocab padding masked."""
+def cross_entropy(logits, labels, vocab_real: Optional[int] = None,
+                  vocab_padded: Optional[int] = None):
+    """Mean CE in f32; labels < 0 masked; vocab padding masked.
+
+    On a mesh (``use_mesh``): logits narrower than ``vocab_padded`` are
+    this "model" rank's slice of the vocabulary (:func:`logits`), and the
+    log-sum-exp and the label's logit are reduced over "model"
+    (Megatron's vocab-parallel CE); where the batch is split, the loss is
+    the global batch's mean: the NLL sum and the count of labelled
+    tokens are summed over the data dims and divided once, so shards of
+    unequal label counts weigh as the reference's global mean does."""
     lf = logits.float()
-    if vocab_real is not None and vocab_real < lf.shape[-1]:
-        vid = torch.arange(lf.shape[-1], device=lf.device)
+    V = lf.shape[-1]
+    mesh = _context_mesh()
+    split = vocab_padded is not None and V != vocab_padded
+    lo = mesh.get_local_rank("model") * V if split else 0
+    if vocab_real is not None and vocab_real < (vocab_padded if split
+                                                else V):
+        vid = torch.arange(lo, lo + V, device=lf.device)
         lf = torch.where(vid < vocab_real, lf, -1e30)
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    idx = labels.clamp(min=0).long() - lo
+    if split:
+        top = _all_reduce(lf.detach().amax(-1), mesh, ("model",), "max")
+        se = (lf - top[..., None]).exp().sum(-1)
+        lse = top + _ReduceOver.apply(se, mesh, ("model",), 1, 1).log()
+        mine = (idx >= 0) & (idx < V)
+        ll = lf.gather(-1, idx.clamp(0, V - 1)[..., None])[..., 0] * mine
+        ll = _ReduceOver.apply(ll, mesh, ("model",), 1, 1)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = lf.gather(-1, idx[..., None])[..., 0]
     mask = labels >= 0
-    nll = (lse - ll) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1)
+    nll, count = ((lse - ll) * mask).sum(), mask.sum()
+    dims = _data_dims()
+    if dims:
+        mesh = _context_mesh()
+        nll = _ReduceOver.apply(nll, mesh, dims, 1, 1)
+        count = _all_reduce(count, mesh, dims)
+    return nll / torch.clamp(count, min=1)

@@ -117,12 +117,12 @@ def backbone(cfg, params, x, positions, collect_state=False):
 def forward(cfg, params, batch):
     x = params["embed"][batch["tokens"]]
     x, _ = backbone(cfg, params, x, tfm._positions(x))
-    return c.constrain_logits(c.matmul(x, params["lm_head"]))
+    return c.logits(cfg, x, params["lm_head"])
 
 
 def loss_fn(cfg, params, batch):
     return c.cross_entropy(forward(cfg, params, batch), batch["labels"],
-                           cfg.vocab_size)
+                           cfg.vocab_size, cfg.vocab_padded)
 
 
 def prefill(cfg, params, batch):
@@ -130,7 +130,7 @@ def prefill(cfg, params, batch):
     x, (k, v, h) = backbone(cfg, params, x, tfm._positions(x),
                             collect_state=True)
     return ({"k": k, "v": v, "ssm_state": h},
-            c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"])))
+            c.logits(cfg, x[:, -1:], params["lm_head"]))
 
 
 def _window_attention(cfg, q, kc, vc, length):
@@ -179,4 +179,4 @@ def decode_step(cfg, params, cache, token, length):
         h2 = tfm._norm(cfg, x, lp, "ln2")
         x = x + tfm._mlp(cfg, lp, h2)
     x = tfm._norm(cfg, x, params, "ln_f")
-    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache
+    return c.logits(cfg, x, params["lm_head"]), cache

@@ -181,18 +181,18 @@ def backbone(cfg, params, x, collect_state=False):
 def forward(cfg, params, batch):
     x = c.constrain_act(params["embed"][batch["tokens"]])
     x, _ = backbone(cfg, params, x)
-    return c.constrain_logits(c.matmul(x, params["lm_head"]))
+    return c.logits(cfg, x, params["lm_head"])
 
 
 def loss_fn(cfg, params, batch):
     return c.cross_entropy(forward(cfg, params, batch), batch["labels"],
-                           cfg.vocab_size)
+                           cfg.vocab_size, cfg.vocab_padded)
 
 
 def prefill(cfg, params, batch):
     x = params["embed"][batch["tokens"]]
     x, (h, conv) = backbone(cfg, params, x, collect_state=True)
-    logits = c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"]))
+    logits = c.logits(cfg, x[:, -1:], params["lm_head"])
     return {"ssm_state": h, "conv_state": conv}, logits
 
 
@@ -236,4 +236,4 @@ def decode_step(cfg, params, cache, token, length):
         y = c.rmsnorm(y, lp["norm_g"], cfg.norm_eps) * c.silu(z)
         x = x + c.matmul(y, lp["out_proj"])
     x = c.rmsnorm(x, params["ln_f_g"], cfg.norm_eps)
-    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache
+    return c.logits(cfg, x, params["lm_head"]), cache

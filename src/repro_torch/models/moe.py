@@ -15,13 +15,19 @@ Two dispatch modes:
     split (n_hot, C_hot, C_cold) comes from models.moe_schedule — the
     model-guided scheduling analogue.
 
-This is the reference's single-device path (``moe_ffn`` with no mesh);
-its expert-sharded branch comes with the sharding slice. The combine
-adds each token's expert rows in the reference's order without float
-atomics (``_combine``), so results repeat bit for bit on the card.
+On a mesh (``common.use_mesh``) whose "model" dim is larger than 1,
+``moe_ffn`` takes the reference's ``shard_map`` branch: each model rank
+dispatches its data shard's tokens against its slice of the experts
+(``E_pad / n_model`` of them) or, where "model" does not divide E_pad,
+against every expert with its slice of the FFN dim; the partial outputs
+are summed over "model" and the aux loss averaged over the data dims
+and "model". The combine adds each token's expert rows in the
+reference's order without float atomics (``_combine``), so results
+repeat bit for bit on the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..configs import torch_dtype
@@ -186,14 +192,82 @@ def _moe_ffn_tokens(cfg, router, wg, wu, wd, x, r, e_per, n_model,
     return _combine(x, tok_id, keep, slot, y, gatew), aux
 
 
+# ---------------------------------------------------------------------------
+# the expert-sharded branch (the reference's shard_map)
+# ---------------------------------------------------------------------------
+
+def _split(w, dim, whole, r, n, mesh):
+    """Rank ``r``'s ``1 / n`` of ``w`` on ``dim``: cut from ``w`` when it
+    is whole (``whole`` long there; its gradient then enters the region
+    with a sum over "model"), or ``w`` as it is when it is that share
+    already, as ``shards`` gathers an expert weight to its compute
+    layout (``specs.compute_spec``)."""
+    if w.shape[dim] != whole:
+        return w
+    per = whole // n
+    return c._EnterModel.apply(w, mesh).narrow(dim, r * per, per)
+
+
+def _moe_ffn_sharded(cfg, lp, x, mesh, capacity_factor):
+    """This rank's share of the MoE FFN over its tokens ``x`` (T, D)
+    (its data shard, the same on every model rank), summed over
+    "model": the reference's ``shard_map`` body. Returns (out, aux)
+    with ``aux`` averaged over the data dims and "model"."""
+    from ..sharding.specs import mesh_sizes
+    n_model, E = mesh_sizes(mesh)["model"], cfg.num_experts_padded
+    F = cfg.moe_d_ff or cfg.d_ff
+    r = mesh.get_local_rank("model")
+    x, router = (c._EnterModel.apply(t, mesh) for t in (x, lp["router"]))
+    if E % n_model == 0:                     # experts on "model"
+        wg, wu, wd = (_split(lp[k], 0, E, r, n_model, mesh)
+                      for k in ("we_gate", "we_up", "we_down"))
+        out, aux = _moe_ffn_tokens(cfg, router, wg, wu, wd, x, r,
+                                   E // n_model, n_model, capacity_factor)
+    else:                                    # the FFN dim on "model"
+        wg, wu = (_split(lp[k], 2, F, r, n_model, mesh)
+                  for k in ("we_gate", "we_up"))
+        wd = _split(lp["we_down"], 1, F, r, n_model, mesh)
+        out, aux = _moe_ffn_tokens(cfg, router, wg, wu, wd, x, 0, E, 1,
+                                   capacity_factor)
+    out = c._ReduceOver.apply(out, mesh, ("model",), 1, 1)
+    aux = c._ReduceOver.apply(aux, mesh, ("model",), 1 / n_model,
+                              1 / n_model)
+    dp = c._data_dims()
+    if dp:
+        n_dp = int(np.prod([mesh.size(mesh.mesh_dim_names.index(a))
+                            for a in dp]))
+        aux = c._ReduceOver.apply(aux, mesh, dp, 1 / n_dp, 1 / n_dp)
+    return out, aux
+
+
 def moe_ffn(cfg, lp, h, capacity_factor=None):
-    """h: (B, S, D) -> (out, aux_loss), on one device."""
+    """h: (B, S, D) -> (out, aux_loss).
+
+    With no mesh (``common.use_mesh``), a "model" dim of 1, or neither
+    the experts nor the FFN dim dividing over "model", the
+    single-device dispatch. Otherwise the reference's distribution:
+    dispatch runs PER DATA SHARD (sort, ranks, scatter stay local),
+    experts shard on "model" (each rank computes its expert slice for
+    its local tokens, then a sum over "model"; no all-to-all because
+    activations are model-replicated). ``h`` is this rank's data shard;
+    the expert weights are whole or this rank's share already.
+    """
     capacity_factor = (cfg.capacity_factor if capacity_factor is None
                        else capacity_factor)
     B, S, D = h.shape
-    out, aux = _moe_ffn_tokens(cfg, lp["router"], lp["we_gate"],
-                               lp["we_up"], lp["we_down"], h.reshape(B * S, D),
-                               0, cfg.num_experts_padded, 1, capacity_factor)
+    mesh = c._context_mesh()
+    from ..sharding.specs import mesh_sizes
+    n_model = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
+    E, F = cfg.num_experts_padded, cfg.moe_d_ff or cfg.d_ff
+    if n_model == 1 or (E % n_model and F % n_model):
+        # every rank computes everything: nothing to sum (the
+        # reference's psum over "model" would add n_model equal outputs)
+        out, aux = _moe_ffn_tokens(
+            cfg, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+            h.reshape(B * S, D), 0, E, 1, capacity_factor)
+        return out.reshape(B, S, D), aux
+    out, aux = _moe_ffn_sharded(cfg, lp, h.reshape(B * S, D), mesh,
+                                capacity_factor)
     return out.reshape(B, S, D), aux
 
 
@@ -227,12 +301,13 @@ def backbone(cfg, params, x, positions, collect_kv=False):
 def forward(cfg, params, batch):
     x = tfm.embed_input(cfg, params, batch)
     x, aux, _ = backbone(cfg, params, x, tfm._positions(x))
-    return c.constrain_logits(c.matmul(x, params["lm_head"])), aux
+    return c.logits(cfg, x, params["lm_head"]), aux
 
 
 def loss_fn(cfg, params, batch, aux_weight=0.01):
     logits, aux = forward(cfg, params, batch)
-    return c.cross_entropy(logits, batch["labels"], cfg.vocab_size) \
+    return c.cross_entropy(logits, batch["labels"], cfg.vocab_size,
+                           cfg.vocab_padded) \
         + aux_weight * aux / cfg.num_layers
 
 
@@ -242,7 +317,7 @@ def prefill(cfg, params, batch):
                             collect_kv=True)
     cdt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
     return ({"k": k.to(cdt), "v": v.to(cdt)},
-            c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"])))
+            c.logits(cfg, x[:, -1:], params["lm_head"]))
 
 
 def decode_step(cfg, params, cache, token, length):
@@ -265,4 +340,4 @@ def decode_step(cfg, params, cache, token, length):
         y, _ = moe_ffn(cfg, lp, h2)
         x = x + y
     x = tfm._norm(cfg, x, params, "ln_f")
-    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache
+    return c.logits(cfg, x, params["lm_head"]), cache

@@ -1,0 +1,190 @@
+"""A model's weights as this rank's shards, gathered for compute one layer
+at a time (ZeRO-3): how the port runs a step on what ``sharding.specs``
+places, where the reference lets GSPMD partition every op.
+
+:func:`model_view` turns a params tree of local shards and their DTensor
+placements into the tree a model reads:
+
+  * a leaf outside the layer stacks (embed, lm_head, the final norms) is
+    gathered once, for the whole step;
+  * a layer stack ("layers", "enc_layers") becomes a
+    :class:`ShardedStack`, and ``transformer.layers`` yields one
+    :class:`ShardedLayer` per layer, still shards. ``common.remat``
+    gathers a layer inside a checkpoint, so that its whole weights live
+    only while the layer runs (forward, then the recompute in the
+    backward) and are never saved for the backward; with autograd off a
+    layer is gathered as it is yielded and dropped with it.
+
+A rank so holds its shards, the gathered leaves outside the stacks and
+the whole weights of one layer at a time (in the backward also their
+gradient), not the model.
+
+A weight is gathered to its *compute layout* (``specs.compute_spec``):
+whole, except the MoE's expert weights, which go to the split on
+"model" that the expert-sharded branch computes on, so a rank gathers
+only its own experts, and ``lm_head``, split on its vocabulary as the
+reference's logits are (``common.logits`` / ``cross_entropy``).
+
+Gradients (:class:`_Gather`'s backward) go back to the shard layout:
+summed over ``data_dims``, the mesh dims the batch is split on (each
+data rank computed its own tokens' share of the global loss: a
+reduce-scatter where the weight is sharded on such a dim, an all-reduce
+where it is not), and cut to the shard on the other dims, where every
+rank computed the same gradient (an all-to-all for the experts).
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import torch
+
+STACKS = ("layers", "enc_layers")
+
+
+def _redistribute(t, mesh, src, dst):
+    """This rank's local tensor of ``t`` (a local tensor of placements
+    ``src``) redistributed to ``dst``."""
+    from torch.distributed._functional_collectives import (
+        AsyncCollectiveTensor)
+    from torch.distributed.tensor import DTensor
+    if tuple(src) == tuple(dst):
+        return t.view_as(t)
+    out = DTensor.from_local(t.detach().contiguous(), mesh, src,
+                             run_check=False).redistribute(
+                                 mesh, dst).to_local()
+    return out.wait() if isinstance(out, AsyncCollectiveTensor) else out
+
+
+def _full_shape(t, placements, mesh) -> tuple:
+    """The whole shape of the local tensor ``t`` of ``placements`` (the
+    rules split only the dims that divide)."""
+    full = list(t.shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            full[p.dim] *= mesh.size(i)
+    return tuple(full)
+
+
+class _Gather(torch.autograd.Function):
+    """A shard ``local`` of placements ``src`` as its compute layout's
+    local tensor (placements ``dst``). Backward: the gradient, partial
+    over the mesh dims ``data_dims`` (indices), back to ``src``."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, src, dst, data_dims):
+        ctx.plan = (mesh, src, dst, data_dims)
+        return _redistribute(local, mesh, src, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial
+        mesh, src, dst, data_dims = ctx.plan
+        partial = tuple(Partial() if i in data_dims else pl
+                        for i, pl in enumerate(dst))
+        return _redistribute(g, mesh, partial, src), None, None, None, None
+
+
+class ShardedLayer(Mapping):
+    """One layer's weights as this rank's shards (views into the
+    stacks) and the plan that gathers each to its compute layout.
+    ``lp[name]`` gathers one weight (autograd then keeps it where the
+    layer saves it); :meth:`gather` all of them, as ``common.remat``
+    does inside its checkpoint."""
+
+    def __init__(self, local: dict, plans: dict, mesh, data_dims):
+        self.local, self.plans = local, plans
+        self.mesh, self.data_dims = mesh, data_dims
+
+    def __getitem__(self, name):
+        src, dst = self.plans[name]
+        return _Gather.apply(self.local[name], self.mesh, src, dst,
+                             self.data_dims)
+
+    def __iter__(self):
+        return iter(self.local)
+
+    def __len__(self):
+        return len(self.local)
+
+    def gather(self) -> dict:
+        return {k: self[k] for k in self.local}
+
+
+class ShardedStack:
+    """A layer stack ({name: (L, ...) shard}) with each leaf's
+    placements; :meth:`layers` yields it layer by layer."""
+
+    def __init__(self, local: dict, placements: dict, mesh, data_dims):
+        self.local, self.placements = local, placements
+        self.mesh, self.data_dims = mesh, data_dims
+
+    def layers(self):
+        """One :class:`ShardedLayer` per layer while autograd records
+        (``common.remat`` gathers it), else the layer gathered as it is
+        yielded. A 1-D stack split over its layers (the rules never
+        split dim 0 of a wider stack) is gathered whole first."""
+        from torch.distributed.tensor import Replicate, Shard
+        from ..sharding.specs import Layout, compute_spec
+        mesh, dd = self.mesh, self.data_dims
+        rep = (Replicate(),) * mesh.ndim
+        cols, plans = {}, {}
+        for k, t in self.local.items():
+            pl = tuple(self.placements.get(k) or rep)
+            if any(p.is_shard(0) for p in pl):
+                t, pl = _Gather.apply(t, mesh, pl, rep, dd), rep
+            src = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in pl)
+            dst = Layout(mesh, compute_spec(
+                k, _full_shape(t, pl, mesh)[1:], mesh)).placements
+            cols[k], plans[k] = t.unbind(0), (src, dst)
+        for vals in zip(*cols.values()):
+            layer = ShardedLayer(dict(zip(cols, vals)), plans, mesh, dd)
+            yield layer if torch.is_grad_enabled() else layer.gather()
+
+
+def model_view(local, placements, mesh, data_dims=()):
+    """The params tree a model reads, from this rank's shards ``local``
+    and their ``placements`` (a matching tree; None for a leaf every
+    rank holds whole). ``data_dims`` names the mesh dims the batch is
+    split on. Leaves outside the stacks are gathered to their compute
+    layout now."""
+    from torch.distributed.tensor import Replicate
+    from ..sharding.specs import Layout, compute_spec
+    dims = tuple(mesh.mesh_dim_names.index(n) for n in data_dims)
+    rep = (Replicate(),) * mesh.ndim
+
+    def walk(node, pl, key):
+        if isinstance(node, dict):
+            if key in STACKS:
+                return ShardedStack(node, pl or {}, mesh, dims)
+            return {k: walk(v, (pl or {}).get(k), k)
+                    for k, v in node.items()}
+        pl = tuple(pl or rep)
+        dst = Layout(mesh, compute_spec(key, _full_shape(node, pl, mesh),
+                                        mesh)).placements
+        return _Gather.apply(node, mesh, pl, dst, dims)
+
+    return walk(local, placements, None)
+
+
+def local_shards(tree):
+    """(this rank's local tensors, their placements) of a tree of
+    DTensors; a plain tensor stays, with placements None."""
+    from torch.distributed.tensor import DTensor
+    from ..tree import tree_map
+    return (tree_map(lambda t: t.to_local() if isinstance(t, DTensor)
+                     else t, tree),
+            tree_map(lambda t: tuple(t.placements)
+                     if isinstance(t, DTensor) else None, tree))
+
+
+def batch_dims(batch, mesh) -> tuple:
+    """The names of the mesh dims (of size > 1) that a batch of
+    DTensors is split on, in the mesh's order."""
+    from torch.distributed.tensor import DTensor
+    from ..tree import leaves
+    split = set()
+    for b in leaves(batch):
+        if isinstance(b, DTensor):
+            split |= {i for i, pl in enumerate(b.placements)
+                      if pl.is_shard() and mesh.size(i) > 1}
+    return tuple(mesh.mesh_dim_names[i] for i in sorted(split))

@@ -15,6 +15,7 @@ import torch
 
 from ..configs import torch_dtype
 from . import common as c
+from .shards import ShardedStack
 
 
 def _norm(cfg, x, lp, name):
@@ -83,12 +84,15 @@ def init_params(cfg, gen, layer_init=None):
     return p
 
 
-def layers(params, key: str = "layers") -> list:
+def layers(params, key: str = "layers"):
     """Each layer's leaves, as views into the stacked tree: one
     ``unbind`` per stacked leaf, so autograd gathers the layers'
     gradients into each stacked leaf with one stack (indexing layer by
     layer would give every layer a zero-filled gradient of the whole
-    stacked leaf: O(L^2) work in the backward)."""
+    stacked leaf: O(L^2) work in the backward). A stack of shards
+    (``shards.ShardedStack``) yields its layers one at a time."""
+    if isinstance(params[key], ShardedStack):
+        return params[key].layers()
     cols = {k: v.unbind(0) for k, v in params[key].items()}
     return [dict(zip(cols, vals)) for vals in zip(*cols.values())]
 
@@ -173,12 +177,13 @@ def _positions(x):
 def forward(cfg, params, batch):
     x = embed_input(cfg, params, batch)
     x, _ = backbone(cfg, params, x, _positions(x))
-    return c.constrain_logits(c.matmul(x, params["lm_head"]))
+    return c.logits(cfg, x, params["lm_head"])
 
 
 def loss_fn(cfg, params, batch):
     logits = forward(cfg, params, batch)
-    return c.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    return c.cross_entropy(logits, batch["labels"], cfg.vocab_size,
+                           cfg.vocab_padded)
 
 
 def prefill(cfg, params, batch):
@@ -186,7 +191,7 @@ def prefill(cfg, params, batch):
     x = embed_input(cfg, params, batch)
     x, (k, v) = backbone(cfg, params, x, _positions(x), collect_kv=True)
     cdt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
-    logits_last = c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"]))
+    logits_last = c.logits(cfg, x[:, -1:], params["lm_head"])
     return {"k": k.to(cdt), "v": v.to(cdt)}, logits_last
 
 
@@ -224,4 +229,4 @@ def decode_step(cfg, params, cache, token, length):
             h2 = _norm(cfg, x, lp, "ln2")
             x = x + _mlp(cfg, lp, h2)
     x = _norm(cfg, x, params, "ln_f")
-    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache
+    return c.logits(cfg, x, params["lm_head"]), cache

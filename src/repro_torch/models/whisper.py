@@ -144,12 +144,12 @@ def decode_stack(cfg, params, tokens, enc_out, collect_kv=False):
 def forward(cfg, params, batch):
     enc_out = encode(cfg, params, batch["enc_embeds"])
     x, _ = decode_stack(cfg, params, batch["tokens"], enc_out)
-    return c.constrain_logits(c.matmul(x, params["lm_head"]))
+    return c.logits(cfg, x, params["lm_head"])
 
 
 def loss_fn(cfg, params, batch):
     return c.cross_entropy(forward(cfg, params, batch), batch["labels"],
-                           cfg.vocab_size)
+                           cfg.vocab_size, cfg.vocab_padded)
 
 
 def prefill(cfg, params, batch):
@@ -157,7 +157,7 @@ def prefill(cfg, params, batch):
     x, (k, v, xk, xv) = decode_stack(cfg, params, batch["tokens"], enc_out,
                                      collect_kv=True)
     cache = {"k": k, "v": v, "cross_k": xk, "cross_v": xv}
-    return cache, c.constrain_logits(c.matmul(x[:, -1:], params["lm_head"]))
+    return cache, c.logits(cfg, x[:, -1:], params["lm_head"])
 
 
 def decode_step(cfg, params, cache, token, length):
@@ -188,4 +188,4 @@ def decode_step(cfg, params, cache, token, length):
         x = x + c.matmul(ox.reshape(B, 1, -1), lp["xo"])
         x = x + _mlp(lp, _ln(cfg, x, lp, "ln2"))
     x = c.layernorm(x, params["ln_f_g"], params["ln_f_b"], cfg.norm_eps)
-    return c.constrain_logits(c.matmul(x, params["lm_head"])), cache
+    return c.logits(cfg, x, params["lm_head"]), cache

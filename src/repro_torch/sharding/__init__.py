@@ -18,8 +18,9 @@ Entry points: ``api.compile(..., shard=...)``,
 ``GraphStore.executor(app, shard=...)`` and ``GraphStore.shard()``.
 Streaming deltas re-place only dirty lanes and reuse resident payloads
 for clean ones (``shards_moved`` / ``shard_bytes_moved`` in the apply
-stats). The reference's ``sharding/specs.py`` (LM-side parameter
-sharding) is not part of the graph engine's port.
+stats). The LM side's partitioning rules (the reference's
+``sharding/specs.py``: DeviceMesh specs, DTensor placements) are
+:mod:`repro_torch.sharding.specs`, imported by name.
 """
 from .executor import (ShardedExecutor, ShardedLanes, materialize_sharded,
                        resolve_devices)

@@ -1,0 +1,216 @@
+"""Partitioning rules for params, optimizer state, activations and caches
+(the reference's ``src/repro/sharding/specs.py``) over a
+``torch.distributed`` ``DeviceMesh`` with named dims ("pod", "data",
+"model").
+
+Strategy, as the reference's rules (Megatron-style dims on "model",
+ZeRO/FSDP-style weight sharding on "data" for large tensors, batch DP
+over ("pod", "data")):
+
+  * every >=2D weight shards its LAST divisible dim on "model";
+  * leaves with >= FSDP_MIN elements additionally shard another divisible
+    dim on "data";
+  * layer-stacked leaves (under "layers" / "enc_layers") never shard
+    dim 0;
+  * non-divisible dims fall back to replication (e.g. qwen2's 12 heads on
+    a 16-way model axis);
+  * batch-like inputs shard dim 0 over ("pod", "data") when divisible,
+    then ("data",), else replicate (long_500k's batch=1).
+
+A spec is the reference's ``PartitionSpec`` as a tuple: per tensor dim,
+None, a mesh dim's name, or a tuple of names. :class:`Layout` pairs a
+spec with its mesh and gives the DTensor placements (``Shard(d)`` on
+each mesh dim that dim ``d`` names, ``Replicate()`` elsewhere).
+``distribute_tree`` places a tree's tensors by their layouts.
+
+The rules read only the mesh's dim names and sizes, so a
+:class:`MeshShape` (names and sizes, no devices) serves wherever only
+specs are wanted. How the port computes on what these rules place
+(each layer's weights gathered to their :func:`compute_spec` while the
+layer runs, grads reduce-scattered back) is ``models/shards.py``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from ..tree import flatten_with_path, tree_map, unflatten
+
+FSDP_MIN = 1 << 22          # 4M elements: shard weights on "data" too
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's dim names and sizes without devices: what the rules
+    read."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+
+def mesh_sizes(mesh) -> dict:
+    """{dim name: size} of a ``DeviceMesh`` or a :class:`MeshShape`."""
+    if isinstance(mesh, MeshShape):
+        return dict(zip(mesh.axis_names, mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh_sizes(mesh).get(name, 1)
+
+
+def _is_stacked(path) -> bool:
+    return any(k in ("layers", "enc_layers") for k in path)
+
+
+def leaf_spec(path, shape, mesh) -> tuple:
+    """The spec of the leaf at ``path`` (a tuple of dict keys / list
+    indices, as :func:`repro_torch.tree.flatten_with_path` gives it)
+    with ``shape``."""
+    if len(shape) == 0:
+        return ()
+    names = mesh_sizes(mesh)
+    model = names.get("model", 1)
+    data = names.get("data", 1)
+    lo = 1 if (_is_stacked(path) and len(shape) > 1) else 0
+    spec = [None] * len(shape)
+    # model axis: last divisible dim
+    m_dim = None
+    if "model" in names:
+        for d in range(len(shape) - 1, lo - 1, -1):
+            if shape[d] % model == 0 and shape[d] >= model:
+                spec[d] = "model"
+                m_dim = d
+                break
+    # data axis (FSDP) for big leaves: another divisible dim
+    numel = int(np.prod(shape))
+    if "data" in names and numel >= FSDP_MIN:
+        for d in range(len(shape) - 1, lo - 1, -1):
+            if d != m_dim and shape[d] % data == 0 and shape[d] >= data:
+                spec[d] = "data"
+                break
+    return tuple(spec)
+
+
+EXPERT_LEAVES = {"we_gate": 2, "we_up": 2, "we_down": 1}   # F's dim
+
+
+def compute_spec(name: str, shape, mesh) -> tuple:
+    """The spec the weight ``name`` of ``shape`` (one layer's, for a
+    stacked leaf) is computed in: whole, except on a "model" dim of more
+    than one rank
+      * the MoE's expert weights, where the expert-sharded branch
+        computes them (the reference's ``shard_map`` in_specs): the
+        experts on "model" when they divide, else the FFN dim when it
+        divides;
+      * ``lm_head``'s vocabulary, where the reference's logits are
+        (``constrain_logits``), when it divides."""
+    spec = [None] * len(shape)
+    n = mesh_sizes(mesh).get("model", 1)
+    f_dim = EXPERT_LEAVES.get(name)
+    if n == 1:
+        return tuple(spec)
+    if f_dim is not None and len(shape) == 3:
+        if shape[0] % n == 0:
+            spec[0] = "model"
+        elif shape[f_dim] % n == 0:
+            spec[f_dim] = "model"
+    elif name == "lm_head" and len(shape) == 2 and shape[1] % n == 0:
+        spec[1] = "model"
+    return tuple(spec)
+
+
+def batch_spec(shape, mesh) -> tuple:
+    """Shard dim0 (batch) over ("pod","data") / ("data",) / replicate."""
+    names = mesh_sizes(mesh)
+    cands = []
+    if "pod" in names and "data" in names:
+        cands.append(("pod", "data"))
+    if "data" in names:
+        cands.append(("data",))
+    for axes in cands:
+        size = int(np.prod([names[a] for a in axes]))
+        if shape[0] % size == 0 and shape[0] >= size:
+            return (axes if len(axes) > 1 else axes[0],
+                    *([None] * (len(shape) - 1)))
+    return tuple([None] * len(shape))
+
+
+def cache_spec(shape, mesh) -> tuple:
+    """Decode caches: (L, B, S, KH, hd)-style — shard B (dim1) on data
+    (on ("pod", "data") when there are pods and they divide), and the
+    last divisible head/state dim on model."""
+    model = _axis_size(mesh, "model")
+    data = _axis_size(mesh, "data")
+    pod = _axis_size(mesh, "pod")
+    spec = [None] * len(shape)
+    if len(shape) >= 2:
+        if pod > 1 and shape[1] % (pod * data) == 0 \
+                and shape[1] >= pod * data:
+            spec[1] = ("pod", "data")
+        elif shape[1] % data == 0 and shape[1] >= data:
+            spec[1] = "data"
+    for d in range(len(shape) - 1, 1, -1):
+        if shape[d] % model == 0 and shape[d] >= model:
+            spec[d] = "model"
+            break
+    return tuple(spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A spec on a mesh: the reference's ``NamedSharding``."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for name in self.mesh.mesh_dim_names:
+            dims = [d for d, ax in enumerate(self.spec)
+                    if ax == name or (isinstance(ax, tuple) and name in ax)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+
+def tree_placements(tree, mesh):
+    """:class:`Layout` of every leaf of a params / optimizer-state tree
+    (the reference's ``tree_shardings``)."""
+    flat, treedef = flatten_with_path(tree)
+    return unflatten(treedef, [Layout(mesh, leaf_spec(p, tuple(l.shape),
+                                                      mesh))
+                               for p, l in flat])
+
+
+def batch_placements(tree, mesh):
+    return tree_map(lambda l: Layout(mesh, batch_spec(tuple(l.shape), mesh)),
+                    tree)
+
+
+def cache_placements(tree, mesh):
+    return tree_map(lambda l: Layout(mesh, cache_spec(tuple(l.shape), mesh)),
+                    tree)
+
+
+def replicated(mesh) -> Layout:
+    return Layout(mesh, ())
+
+
+def distribute(t: torch.Tensor, layout: Layout):
+    """``t`` (the same full tensor on every rank, or a meta tensor) as a
+    DTensor placed by ``layout``: each rank keeps its own slice, with no
+    communication."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, layout.mesh, layout.placements,
+                             src_data_rank=None)
+
+
+def distribute_tree(tree, layouts):
+    """Every tensor of ``tree`` placed by the matching :class:`Layout` of
+    ``layouts`` (one Layout for the whole tree also serves)."""
+    if isinstance(layouts, Layout):
+        return tree_map(lambda t: distribute(t, layouts), tree)
+    return tree_map(distribute, tree, layouts)

@@ -22,19 +22,41 @@ def _is_node(tree) -> bool:
     return isinstance(tree, (dict, list, tuple))
 
 
+# The walks below are module-level functions handed their output list: a
+# nested recursive closure refers to itself through its own cell, a
+# reference cycle that would keep every leaf it saw alive until the
+# cyclic garbage collector runs.
+
+def _walk(t, out):
+    if not _is_node(t):
+        out.append(t)
+        return None
+    if isinstance(t, dict):
+        return {k: _walk(t[k], out) for k in sorted(t)}
+    return type(t)(_walk(c, out) for c in t)
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves in order, tree definition)."""
     out: List[Any] = []
+    return out, _walk(tree, out)
 
-    def walk(t):
-        if not _is_node(t):
-            out.append(t)
-            return None
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        return type(t)(walk(c) for c in t)
 
-    return out, walk(tree)
+def _walk_path(t, path, out):
+    if not _is_node(t):
+        out.append((path, t))
+        return None
+    if isinstance(t, dict):
+        return {k: _walk_path(t[k], path + (k,), out) for k in sorted(t)}
+    return type(t)(_walk_path(c, path + (i,), out) for i, c in enumerate(t))
+
+
+def flatten_with_path(tree) -> Tuple[List[Tuple[tuple, Any]], Any]:
+    """([(path, leaf)] in order, tree definition); a path is the tuple
+    of dict keys and list / tuple indices from the root to the leaf (the
+    reference's key paths, ``DictKey("layers")`` being ``"layers"``)."""
+    out: List[Tuple[tuple, Any]] = []
+    return out, _walk_path(tree, (), out)
 
 
 def leaves(tree) -> List[Any]:
@@ -55,18 +77,18 @@ def flatten_up_to(treedef, tree) -> List[Any]:
     return out
 
 
+def _build(d, it):
+    if d is None:
+        return next(it)
+    if isinstance(d, dict):
+        return {k: _build(d[k], it) for k in sorted(d)}
+    return type(d)(_build(c, it) for c in d)
+
+
 def unflatten(treedef, items) -> Any:
     """The tree of ``treedef`` with ``items`` at its leaves, in order."""
     it = iter(items)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        if isinstance(d, dict):
-            return {k: build(d[k]) for k in sorted(d)}
-        return type(d)(build(c) for c in d)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, it) is not it:
         raise ValueError("more items than the tree definition has leaves")
     return out

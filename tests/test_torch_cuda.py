@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA GAS kernel against its plain
 version (on graph payloads and on a heavy tile that spans many chunks),
-its launch count, its refusals, the main path on the card, and the
+its launch count, its refusals, the variants generated for custom
+scatter UDFs, the main path on the card, and the
 changing-graph paths through the kernel: sharded == fused, a derived
 store == a cold rebuild after a delta, and reused payloads kept in
 place; and the serving layer: a served request == a direct executor,
@@ -11,8 +12,9 @@ path: reduced dense and MoE models on the card against the CPU, the
 engine's greedy tokens against a manual decode loop, and no serving
 without a card unless the caller asks for the CPU; the recurrent and
 encoder-decoder families (mamba2, hymba, whisper) on the card against
-the CPU, the flash-attention backward on the card against the CPU, and
-one Trainer step on the card.
+the CPU, the flash-attention backward on the card against the CPU, one
+Trainer step on the card, and the MoE's expert-sharded branch over two
+gloo ranks sharing the card.
 They import neither JAX nor the reference package, so they also run on
 a machine with a card and no JAX:
 
@@ -171,14 +173,56 @@ def test_kernel_heavy_tile(mode, op, device):
         assert torch.equal(k1[k], _launch(a, vwin, mode, op, lo, hi)[0])
 
 
+# custom scatter UDFs (no scatter_op): the kernel variant generated for
+# each, in the gather mode it is written for
+CUSTOM_UDFS = [
+    ("max", lambda s, w: torch.minimum(s, w)),
+    ("sum", lambda s, w: s * w * 0.5 + 0.25),
+    ("min", lambda s, w: torch.clamp(s - w, min=-1.5) * 0.1),
+    ("or", lambda s, w: s & 0xFFFF),
+]
+
+
+@pytest.mark.parametrize("kind", ["little", "big"])
+@pytest.mark.parametrize("mode,fn", CUSTOM_UDFS)
+def test_custom_udf_kernel_matches_plain(mode, fn, kind, device):
+    """A scatter UDF the kernel has no name for launches its generated
+    variant, bit-stable, equal to the plain version (rtol 1e-5 for
+    sum)."""
+    p, V_pad = _payload(kind, device)
+    p = dict(p, weights=torch.rand(p["weights"].shape, device=device,
+                                   generator=torch.Generator(
+                                       device).manual_seed(3)))
+    vp = _props(mode, V_pad, device)
+    before = gas_kernel.gas_tiles.launches
+    k1, _ = ops.run_lane(p, vp, fn, mode, "cuda", None)
+    k2, _ = ops.run_lane(p, vp, fn, mode, "cuda", None)
+    plain, _ = ops.run_lane(p, vp, fn, mode, "ref", None)
+    torch.cuda.synchronize()
+    assert gas_kernel.gas_tiles.launches == before + 2
+    assert torch.equal(k1, k2)
+    if mode == "sum":
+        torch.testing.assert_close(k1, plain, rtol=1e-5, atol=1e-7)
+    else:
+        assert torch.equal(k1, plain)
+
+
 def test_kernel_refuses_unnamed_scatter_op(device):
+    """A UDF outside the code generator's ops raises, naming the op, and
+    launches nothing (no fallback); a named op outside its modes too."""
     p, V_pad = _payload("little", device)
     vp = _props("sum", V_pad, device)
-    with pytest.raises(NotImplementedError, match="scatter op"):
-        ops.run_lane(p, vp, lambda x, w: x * 2 + w, "sum", "cuda", None)
+    before = gas_kernel.gas_tiles.launches
+    with pytest.raises(NotImplementedError, match="torch.sin"):
+        ops.run_lane(p, vp, lambda x, w: torch.sin(x) + w, "sum", "cuda",
+                     None)
+    with pytest.raises(NotImplementedError, match="control flow"):
+        ops.run_lane(p, vp, lambda x, w: x if x > 0 else w, "sum", "cuda",
+                     None)
     with pytest.raises(NotImplementedError, match="scatter op"):
         ops.run_lane(p, _props("or", V_pad, device), SCATTER_OPS["add_weight"],
                      "or", "cuda", "add_weight")
+    assert gas_kernel.gas_tiles.launches == before
 
 
 def test_kernel_refuses_wrong_dtype(device):
@@ -667,3 +711,64 @@ def test_trainer_step_on_card(lm_device, tmp_path):
     (l1, n1), (l2, n2) = seen
     assert l1 == pytest.approx(l2, rel=1e-4)
     assert n1 == pytest.approx(n2, rel=1e-4)
+
+
+# -- the LM substrate's sharding on the card --------------------------------
+
+MOE_WORKER = r'''
+import dataclasses, json, os, sys
+import torch
+import torch.distributed as dist
+
+
+def run(rank, world, d):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import common, moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(reduced(get_config("granite_moe_3b_a800m")),
+                              moe_dispatch="biglittle", dtype="float32")
+    with torch.device(dev):
+        lp = moe.init_layer_params(cfg, torch.Generator(dev).manual_seed(1))
+    lp = {k: lp[k] for k in ("router", "we_gate", "we_up", "we_down")}
+    x = torch.randn((8, 16, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(2)) * 0.5
+    local, _ = moe.moe_ffn(cfg, lp, x, capacity_factor=50.0)
+    dist.init_process_group("gloo", init_method=f"file://{d}/pg",
+                            rank=rank, world_size=world)
+    mesh = init_device_mesh("cpu", (1, world),
+                            mesh_dim_names=("data", "model"))
+    with common.use_mesh(mesh):
+        out, _ = moe.moe_ffn(cfg, lp, x, capacity_factor=50.0)
+    if rank == 0:
+        json.dump({"allclose": bool(torch.allclose(out, local, rtol=1e-4,
+                                                   atol=1e-5)),
+                   "max_abs_err": float((out - local).abs().max()),
+                   "device": str(out.device)}, open(f"{d}/out.json", "w"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    torch.multiprocessing.spawn(run, args=(2, sys.argv[1]), nprocs=2)
+'''
+
+
+def test_expert_sharded_moe_two_ranks_on_card(lm_device, tmp_path):
+    """granite-MoE reduced, f32: the expert-sharded branch of ``moe_ffn``
+    (E_pad 16 / 2) in two processes sharing the card over gloo (NCCL
+    takes one rank per GPU), against the single-device ``moe_ffn`` at
+    the reference's rtol 1e-4 / atol 1e-5."""
+    import json
+    import os
+    import subprocess
+    import sys
+    (tmp_path / "worker.py").write_text(MOE_WORKER)
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    r = subprocess.run([sys.executable, str(tmp_path / "worker.py"),
+                        str(tmp_path)], env={**os.environ, "PYTHONPATH": src},
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    res = json.loads((tmp_path / "out.json").read_text())
+    assert res["device"].startswith("cuda") and res["allclose"], res

@@ -107,9 +107,9 @@ def test_gather_matches_edge_oracle(stores):
 
 def test_port_imports_no_jax_and_no_reference():
     """Every module of the port, the streaming, sharding, obs, serving,
-    control and autotune packages, the SPMD path, the LM serving path and
-    the training path among them, imports neither JAX, ml_dtypes nor the
-    reference."""
+    control and autotune packages, the SPMD path, the LM serving path,
+    the training path, the UDF code generator and the LM sharding among
+    them, imports neither JAX, ml_dtypes nor the reference."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -132,7 +132,9 @@ def test_port_imports_no_jax_and_no_reference():
         "'models.whisper', 'tree', 'data.pipeline', 'optim.schedule', "
         "'optim.adamw', 'optim.adafactor', 'optim.grad_compress', "
         "'checkpoint.manager', 'train.fault_tolerance', 'train.step', "
-        "'train.loop', 'launch.train'):\n"
+        "'train.loop', 'launch.train', 'kernels.udf_codegen', "
+        "'sharding.specs', 'launch.mesh', 'launch.roofline', "
+        "'launch.dryrun'):\n"
         "    assert 'repro_torch.' + name in mods, name\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
@@ -144,7 +146,7 @@ def test_port_imports_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 73      # every module was imported
+    assert int(proc.stdout.strip()) >= 78      # every module was imported
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, small_graph,

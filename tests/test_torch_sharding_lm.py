@@ -1,0 +1,526 @@
+"""The LM substrate's sharding in the port against the JAX package:
+``sharding.specs`` rules, ``launch.roofline``'s arithmetic, the twins
+of ``tests/test_distributed.py``'s LM cases (sharded train step, sharded
+MoE, elastic restore) and one dry-run cell.
+
+* Specs: every leaf of all ten archs' params and AdamW / Adafactor
+  state (the port's meta ``param_specs``), every batch input and decode
+  cache, at meshes (16, 16), (2, 16, 16), (4, 2) and (1, 16), equal to
+  the reference's ``PartitionSpec`` entry for entry. The reference's
+  rules read only ``mesh.axis_names`` and ``mesh.devices.shape``, so a
+  duck-typed mesh serves there, with no forced devices.
+* Roofline: ``analytic_costs``, ``model_flops``, ``param_count`` and
+  ``roofline_terms`` (the same cost, collective dict and hardware table
+  given to both) equal the reference's for every arch and shape.
+* Distributed: one spawn of 4 CPU ranks over gloo on a ("data",
+  "model") = (2, 2) mesh (the reference's tests use (4, 2) and (2, 4) on
+  8 forced host devices; 4 ranks keep the host's load light), run in a
+  subprocess so no process group is left in the test process. The
+  sharded train step on qwen2 reduced, f32, from the reference's init
+  against the JAX single-device step (loss within 1e-3, params at rtol
+  1e-3 / atol 1e-4), and its gradients against ``jax.grad`` (also with
+  labels masked on one data shard, and with leaves sharded on "data");
+  the sharded granite MoE (the expert-sharded branch, E_pad 16 / 2) on
+  each rank's data shard against the single-device one at rtol 1e-4 /
+  atol 1e-5, its gradients too; a checkpoint saved from a ("data",) =
+  (4,) mesh restored bit-equal onto ("a", "b") = (2, 2) with spec
+  ("b", "a").
+* Dry run: one cell of reduced qwen2 (train, 8 x 64) on a fake group of
+  8 ranks, mesh (2, 4), in a subprocess: ok, and its argument bytes are
+  those of the reference's shard shapes; and the traced peak of a train
+  step at 2 and 6 layers, which grows per layer by less than a whole
+  layer (the weights are gathered layer by layer).
+"""
+import dataclasses
+import json
+import os
+import pickle
+import subprocess
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jcfg
+from repro.launch import roofline as jrl
+from repro.models.api import build_model as jbuild
+from repro.optim import adamw as jadamw
+from repro.sharding import specs as jspecs
+from repro.train.step import make_train_step as jmake_train_step
+from repro_torch import configs as tcfg
+from repro_torch.launch import roofline as trl
+from repro_torch.models.api import build_model as tbuild
+from repro_torch.optim.adafactor import adafactor
+from repro_torch.optim.adamw import adamw
+from repro_torch.sharding import specs
+from repro_torch.tree import flatten_with_path
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+MESHES = {"16x16": (("data", "model"), (16, 16)),
+          "2x16x16": (("pod", "data", "model"), (2, 16, 16)),
+          "4x2": (("data", "model"), (4, 2)),
+          "1x16": (("data", "model"), (1, 16))}
+LR = 1e-2                      # the reference test's AdamW step
+
+
+def _duck(names, shape):
+    """What the reference's rules read of a mesh."""
+    return types.SimpleNamespace(axis_names=names,
+                                 devices=np.empty(shape, np.int8))
+
+
+def _jpath(path):
+    return tuple(jax.tree_util.DictKey(k) if isinstance(k, str)
+                 else jax.tree_util.SequenceKey(k) for k in path)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", tcfg.ARCH_IDS)
+def test_specs_match_reference(arch, mesh, monkeypatch):
+    names, shape = MESHES[mesh]
+    duck, port = _duck(names, shape), specs.MeshShape(names, shape)
+    cfg = tcfg.get_config(arch)
+    params = tbuild(cfg).param_specs()
+    trees = {"params": params,
+             "adamw": adamw(state_dtype="bfloat16").state_specs(params),
+             "adafactor": adafactor().state_specs(params)}
+    n = 0
+    for name, tree in trees.items():
+        for path, leaf in flatten_with_path(tree)[0]:
+            want = tuple(jspecs.leaf_spec(_jpath(path), tuple(leaf.shape),
+                                          duck))
+            got = specs.leaf_spec(path, tuple(leaf.shape), port)
+            assert got == want, (name, path, tuple(leaf.shape))
+            n += 1
+    assert n > 20
+    # batch inputs and decode caches, at every shape the arch supports
+    monkeypatch.setattr(jspecs, "NamedSharding", lambda m, spec: spec)
+    jc = jcfg.get_config(arch)
+    for sname, sh in tcfg.SHAPES.items():
+        ins = tcfg.input_specs(cfg, sh)
+        inputs = flatten_with_path(ins.get("batch", {}))[0]
+        if "token" in ins:
+            inputs.append((("token",), ins["token"]))
+        for path, leaf in inputs:
+            assert specs.batch_spec(tuple(leaf.shape), port) == tuple(
+                jspecs.batch_spec(tuple(leaf.shape), duck)), (sname, path)
+        if sh.kind == "decode":
+            want = jspecs.cache_shardings(
+                jcfg.cache_specs(jc, sh.batch, sh.seq), duck)
+            got = {k: specs.cache_spec(tuple(v.shape), port) for k, v in
+                   tcfg.cache_specs(cfg, sh.batch, sh.seq).items()}
+            assert got == {k: tuple(v) for k, v in want.items()}, sname
+
+
+@pytest.mark.parametrize("shape", list(tcfg.SHAPES))
+@pytest.mark.parametrize("arch", tcfg.ARCH_IDS)
+def test_roofline_arithmetic_matches_reference(arch, shape):
+    cfg, jc = tcfg.get_config(arch), jcfg.get_config(arch)
+    sh, jsh = tcfg.SHAPES[shape], jcfg.SHAPES[shape]
+    assert trl.analytic_costs(cfg, sh) == jrl.analytic_costs(jc, jsh)
+    assert trl.model_flops(cfg, sh) == jrl.model_flops(jc, jsh)
+    for active in (False, True):
+        assert trl.param_count(cfg, active) == jrl.param_count(jc, active)
+    assert trl.cpu_upcast_estimate(cfg, 256) == jrl.cpu_upcast_estimate(
+        jc, 256)
+    coll = {"all-gather": 3e9, "all-reduce": 1e6, "total": 3.001e9}
+    cost = {"flops": 1e15, "bytes accessed": 2e11}
+    for chips in (256, 512):
+        assert trl.roofline_terms(cost, coll, chips, cfg, sh, hw=trl.HW) \
+            == jrl.roofline_terms(cost, coll, chips, jc, jsh, hw=trl.HW)
+    assert trl.roofline_terms(cost, coll, 256) == jrl.roofline_terms(
+        cost, coll, 256, hw=trl.HW)
+
+
+def test_roofline_table_is_the_h100s():
+    assert trl.HW["peak_flops"] == 989.4e12 and trl.HW["hbm_bw"] == 3.35e12
+    assert trl.HW["link_bw"] == 450e9 and "H100" in trl.HW["name"]
+
+
+# ---------------------------------------------------------------------------
+# the twins of tests/test_distributed.py, on 4 gloo ranks
+# ---------------------------------------------------------------------------
+
+WORKER = r'''
+import dataclasses, os, pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def run(rank, world, d):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/pg",
+                            rank=rank, world_size=world)
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import convert
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common, moe
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.sharding import specs
+    from repro_torch.train.step import (make_train_step, sharded_grads,
+                                        value_and_grad)
+    from repro_torch.tree import tree_map
+    out = {}
+    inp = pickle.load(open(f"{d}/in.pkl", "rb"))
+    mesh = make_host_mesh(model=2)                    # (2, 2)
+
+    # the sharded train step, qwen2 reduced, f32
+    cfg = dataclasses.replace(reduced(get_config("qwen2_1p5b")),
+                              dtype="float32")
+    model = build_model(cfg)
+    opt = adamw(lr=1e-2, weight_decay=0.0)
+    params = convert.lm_params_from_numpy(inp["params"], "cpu")
+    st = opt.init(params)
+    tok = torch.from_numpy(inp["tokens"])
+    batch = {"tokens": tok, "labels": tok}
+    pd = specs.distribute_tree(params, specs.tree_placements(params, mesh))
+    sd = specs.distribute_tree(st, specs.tree_placements(st, mesh))
+    bd = specs.distribute_tree(batch, specs.batch_placements(batch, mesh))
+    p2, s2, m2 = make_train_step(model, opt)(pd, sd, bd)
+    full = tree_map(lambda t: t.full_tensor().numpy(), p2)
+    out["train"] = {"loss": float(m2["loss"]), "params": full,
+                    "placements": str(pd["layers"]["wq"].placements)}
+
+    # the sharded gradients themselves: as placed by the rules; with
+    # labels masked on one data shard only (shards of unequal label
+    # counts); and with every leaf of >= 256 elements also sharded on
+    # "data" (gradients reduce-scattered there)
+    def grads(params, labels):
+        pd = specs.distribute_tree(params, specs.tree_placements(params,
+                                                                 mesh))
+        bd = specs.distribute_tree({"tokens": tok, "labels": labels},
+                                   specs.batch_placements(batch, mesh))
+        loss, g = sharded_grads(
+            lambda p, b, view: value_and_grad(model.loss, p, b, view),
+            pd, bd)
+        return {"loss": float(loss),
+                "grads": tree_map(lambda t: t.full_tensor().numpy(), g),
+                "placements": str(pd["layers"]["wq"].placements)}
+
+    out["grads"] = grads(params, tok)
+    out["grads_masked"] = grads(params, torch.from_numpy(inp["masked"]))
+    specs.FSDP_MIN = 256
+    out["grads_fsdp"] = grads(params, tok)
+
+    # the sharded MoE (expert-sharded branch) against the local one
+    mcfg = dataclasses.replace(reduced(get_config("granite_moe_3b_a800m")),
+                               moe_dispatch="biglittle")
+    lp_full = moe.init_layer_params(mcfg, torch.Generator().manual_seed(1))
+    lp = {k: lp_full[k].float()
+          for k in ("router", "we_gate", "we_up", "we_down")}
+    x = torch.randn((8, 16, mcfg.d_model),
+                    generator=torch.Generator().manual_seed(2)) * 0.5
+    local, _ = moe.moe_ffn(mcfg, lp, x, capacity_factor=50.0)
+    # this rank's data shard under the mesh, and on one device; the
+    # outputs gathered from the model rank 0 of each data rank
+    lo = mesh.get_local_rank("data") * 4
+    grads, outs = [], []
+    for m in (mesh, None):
+        xs = x[lo:lo + 4].clone().requires_grad_()
+        ws = {k: v.clone().requires_grad_() for k, v in lp.items()}
+        with common.use_mesh(m):
+            o, a = moe.moe_ffn(mcfg, ws, xs, capacity_factor=50.0)
+        (o * o).sum().backward()
+        grads.append([xs.grad] + [ws[k].grad for k in sorted(ws)])
+        outs.append(o.detach())
+    parts = [torch.empty_like(outs[0]) for _ in range(world)]
+    dist.all_gather(parts, outs[0].contiguous())
+    sharded = torch.cat([parts[r] for r in mesh.mesh[:, 0].tolist()])
+    out["moe"] = {"local": local.numpy(),
+                  "sharded": sharded.numpy(),
+                  "grad_err": max(float((a - b).abs().max()) for a, b in
+                                  zip(*grads)),
+                  "grad_max": max(float(b.abs().max()) for b in grads[1])}
+
+    # elastic restore onto another mesh layout
+    tree = {"w": torch.arange(64.0).reshape(8, 8)}
+    mesh1 = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+    t1 = specs.distribute_tree(tree, specs.Layout(mesh1, ("data",)))
+    mgr = CheckpointManager(f"{d}/ckpt")
+    mgr.save(5, t1, blocking=True)
+    mesh2 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("a", "b"))
+    step, back = mgr.restore(
+        like=tree, placements={"w": specs.Layout(mesh2, ("b", "a"))})
+    out["restore"] = {"step": step, "w": back["w"].full_tensor().numpy(),
+                      "local_shape": tuple(back["w"].to_local().shape),
+                      "placements": str(back["w"].placements)}
+
+    # constraints: a DTensor redistributed to the reference's spec
+    logits = specs.distribute(torch.arange(8 * 3 * 6.0).reshape(8, 3, 6),
+                              specs.replicated(mesh))
+    c = common.constrain_logits(logits)
+    a = common.constrain_act(logits[:, :, :5].redistribute(
+        mesh, logits.placements))
+    out["constrain"] = {"logits": str(c.placements),
+                        "act": str(a.placements),
+                        "equal": bool(torch.equal(c.full_tensor(),
+                                                  logits.full_tensor()))}
+    if rank == 0:
+        pickle.dump(out, open(f"{d}/out.pkl", "wb"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    torch.multiprocessing.spawn(run, args=(4, sys.argv[1]), nprocs=4)
+'''
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+
+
+@pytest.fixture(scope="module")
+def reference_step():
+    """The JAX single-device train step of tests/test_distributed.py."""
+    cfg = dataclasses.replace(jcfg.reduced(jcfg.get_config("qwen2_1p5b")),
+                              dtype="float32")
+    model = jbuild(cfg)
+    opt = jadamw.adamw(lr=LR, weight_decay=0.0)
+    params = model.init(jax.random.key(0))
+    rs = np.random.RandomState(0)
+    tok = rs.randint(0, cfg.vocab_size, (8, 32)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(tok)}
+    p1, _, m1 = jax.jit(jmake_train_step(model, opt))(
+        params, opt.init(params), batch)
+    grads = jax.grad(model.loss)(params, batch)
+    # labels masked on the first data shard's rows only (mesh (2, 2):
+    # rows 0-3), so the two shards hold unequal label counts
+    masked = tok.copy()
+    masked[:3, :20] = -1
+    mbatch = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(masked)}
+    mloss, mgrads = jax.value_and_grad(model.loss)(params, mbatch)
+    return (jax.tree.map(np.asarray, params), tok, float(m1["loss"]),
+            jax.tree.map(np.asarray, p1), jax.tree.map(np.asarray, grads),
+            masked, float(mloss), jax.tree.map(np.asarray, mgrads))
+
+
+@pytest.fixture(scope="module")
+def distributed(tmp_path_factory, reference_step):
+    d = tmp_path_factory.mktemp("dist")
+    params, tok = reference_step[:2]
+    with open(d / "in.pkl", "wb") as f:
+        pickle.dump({"params": params, "tokens": tok,
+                     "masked": reference_step[5]}, f)
+    (d / "worker.py").write_text(WORKER)
+    r = subprocess.run([sys.executable, str(d / "worker.py"), str(d)],
+                       env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    with open(d / "out.pkl", "rb") as f:
+        return pickle.load(f)
+
+
+ADAM_EPS = 1e-8                # its eps
+
+
+def test_sharded_train_step_matches_reference(distributed, reference_step):
+    """Loss within 1e-3 and params at rtol 1e-3 / atol 1e-4 of the JAX
+    single-device step, as the reference's test holds its own sharded
+    step, but for the elements whose reference gradient is below 10x
+    Adam's eps. A first AdamW step moves an element by lr * g / (|g| +
+    eps): +-lr wherever |g| >> eps, whatever the rounding, but where
+    |g| is near eps (here ``bk``'s lowest-frequency RoPE dims, which
+    barely rotate over 32 positions and so barely move the scores) the
+    step is proportional to g itself, and g's rounding, which depends on
+    the order of the batch sum (the data ranks' partial sums here),
+    moves it by up to lr * rounding / eps. Those elements (at most 0.1 %
+    of them) are held to Adam's bound, lr; their gradients are held to
+    ``jax.grad`` directly in :func:`test_sharded_grads_match_reference`.
+    Elements whose gradient is exactly zero (the padded vocabulary rows)
+    stay under the tolerance: they do not move in either package."""
+    _, _, loss, want, grads = reference_step[:5]
+    got = distributed["train"]
+    assert "Shard" in got["placements"]          # the params were sharded
+    assert abs(got["loss"] - loss) < 1e-3
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_d = jax.tree_util.tree_leaves(grads)
+    flat_g = flatten_with_path(got["params"])[0]
+    assert len(flat_g) == len(flat_w) == len(flat_d)
+    n_small = n_all = 0
+    for (gp, g), (wp, w), dg in zip(flat_g, flat_w, flat_d):
+        assert tuple(k.key for k in wp) == gp
+        small = (np.abs(dg) < 10 * ADAM_EPS) & (dg != 0)
+        n_small, n_all = n_small + int(small.sum()), n_all + small.size
+        assert np.all(np.abs(g - w)[small] <= LR), gp
+        np.testing.assert_allclose(g[~small], w[~small], rtol=1e-3,
+                                   atol=1e-4, err_msg=str(gp))
+    assert n_small <= 1e-3 * n_all
+
+
+def _assert_grads(got, want):
+    """Each leaf at rtol 1e-4 and an atol of 2e-6 of the leaf's largest
+    reference gradient. The unsharded port's own gradients already
+    differ from ``jax.grad``'s by up to 5.4e-7 on ``embed`` (largest
+    gradient 0.48: its scatter-add sums the tokens' rows in another
+    order), beyond a flat 1e-7; a gradient off by a data rank's share
+    is off by half."""
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_g = flatten_with_path(got)[0]
+    assert len(flat_g) == len(flat_w)
+    for (gp, g), (wp, w) in zip(flat_g, flat_w):
+        assert tuple(k.key for k in wp) == gp
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=2e-6 * float(np.abs(w).max()),
+                                   err_msg=str(gp))
+
+
+@pytest.mark.parametrize("case", ["grads", "grads_masked", "grads_fsdp"])
+def test_sharded_grads_match_reference(distributed, reference_step, case):
+    """The sharded step's gradients, summed over the data ranks and cut
+    back to each weight's shard, against ``jax.grad`` of the reference
+    on one device (:func:`_assert_grads`): with the rules' placements;
+    with labels masked on one data shard only, so that the loss must be
+    the global batch's mean, not the mean of the shards' means; and with
+    leaves of >= 256 elements also sharded on "data"."""
+    got = distributed[case]
+    if case == "grads_masked":
+        loss, want = reference_step[6], reference_step[7]
+    else:
+        loss, want = reference_step[2], reference_step[4]
+    assert abs(got["loss"] - loss) < 1e-5
+    if case == "grads_fsdp":          # wq is sharded on both mesh dims
+        assert got["placements"] == "(Shard(dim=1), Shard(dim=2))"
+    _assert_grads(got["grads"], want)
+
+
+def test_sharded_moe_matches_local(distributed):
+    m = distributed["moe"]
+    assert np.allclose(m["local"], m["sharded"], rtol=1e-4, atol=1e-5)
+
+
+def test_sharded_moe_gradients_match_local(distributed):
+    """The expert-sharded branch's backward: its entry sums the ranks'
+    partial input gradients over "model", so every rank holds the
+    single-device gradients of its data shard."""
+    m = distributed["moe"]
+    assert m["grad_max"] > 0
+    assert m["grad_err"] <= 1e-5 * max(1.0, m["grad_max"])
+
+
+def test_elastic_checkpoint_restore_new_mesh(distributed):
+    r = distributed["restore"]
+    assert r["step"] == 5
+    np.testing.assert_array_equal(r["w"], np.arange(64.0).reshape(8, 8))
+    assert r["local_shape"] == (4, 4)
+    assert r["placements"] == "(Shard(dim=1), Shard(dim=0))"
+
+
+def test_constraints_redistribute_dtensors(distributed):
+    """``constrain_logits`` puts the batch on "data" and the vocab on
+    "model"; ``constrain_act`` the batch on "data" (a dim that does not
+    divide stays replicated); the values do not change. On a plain
+    tensor both are the identity."""
+    from repro_torch.models import common
+    c = distributed["constrain"]
+    assert c["logits"] == "(Shard(dim=0), Shard(dim=2))"
+    assert c["act"] == "(Shard(dim=0), Replicate())"
+    assert c["equal"]
+    x = torch.ones(4, 3, 6)
+    assert common.constrain_logits(x) is x and common.constrain_act(x) is x
+
+
+# ---------------------------------------------------------------------------
+# one dry-run cell on a fake group
+# ---------------------------------------------------------------------------
+
+DRYRUN = r'''
+import dataclasses, json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeSpec, get_config, reduced
+from repro_torch.launch import dryrun, mesh as tmesh
+from repro_torch.models.api import build_model
+dryrun.init_fake_group(8)
+mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+rec = dryrun.trace_cell(reduced(get_config("qwen2_1p5b")),
+                        ShapeSpec("train_small", "train", 64, 8), mesh)
+# the traced peak of a train step at 2 and 6 layers of a wider config
+peaks = {}
+m18 = init_device_mesh("cpu", (1, 8), mesh_dim_names=("data", "model"))
+for layers in (2, 6):
+    cfg = dataclasses.replace(reduced(get_config("qwen2_1p5b"), layers),
+                              d_model=256, d_ff=1024)
+    r = dryrun.trace_cell(cfg, ShapeSpec("t", "train", 16, 8), m18)
+    stack = build_model(cfg).param_specs()["layers"]
+    peaks[layers] = [r["memory"]["peak_traced_bytes"],
+                     sum(v.numel() * v.element_size()
+                         for v in stack.values()) // layers]
+meshes = {}
+m = tmesh.make_host_mesh(model=4, device_type="cpu")
+meshes["host"] = [list(m.mesh_dim_names), list(m.mesh.shape)]
+for world, multi in ((256, False), (512, True)):
+    dryrun.init_fake_group(world)
+    m = tmesh.make_production_mesh(multi_pod=multi, device_type="cpu")
+    meshes[str(world)] = [list(m.mesh_dim_names), list(m.mesh.shape)]
+print(json.dumps({"rec": rec, "meshes": meshes, "peaks": peaks}))
+'''
+
+
+@pytest.fixture(scope="module")
+def dryrun_out():
+    r = subprocess.run([sys.executable, "-c", DRYRUN], env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _shard_bytes(tree, duck, rule):
+    sizes = dict(zip(duck.axis_names, duck.devices.shape))
+    total = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        spec = tuple(rule(path, leaf))
+        n = int(np.prod(leaf.shape))
+        for ax in spec:
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                n //= sizes.get(a, 1) if a else 1
+        total += n * np.dtype(leaf.dtype).itemsize
+    return total
+
+
+def test_dryrun_cell_on_fake_group(dryrun_out):
+    rec = dryrun_out["rec"]
+    # the reference's shard shapes of the same step's arguments
+    cfg = jcfg.reduced(jcfg.get_config("qwen2_1p5b"))
+    duck = _duck(("data", "model"), (2, 4))
+    psds = jbuild(cfg).param_specs()
+    ssds = jadamw.adamw(lr=3e-4, state_dtype="bfloat16").state_specs(psds)
+    batch = jcfg.input_specs(cfg, jcfg.ShapeSpec("t", "train", 64, 8))[
+        "batch"]
+    leaf = lambda p, l: jspecs.leaf_spec(p, l.shape, duck)      # noqa: E731
+    want = (_shard_bytes(psds, duck, leaf) + _shard_bytes(ssds, duck, leaf)
+            + _shard_bytes(batch, duck,
+                           lambda p, l: jspecs.batch_spec(l.shape, duck)))
+    assert rec["memory"]["argument_bytes"] == want
+    assert rec["memory"]["alias_bytes"] > 0
+    # weights gathered for use; grads averaged over "data" (no leaf of
+    # the reduced config is big enough to shard on "data" too)
+    assert rec["collectives"]["all-gather"] > 0
+    assert rec["collectives"]["all-reduce"] > 0
+    assert rec["traced_flops_per_rank"] > 0
+
+
+def test_dryrun_step_holds_one_layer_gathered(dryrun_out):
+    """ZeRO-3: a layer's whole weights are gathered only while it runs,
+    so the traced peak of a train step on 8 model ranks grows per layer
+    by the layer's shards, params, AdamW state and gradient (about half
+    a whole layer here), not by its whole weights and gradient (two
+    whole layers and more, were the step to gather the model)."""
+    (p2, layer), (p6, _) = (dryrun_out["peaks"][k] for k in ("2", "6"))
+    assert 0 < (p6 - p2) / 4 < layer
+
+
+def test_meshes_on_fake_groups(dryrun_out):
+    """The production meshes (256 and 512 ranks) and a host mesh over 8
+    ranks have the reference's shapes and dim names."""
+    assert dryrun_out["meshes"] == {
+        "host": [["data", "model"], [2, 4]],
+        "256": [["data", "model"], [16, 16]],
+        "512": [["pod", "data", "model"], [2, 16, 16]]}
