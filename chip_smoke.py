@@ -198,10 +198,32 @@ Phases (any failed check exits non-zero before the last line):
    "model") = (1, 2) mesh: the expert-sharded branch (E_pad 48 / 2)
    against the single-device ``moe_ffn`` at rtol 1e-4 / atol 1e-5 (its
    times are not multi-card times). 16c: the dry run
-   (``launch.dryrun``) of qwen2 ``train_4k`` and granite ``decode_32k``
-   at the production pod mesh on a fake group of 256 ranks: each
-   record's status, rank 0's argument bytes, traced peak and collective
-   bytes.
+   (``launch.dryrun``) of qwen2 ``train_4k`` and ``prefill_32k``,
+   command-r ``prefill_32k`` and granite ``decode_32k`` at the
+   production pod mesh on a fake group of 256 ranks: each record's
+   status, split over "model", rank 0's argument bytes, traced peak,
+   collective bytes and traced FLOPs beside the roofline's analytic
+   share a rank. Each must fit 80 GB; qwen2 ``train_4k`` (the batch
+   split) must trace at most 1.25x its analytic share, command-r
+   ``prefill_32k`` (heads and FFN split) at most a tenth of the 6.51e15
+   FLOP a rank it traced while every model rank computed its group's
+   whole work.
+17. The sharded step's compute split over "model" (``phase_split``):
+   qwen2-1.5B at full width in bf16, one AdamW step from the seeded
+   init, in two spawned processes sharing the card over gloo on a
+   ("data", "model") = (1, 2) mesh, their all-gathers, reduce-scatters
+   and all-to-alls staged through host memory (gloo takes no all-gather
+   of CUDA tensors). 17a: 4 x 512 tokens, the batch split (2 rows a
+   rank); 17b: 1 x 512, Megatron's split (6 of 12 heads, 1 of 2 KV
+   heads, 4,480 of 8,960 FFN columns). Each against the unsharded step
+   (rank 0, computed and freed before the ranks place anything): the
+   split taken, loss within SHARD_TOL relative, params within SHARD_TOL
+   of each leaf's largest (an element whose unsharded gradient is
+   within SHARD_TOL of the leaf's largest is held to 2 lr more: AdamW's
+   first step moves it by +-lr whatever the gradient's size), each
+   rank's FLOPs (``FlopCounterMode``) at most 0.6 of the unsharded
+   step's; per rank the step's ms (CUDA events; two processes on one
+   card, not multi-card times) and peak over the arguments.
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -2804,7 +2826,18 @@ SHARD_TRAIN = (4, 512)            # 16a: qwen2-1.5B bf16, one step, B x S
 # with every expert's load checked to stay within its capacity
 SHARD_MOE = (8, 512, 10.0)
 SHARD_TOL = 2e-2                  # 16a: loss and params, relative
-DRYRUN_CELLS = [(LM_DENSE, "train_4k"), (LM_MOE, "decode_32k")]
+# 16c: the dry run's cells, each with the most FLOP a rank may trace
+# (None: recorded, no bound). qwen2 train_4k splits its batch over
+# "model": within 1.25x the roofline's analytic share a rank; command-r
+# prefill_32k (2 rows a data shard) splits heads and FFN: at least 10x
+# under the 6.51e15 a rank traced while every model rank computed its
+# group's whole work; qwen2 prefill_32k splits only its FFN dim, and a
+# decode step nothing
+DRYRUN_CELLS = {(LM_DENSE, "train_4k"): lambda r: 1.25 * r[
+                    "analytic_flops_per_rank"],
+                (LM_MOE, "decode_32k"): None,
+                ("command_r_35b", "prefill_32k"): lambda r: 6.51e15 / 10,
+                (LM_DENSE, "prefill_32k"): None}
 
 
 def _rel_err(a, b) -> float:
@@ -2998,17 +3031,27 @@ def _shard_moe() -> dict:
 
 
 def _shard_dryrun() -> dict:
-    """16c: one dry-run cell per family at the pod mesh (256 fake ranks):
-    each record's status, rank 0's argument bytes, traced peak and
-    collective bytes."""
+    """16c: the dry run of ``DRYRUN_CELLS`` at the pod mesh (256 fake
+    ranks): each record's status, the split over "model", rank 0's
+    argument bytes, traced peak, collective bytes and traced FLOPs
+    beside the analytic share a rank; each must fit 80 GB and trace at
+    most its cell's bound."""
     import torch.distributed as dist
     from repro_torch.launch import dryrun
     out = {}
     try:
-        for arch, shape in DRYRUN_CELLS:
+        for (arch, shape), bound in DRYRUN_CELLS.items():
             rec = dryrun.run_cell(arch, shape, False, force=True)
             check(rec["status"] == "ok",
                   f"16c: dry run {arch} {shape}: {rec.get('error')}")
+            check(rec["memory"]["fits_80g_hbm"],
+                  f"16c: {arch} {shape} traces a peak of "
+                  f"{rec['memory']['peak_traced_bytes']} B a rank")
+            if bound is not None:
+                check(rec["traced_flops_per_rank"] <= bound(rec),
+                      f"16c: {arch} {shape} traces "
+                      f"{rec['traced_flops_per_rank']:.4g} FLOP a rank, "
+                      f"more than {bound(rec):.4g}")
             out[f"{arch}.{shape}"] = {
                 "status": rec["status"], "mesh": rec["mesh"],
                 "trace_s": rec["trace_s"], "memory": {
@@ -3017,6 +3060,8 @@ def _shard_dryrun() -> dict:
                         "peak_traced_bytes", "fits_80g_hbm")},
                 "collectives": rec["collectives"],
                 "traced_flops_per_rank": rec["traced_flops_per_rank"],
+                "analytic_flops_per_rank": rec["analytic_flops_per_rank"],
+                "model_split": rec["model_split"],
                 "roofline_dominant": rec["roofline"]["dominant"],
                 "roofline_bound_s": rec["roofline"]["roofline_bound_s"]}
     finally:
@@ -3041,6 +3086,247 @@ def phase_sharding(device) -> dict:
     out["dryrun"] = _shard_dryrun()
     out["t_dryrun_s"] = time.perf_counter() - t0
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the sharded step's compute split over "model"
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5B bf16, one AdamW step, B x S, on ("data", "model") = (1, 2):
+# 17a's 4 rows split over "model" (2 a rank), 17b's 1 row does not, so
+# the heads (6 of 12, 1 of 2 KV heads) and the FFN dim (4,480 of 8,960)
+SPLIT_CASES = {"17a": ((4, 512), "batch"), "17b": ((1, 512), "heads+ffn")}
+SPLIT_FLOP_SHARE = 0.6            # a rank's FLOPs over the unsharded step's
+SPLIT_LR = 3e-4                   # AdamW's (its default, as 16a's)
+# gloo takes an all-reduce of CUDA tensors (phase 16b) but a gloo
+# all-gather of CUDA tensors kills the process, so phase 17's two
+# processes send these through host memory
+STAGED_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                      "all_to_all_single")
+
+
+def _stage_through_host(counts: dict):
+    """This process's transport for phase 17: the CUDA kernel of each of
+    ``STAGED_COLLECTIVES`` (the functional collectives DTensor and the
+    model call) becomes one that copies its input to the host, runs the
+    gloo collective there and copies the result back, counting calls in
+    ``counts``. The model path calls the same collectives; only where
+    their bytes travel changes. Returns the registration, which lasts as
+    long as it is referenced."""
+    import torch
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name in STAGED_COLLECTIVES:
+        def staged(x, *args, op=getattr(torch.ops._c10d_functional,
+                                        name).default, name=name):
+            counts[name] = counts.get(name, 0) + 1
+            out = torch.ops._c10d_functional.wait_tensor(op(x.cpu(), *args))
+            return out.to(x.device)
+        lib.impl(name, staged, "CUDA")
+    return lib
+
+
+def _held_to_unsharded(got: list, ref: dict) -> dict:
+    """Phase 17's params (``got``, leaf by leaf) against the unsharded
+    step's: the largest difference over the leaf's largest |param|, as
+    16a holds it, over every element and over the elements whose
+    unsharded gradient is beyond SHARD_TOL of the leaf's largest. AdamW's
+    first step moves an element by +-lr whatever its gradient's size, so
+    where the gradient is within that tolerance of zero a summation in
+    another order can turn its sign and the move: those elements are
+    held to 2 lr beyond SHARD_TOL (``near_zero_beyond_tol_max``, the
+    largest excess; ``near_zero_flipped``, how many exceed SHARD_TOL),
+    as ``tests/test_torch_sharding_lm.py`` holds such elements to lr.
+    ``leaves``: per leaf, its error over every element, the count beyond
+    SHARD_TOL and the largest of their unsharded gradients over the
+    leaf's largest."""
+    every = settled = excess = 0.0
+    flipped = 0
+    rows = {}
+    for name, g, w, d in zip(ref["paths"], got, ref["params"], ref["grads"]):
+        g, w, d = (t.to(got[0].device).float() for t in (g, w, d))
+        scale = w.abs().max().clamp_min(1e-30)
+        diff = (g - w).abs() / scale
+        near0 = d.abs() <= SHARD_TOL * d.abs().max()
+        beyond = diff > SHARD_TOL
+        rows[name] = [float(diff.max()), int(beyond.sum()), float(
+            (d.abs() * beyond).max() / d.abs().max().clamp_min(1e-30))]
+        every = max(every, rows[name][0])
+        if (~near0).any():
+            settled = max(settled, float(diff[~near0].max()))
+        if near0.any():
+            loose = (diff[near0] - SHARD_TOL) * scale
+            flipped += int((loose > 0).sum())
+            excess = max(excess, float(loose.max()))
+    return {"params_max_rel_err": every,
+            "params_max_rel_err_settled": settled,
+            "near_zero_flipped": flipped,
+            "near_zero_beyond_tol_max": excess, "leaves": rows}
+
+
+def _event_ms(fn) -> float:
+    """Device ms of one ``fn()`` between two CUDA events."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def _split_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """Phase 17, one of two processes on the one card: qwen2-1.5B's
+    AdamW step on each of ``SPLIT_CASES``' batches, unsharded (rank 0,
+    before either rank places anything, then freed) and placed by
+    ``specs`` on a ("data", "model") = (1, 2) gloo mesh, from the same
+    seeded init. Per case and rank: the split the step took, loss,
+    params, step ms (CUDA events), peak over the arguments and FLOPs
+    (``FlopCounterMode``). Rank 0 writes every rank's numbers to
+    ``tmp/split.json``. ``device`` is "cuda" (the card's first) but for
+    a rehearsal on the CPU."""
+    import datetime
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.sharding import specs
+    from repro_torch.train.step import make_train_step, value_and_grad
+    from repro_torch.tree import flatten_with_path, leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = torch.device(device, 0)
+    staged: dict = {}
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        transport = _stage_through_host(staged)   # kept while it runs
+    cfg = get_config(LM_DENSE)
+    model = build_model(cfg)
+    opt = adamw(lr=SPLIT_LR)
+    step = make_train_step(model, opt)
+
+    def batch_of(b, s):
+        tok = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+            0, cfg.vocab_size, (b, s), dtype=np.int64).astype(np.int32))
+        return {"tokens": tok.to(device), "labels": tok.to(device)}
+
+    def counted(fn):
+        with FlopCounterMode(display=False) as fc:
+            out = fn()
+        return out, fc.get_total_flops()
+
+    res = {"rank": rank, "cases": {}}
+    ref = {}
+    if rank == 0:
+        params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+        state = opt.init(params)
+        for case, ((b, s), _) in SPLIT_CASES.items():
+            batch = batch_of(b, s)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            # (params, metrics): the new state is dropped at once
+            (p1, m1), flops = counted(lambda: step(params, state, batch)[::2])
+            ref[case] = {
+                "loss": float(m1["loss"]), "flops": flops,
+                "params": [t.cpu() for t in leaves(p1)],
+                "paths": [".".join(k) for k, _ in flatten_with_path(p1)[0]],
+                "grads": [t.cpu() for t in leaves(value_and_grad(
+                    model.loss, params, batch)[1])],
+                "peak_over_args_bytes":
+                    torch.cuda.max_memory_allocated(device) - base}
+            del p1, m1
+            ref[case]["step_ms"] = _event_ms(
+                lambda: step(params, state, batch))
+        del params, state
+        _free()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "rendezvous"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = init_device_mesh(device.type, (1, world),
+                                mesh_dim_names=("data", "model"))
+        params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+        pd = specs.distribute_tree(params, specs.tree_placements(params,
+                                                                 mesh))
+        del params
+        sd = opt.init(pd)                 # the moments placed as the params
+        sd["step"] = specs.distribute(sd["step"], specs.replicated(mesh))
+        for case, ((b, s), _) in SPLIT_CASES.items():
+            batch = batch_of(b, s)
+            bd = specs.distribute_tree(batch, specs.batch_placements(batch,
+                                                                     mesh))
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            (p2, m2), flops = counted(lambda: step(pd, sd, bd)[::2])
+            out = {"split": m2["model_split"], "loss": float(m2["loss"]),
+                   "flops": flops, "shape": [b, s],
+                   "peak_over_args_bytes":
+                       torch.cuda.max_memory_allocated(device) - base}
+            got = [t.full_tensor() for t in leaves(p2)]
+            del p2, m2
+            dist.barrier()                # the ranks' steps start together
+            out["step_ms"] = _event_ms(lambda: step(pd, sd, bd))
+            if rank == 0:
+                out.update(_held_to_unsharded(got, ref[case]))
+            del got
+            res["cases"][case] = out
+        res["staged_collectives"] = dict(staged)
+        every = [None] * world
+        dist.all_gather_object(every, res)
+        if rank == 0:
+            for case, r in ref.items():
+                del r["params"], r["grads"], r["paths"]
+            with open(os.path.join(tmp, "split.json"), "w") as f:
+                json.dump({"unsharded": ref, "ranks": every}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        if device.type == "cuda":
+            del transport
+
+
+def phase_split() -> dict:
+    """Phase 17: :func:`_split_rank` in two spawned processes sharing
+    the card over gloo (NCCL takes one rank per GPU): per case the split
+    the step took, loss and params within SHARD_TOL of the unsharded
+    step, each rank's FLOPs at most SPLIT_FLOP_SHARE of its. Two ranks
+    on one card: their times are not multi-card times."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    _free()
+    reserved = torch.cuda.memory_reserved()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_split_rank, args=(2, tmp, "cuda"), nprocs=2)
+        with open(os.path.join(tmp, "split.json")) as f:
+            res = json.load(f)
+    res["parent_reserved_bytes"] = reserved
+    log("phase 17: " + json.dumps(res))
+    for case, (_, split) in SPLIT_CASES.items():
+        ref = res["unsharded"][case]
+        for r in res["ranks"]:
+            got = r["cases"][case]
+            check(got["split"] == split,
+                  f"{case}: rank {r['rank']} took split {got['split']}, "
+                  f"not {split}")
+            check(abs(got["loss"] - ref["loss"]) <= SHARD_TOL
+                  * abs(ref["loss"]), f"{case}: rank {r['rank']} loss "
+                  f"{got['loss']} vs unsharded {ref['loss']}")
+            check(got["flops"] <= SPLIT_FLOP_SHARE * ref["flops"],
+                  f"{case}: rank {r['rank']} runs {got['flops']:.4g} FLOP, "
+                  f"the unsharded step {ref['flops']:.4g}")
+        got = res["ranks"][0]["cases"][case]
+        check(got["params_max_rel_err_settled"] <= SHARD_TOL
+              and got["near_zero_beyond_tol_max"] <= 2 * SPLIT_LR,
+              f"{case}: params off by {got['params_max_rel_err_settled']} "
+              f"relative, {got['near_zero_beyond_tol_max']} beyond it where "
+              f"the gradient is near zero")
+    return res
 
 
 def main(argv=None) -> int:
@@ -3355,16 +3641,44 @@ def main(argv=None) -> int:
             f"{m['single_ms']:.1f} ms ({card})")
         for cell, r in sh["dryrun"].items():
             log(f"phase 16c: dry run {cell} at {r['mesh']} (256 fake ranks, "
-                f"meta): {r['status']}, rank 0 argument "
+                f"meta): {r['status']}, split {r['model_split']}, rank 0 "
+                f"argument "
                 f"{r['memory']['argument_bytes']} B, traced peak "
                 f"{r['memory']['peak_traced_bytes']} B (fits 80 GB: "
                 f"{r['memory']['fits_80g_hbm']}), collectives "
                 f"{r['collectives']['total']:.6g} B "
                 f"({json.dumps(r['collectives'])}), traced "
-                f"{r['traced_flops_per_rank']:.6g} FLOP a rank, traced in "
+                f"{r['traced_flops_per_rank']:.6g} FLOP a rank (analytic "
+                f"share {r['analytic_flops_per_rank']:.6g}), traced in "
                 f"{r['trace_s']} s")
         log(f"phase 16: sharding ok ({time.perf_counter() - t0:.1f} s): "
             + json.dumps(sh))
+        t0 = time.perf_counter()
+        sp = result["split"] = phase_split()
+        staged = [r["staged_collectives"] for r in sp["ranks"]]
+        log(f"phase 17: two gloo processes on one card stage their "
+            f"all-gathers, reduce-scatters and all-to-alls through host "
+            f"memory (calls a rank: {json.dumps(staged)})")
+        for case, ((b, s), split) in SPLIT_CASES.items():
+            ref = sp["unsharded"][case]
+            ranks = [r["cases"][case] for r in sp["ranks"]]
+            log(f"phase {case}: {LM_DENSE} full width bf16, one AdamW step "
+                f"on {b} x {s} over (data, model) = (1, 2), split "
+                f"{split}: loss {ranks[0]['loss']:.6f} vs {ref['loss']:.6f} "
+                f"unsharded, params max rel err "
+                f"{ranks[0]['params_max_rel_err_settled']:.3g} "
+                f"({ranks[0]['params_max_rel_err']:.3g} with the "
+                f"{ranks[0]['near_zero_flipped']} elements of near-zero "
+                f"gradient that moved the other way); FLOP a rank "
+                f"{[r['flops'] for r in ranks]} vs {ref['flops']} "
+                f"unsharded; step ms a rank (CUDA events, two processes "
+                f"sharing one card: not multi-card times) "
+                f"{[round(r['step_ms'], 1) for r in ranks]} vs "
+                f"{ref['step_ms']:.1f} unsharded; peak over the arguments "
+                f"a rank {[r['peak_over_args_bytes'] for r in ranks]} B vs "
+                f"{ref['peak_over_args_bytes']} B unsharded ({card})")
+        log(f"phase 17: split over model ok ({time.perf_counter() - t0:.1f} "
+            f"s)")
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1

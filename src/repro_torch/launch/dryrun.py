@@ -33,7 +33,13 @@ the reference's shape, with these differences:
     keep their dtype;
   * ``collectives`` are the counted functional collectives of rank 0's
     program, under the reference's names; ``traced_flops_per_rank`` is
-    ``FlopCounterMode``'s count of that program.
+    ``FlopCounterMode``'s count of that program, beside
+    ``analytic_flops_per_rank``, the roofline's ``flops_exec`` over the
+    chips (what a rank would run were the work split evenly);
+  * ``model_split`` names what a rank computes of its "model" group's
+    work (``specs.ModelSplit``): "batch" (its rows of the data shard),
+    Megatron's "heads+ffn", "heads" or "ffn", or "none" (every rank the
+    group's whole work, as every decode step does).
 
 A cell that raises is recorded with its error and the run goes on (the
 reference's ``run_cell``); the run exits 1 if any cell errors. Results go
@@ -142,11 +148,11 @@ def _batch_local(x):
     return x.redistribute(x.device_mesh, keep).to_local()
 
 
-def _view(params, mesh, dims):
+def _view(params, mesh, dims, split):
     """The tree a model reads from DTensor ``params``: its layers
     gathered one at a time as the model runs (``shards.model_view``)."""
     local, placements = shards.local_shards(params)
-    return shards.model_view(local, placements, mesh, dims)
+    return shards.model_view(local, placements, mesh, dims, split)
 
 
 def _reshard(local, like):
@@ -183,6 +189,10 @@ def trace_cell(cfg, shape, mesh) -> dict:
             ins["batch"], specs.batch_placements(ins["batch"], mesh))
         dims = shards.batch_dims(bd, mesh)
         args = (pd, bd)
+        local_batch = tree_map(_batch_local, bd)
+        split = specs.model_split(cfg, leaves(local_batch)[0].shape[0],
+                                  mesh)
+        local_batch, dims = shards.split_rows(local_batch, mesh, dims, split)
     else:
         cd = specs.distribute_tree(
             ins["cache"], specs.cache_placements(ins["cache"], mesh))
@@ -190,6 +200,7 @@ def trace_cell(cfg, shape, mesh) -> dict:
             mesh, specs.batch_spec(tuple(ins["token"].shape), mesh)))
         dims = shards.batch_dims(tok, mesh)
         args = (pd, cd, tok, ins["length"])
+        split = specs.ModelSplit(specs.mesh_sizes(mesh).get("model", 1))
     counter = rl.CollectiveCounter()
     flops = FlopCounterMode(display=False)
     mem = MemoryTracker([t for t in leaves(shards.local_shards(args)[0])
@@ -198,18 +209,20 @@ def trace_cell(cfg, shape, mesh) -> dict:
         if shape.kind == "train":
             new_p, new_s, metrics = step(pd, sd, bd)
             outs, alias = (new_p, new_s, metrics), (new_p, new_s)
+            split_name = metrics["model_split"]
         elif shape.kind == "prefill":
-            with torch.no_grad(), common.use_mesh(mesh, dims):
-                outs = model.prefill(_view(pd, mesh, dims),
-                                     tree_map(_batch_local, bd))
-            alias = ()
+            with torch.no_grad(), common.use_mesh(mesh, dims, split):
+                outs = model.prefill(_view(pd, mesh, dims, split),
+                                     local_batch)
+            alias, split_name = (), split.name
         else:
-            with torch.no_grad(), common.use_mesh(mesh, dims):
+            with torch.no_grad(), common.use_mesh(mesh, dims, split):
                 logits, cache = model.decode_step(
-                    _view(pd, mesh, dims), tree_map(_batch_local, cd),
+                    _view(pd, mesh, dims, split), tree_map(_batch_local, cd),
                     _batch_local(tok), shape.seq - 1)
             new_cache = tree_map(_reshard, cache, cd)
             outs, alias = (logits, new_cache), new_cache
+            split_name = split.name
     arg_b, out_b, alias_b = (_local_bytes(args), _local_bytes(outs),
                              _local_bytes(alias))
     peak = arg_b + mem.peak
@@ -231,6 +244,9 @@ def trace_cell(cfg, shape, mesh) -> dict:
         },
         "collectives": counter.result(),
         "traced_flops_per_rank": float(flops.get_total_flops()),
+        "analytic_flops_per_rank":
+            rl.analytic_costs(cfg, shape)["flops_exec"] / mesh.size(),
+        "model_split": split_name,
     }
 
 

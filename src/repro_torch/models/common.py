@@ -18,9 +18,11 @@ Conventions (the reference's, ``src/repro/models/common.py``):
   * the reference's sharding constraints redistribute a DTensor to their
     spec where the dims divide, and are identities on plain tensors. The
     mesh a model runs on (``use_mesh``, the reference's ``with mesh:``)
-    is what the MoE's expert-sharded branch and ``cross_entropy`` read:
-    on a mesh each rank computes on its own batch shard, and the loss is
-    the global batch's.
+    is what the MoE's expert-sharded branch, the layers' Megatron split
+    (``model_split``) and ``cross_entropy`` read: on a mesh each rank
+    computes on its own batch shard (of its data shard's rows, where the
+    batch is split over "model" too), and the loss is the global
+    batch's.
 """
 from __future__ import annotations
 
@@ -50,32 +52,55 @@ _MESH = threading.local()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, data_dims=None):
+def use_mesh(mesh, data_dims=None, split=None):
     """Run the block on ``mesh`` (a ``DeviceMesh``, or None for none):
     the reference's ``with mesh:``. ``data_dims`` names the mesh dims
     the batch is split on, each rank holding its own shard ("pod" and
-    "data", those the mesh has, by default)."""
-    prev = (getattr(_MESH, "mesh", None), getattr(_MESH, "data_dims", ()))
+    "data", those the mesh has, by default; "model" too where the batch
+    is split there). ``split`` (a ``sharding.specs.ModelSplit``) is what
+    this rank computes of its model group's work: the layers read it
+    (:func:`model_split`) and split their heads and FFN dim by it."""
     if mesh is not None and data_dims is None:
         data_dims = tuple(a for a in ("pod", "data")
                           if a in mesh.mesh_dim_names)
-    _MESH.mesh = mesh
-    _MESH.data_dims = tuple(a for a in (data_dims or ())
-                            if mesh.size(mesh.mesh_dim_names.index(a)) > 1)
-    try:
+    with _in_context((mesh, tuple(
+            a for a in (data_dims or ())
+            if mesh.size(mesh.mesh_dim_names.index(a)) > 1), split)):
         yield mesh
-    finally:
-        _MESH.mesh, _MESH.data_dims = prev
 
 
 def _context_mesh():
     return getattr(_MESH, "mesh", None)
 
 
+def _context() -> tuple:
+    return (getattr(_MESH, "mesh", None), getattr(_MESH, "data_dims", ()),
+            getattr(_MESH, "split", None))
+
+
+@contextlib.contextmanager
+def _in_context(ctx):
+    """Run the block in the context ``ctx`` (:func:`_context`'s) on this
+    thread."""
+    prev = _context()
+    _MESH.mesh, _MESH.data_dims, _MESH.split = ctx
+    try:
+        yield
+    finally:
+        _MESH.mesh, _MESH.data_dims, _MESH.split = prev
+
+
 def _data_dims() -> tuple:
     """The context mesh's dims (of size > 1) that the batch is split
     on."""
     return getattr(_MESH, "data_dims", ())
+
+
+def model_split():
+    """The context's ``ModelSplit`` (:func:`use_mesh`); no split off a
+    mesh or where none was given."""
+    from ..sharding.specs import ModelSplit
+    return getattr(_MESH, "split", None) or ModelSplit()
 
 
 def _all_reduce(x, mesh, dims, op: str = "sum"):
@@ -124,6 +149,64 @@ class _ReduceOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g * ctx.grad_scale, None, None, None, None
+
+
+def enter_model(x, on: bool = True):
+    """``x`` entering a region whose work the context's "model" ranks
+    split (:class:`_EnterModel`) where ``on``; else ``x`` itself."""
+    return _EnterModel.apply(x, _context_mesh()) if on else x
+
+
+def model_sum(y, on: bool = True):
+    """``y``, this rank's partial sum of a region split over "model",
+    summed over "model" (:class:`_ReduceOver`) where ``on``; else ``y``
+    itself."""
+    return _ReduceOver.apply(y, _context_mesh(), ("model",), 1, 1) \
+        if on else y
+
+
+def _model_group(mesh):
+    return (mesh, mesh.mesh_dim_names.index("model"))
+
+
+def _wait(x):
+    import torch.distributed._functional_collectives as funcol
+    return x.wait() if isinstance(x, funcol.AsyncCollectiveTensor) else x
+
+
+class _GatherRows(torch.autograd.Function):
+    """The model group's rows: each rank's ``x`` concatenated on dim 0
+    in "model" rank order (an all-gather). Backward: each rank's rows of
+    the gradient summed over "model" (a reduce-scatter), since each
+    rank's gradient of the whole is partial."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        import torch.distributed._functional_collectives as funcol
+        ctx.mesh = mesh
+        return _wait(funcol.all_gather_tensor(x.contiguous(), 0,
+                                              _model_group(mesh)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ScatterRows.apply(g, ctx.mesh), None
+
+
+class _ScatterRows(torch.autograd.Function):
+    """This rank's rows of ``y`` (rows of the model group, each rank's
+    ``y`` a partial sum) summed over "model" (a reduce-scatter).
+    Backward: the gradients of every rank's rows (an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        import torch.distributed._functional_collectives as funcol
+        ctx.mesh = mesh
+        return _wait(funcol.reduce_scatter_tensor(y.contiguous(), "sum", 0,
+                                                  _model_group(mesh)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherRows.apply(g, ctx.mesh), None
 
 
 def _is_dtensor(x) -> bool:
@@ -182,18 +265,20 @@ def remat(cfg, fn, *args):
     activations are recomputed in the backward instead of kept. A
     :class:`~.shards.ShardedLayer` argument is gathered inside the
     checkpoint whatever ``cfg.remat`` says, so that the layer's whole
-    weights are gathered again for the backward, not kept (ZeRO-3)."""
-    if torch.is_grad_enabled() and any(isinstance(a, ShardedLayer)
-                                       for a in args):
-        def run(*a):
+    weights are gathered again for the backward, not kept (ZeRO-3).
+    The recompute runs in the forward's :func:`use_mesh` context: on
+    the card autograd runs the backward on a thread of its own, which
+    does not see this one's."""
+    sharded = any(isinstance(a, ShardedLayer) for a in args)
+    if not torch.is_grad_enabled() or not (sharded or cfg.remat):
+        return fn(*args)
+    ctx = _context()
+
+    def run(*a):
+        with _in_context(ctx):
             return fn(*(x.gather() if isinstance(x, ShardedLayer) else x
                         for x in a))
-        return torch.utils.checkpoint.checkpoint(run, *args,
-                                                 use_reentrant=False)
-    if cfg.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
-    return fn(*args)
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

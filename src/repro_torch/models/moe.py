@@ -20,10 +20,12 @@ On a mesh (``common.use_mesh``) whose "model" dim is larger than 1,
 dispatches its data shard's tokens against its slice of the experts
 (``E_pad / n_model`` of them) or, where "model" does not divide E_pad,
 against every expert with its slice of the FFN dim; the partial outputs
-are summed over "model" and the aux loss averaged over the data dims
-and "model". The combine adds each token's expert rows in the
-reference's order without float atomics (``_combine``), so results
-repeat bit for bit on the card.
+are summed over "model" (reduce-scattered to each rank's rows where the
+batch is split over "model" and the group's rows were gathered for the
+dispatch) and the aux loss averaged over the data dims and "model". The
+combine adds each token's expert rows in the reference's order without
+float atomics (``_combine``), so results repeat bit for bit on the
+card.
 """
 from __future__ import annotations
 
@@ -196,43 +198,57 @@ def _moe_ffn_tokens(cfg, router, wg, wu, wd, x, r, e_per, n_model,
 # the expert-sharded branch (the reference's shard_map)
 # ---------------------------------------------------------------------------
 
-def _split(w, dim, whole, r, n, mesh):
+def _split(w, dim, whole, r, n, enter):
     """Rank ``r``'s ``1 / n`` of ``w`` on ``dim``: cut from ``w`` when it
-    is whole (``whole`` long there; its gradient then enters the region
-    with a sum over "model"), or ``w`` as it is when it is that share
-    already, as ``shards`` gathers an expert weight to its compute
-    layout (``specs.compute_spec``)."""
+    is whole (``whole`` long there; where ``enter``, its gradient enters
+    the region with a sum over "model"), or ``w`` as it is when it is
+    that share already, as ``shards`` gathers an expert weight to its
+    compute layout (``specs.compute_spec``)."""
     if w.shape[dim] != whole:
         return w
     per = whole // n
-    return c._EnterModel.apply(w, mesh).narrow(dim, r * per, per)
+    return c.enter_model(w, enter).narrow(dim, r * per, per)
 
 
 def _moe_ffn_sharded(cfg, lp, x, mesh, capacity_factor):
-    """This rank's share of the MoE FFN over its tokens ``x`` (T, D)
-    (its data shard, the same on every model rank), summed over
-    "model": the reference's ``shard_map`` body. Returns (out, aux)
-    with ``aux`` averaged over the data dims and "model"."""
+    """This rank's share of the MoE FFN over its tokens ``x`` (T, D),
+    summed over "model": the reference's ``shard_map`` body. Returns
+    (out, aux) with ``aux`` averaged over the data dims and "model".
+
+    ``x`` is the rank's data shard, the same on every model rank, or,
+    where the batch is split over "model" too (the context's data dims
+    name it), the rank's rows of it: the model group's rows are then
+    gathered first, so that the dispatch and its capacities are the
+    data shard's, and each rank gets its own rows of the sum back (a
+    reduce-scatter). There nothing enters the region: every gradient
+    is partial over "model", as the step's batch-split gradients are,
+    and ``shards`` sums it (an expert weight it gathered to this rank's
+    share excepted: that gradient is whole over the group's tokens)."""
     from ..sharding.specs import mesh_sizes
     n_model, E = mesh_sizes(mesh)["model"], cfg.num_experts_padded
     F = cfg.moe_d_ff or cfg.d_ff
     r = mesh.get_local_rank("model")
-    x, router = (c._EnterModel.apply(t, mesh) for t in (x, lp["router"]))
+    rows = "model" in c._data_dims()
+    if rows:
+        x, router = c._GatherRows.apply(x, mesh), lp["router"]
+    else:
+        x, router = (c.enter_model(t) for t in (x, lp["router"]))
     if E % n_model == 0:                     # experts on "model"
-        wg, wu, wd = (_split(lp[k], 0, E, r, n_model, mesh)
+        wg, wu, wd = (_split(lp[k], 0, E, r, n_model, not rows)
                       for k in ("we_gate", "we_up", "we_down"))
         out, aux = _moe_ffn_tokens(cfg, router, wg, wu, wd, x, r,
                                    E // n_model, n_model, capacity_factor)
     else:                                    # the FFN dim on "model"
-        wg, wu = (_split(lp[k], 2, F, r, n_model, mesh)
+        wg, wu = (_split(lp[k], 2, F, r, n_model, not rows)
                   for k in ("we_gate", "we_up"))
-        wd = _split(lp["we_down"], 1, F, r, n_model, mesh)
+        wd = _split(lp["we_down"], 1, F, r, n_model, not rows)
         out, aux = _moe_ffn_tokens(cfg, router, wg, wu, wd, x, 0, E, 1,
                                    capacity_factor)
-    out = c._ReduceOver.apply(out, mesh, ("model",), 1, 1)
+    out = (c._ScatterRows.apply(out, mesh) if rows
+           else c.model_sum(out))
     aux = c._ReduceOver.apply(aux, mesh, ("model",), 1 / n_model,
                               1 / n_model)
-    dp = c._data_dims()
+    dp = tuple(a for a in c._data_dims() if a != "model")
     if dp:
         n_dp = int(np.prod([mesh.size(mesh.mesh_dim_names.index(a))
                             for a in dp]))
@@ -248,9 +264,11 @@ def moe_ffn(cfg, lp, h, capacity_factor=None):
     single-device dispatch. Otherwise the reference's distribution:
     dispatch runs PER DATA SHARD (sort, ranks, scatter stay local),
     experts shard on "model" (each rank computes its expert slice for
-    its local tokens, then a sum over "model"; no all-to-all because
-    activations are model-replicated). ``h`` is this rank's data shard;
-    the expert weights are whole or this rank's share already.
+    its data shard's tokens, then a sum over "model"; no all-to-all).
+    ``h`` is this rank's data shard, or its rows of it where the batch
+    is split over "model" too: the model group's rows are gathered for
+    the dispatch and the sum is reduce-scattered back to each rank's
+    rows. The expert weights are whole or this rank's share already.
     """
     capacity_factor = (cfg.capacity_factor if capacity_factor is None
                        else capacity_factor)
@@ -262,6 +280,11 @@ def moe_ffn(cfg, lp, h, capacity_factor=None):
     if n_model == 1 or (E % n_model and F % n_model):
         # every rank computes everything: nothing to sum (the
         # reference's psum over "model" would add n_model equal outputs)
+        if n_model > 1 and "model" in c._data_dims():
+            raise NotImplementedError(
+                f"the batch split over {n_model} model ranks dispatches "
+                f"the group's rows over a split of the experts ({E}) or "
+                f"the FFN dim ({F}), and neither divides")
         out, aux = _moe_ffn_tokens(
             cfg, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
             h.reshape(B * S, D), 0, E, 1, capacity_factor)
@@ -273,11 +296,8 @@ def moe_ffn(cfg, lp, h, capacity_factor=None):
 
 def _layer(cfg, x, lp, positions, inv_freq):
     h = tfm._norm(cfg, x, lp, "ln1")
-    q, k, v = tfm._qkv(cfg, lp, h, positions, inv_freq)
-    attn = c.blockwise_attention(q, k, v, causal=True,
-                                 window=cfg.sliding_window or None)
-    B, S = x.shape[:2]
-    x = x + c.matmul(attn.reshape(B, S, -1), lp["wo"])
+    attn_out, k, v = tfm._attention(cfg, lp, h, positions, inv_freq)
+    x = x + c.model_sum(attn_out, c.model_split().heads)
     h2 = tfm._norm(cfg, x, lp, "ln2")
     y, aux = moe_ffn(cfg, lp, h2)
     return x + y, aux, k, v

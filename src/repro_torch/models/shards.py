@@ -16,21 +16,33 @@ placements into the tree a model reads:
     layer is gathered as it is yielded and dropped with it.
 
 A rank so holds its shards, the gathered leaves outside the stacks and
-the whole weights of one layer at a time (in the backward also their
+the weights of one layer at a time (in the backward also their
 gradient), not the model.
 
-A weight is gathered to its *compute layout* (``specs.compute_spec``):
-whole, except the MoE's expert weights, which go to the split on
-"model" that the expert-sharded branch computes on, so a rank gathers
-only its own experts, and ``lm_head``, split on its vocabulary as the
-reference's logits are (``common.logits`` / ``cross_entropy``).
+A weight is gathered to its *compute layout* (``specs.compute_spec``)
+under the step's ``specs.ModelSplit``, so that a rank computes 1/n of
+its model group's work rather than all of it:
+
+  * where the batch is split over "model" too, weights are gathered
+    whole (but the MoE's expert weights, to this rank's own experts, or
+    FFN slice, on "model"), and each rank runs its rows;
+  * otherwise the attention's and the MLP's weights go to Megatron's
+    column / row slices on "model" where their heads and FFN dim divide
+    (the layers enter and sum the model region, ``common.enter_model``
+    / ``model_sum``), the experts to this rank's share, and ``lm_head``
+    to its vocabulary slice, as the reference's logits are
+    (``common.logits`` / ``cross_entropy``); a part that does not divide
+    is gathered whole and computed by every rank.
 
 Gradients (:class:`_Gather`'s backward) go back to the shard layout:
 summed over ``data_dims``, the mesh dims the batch is split on (each
-data rank computed its own tokens' share of the global loss: a
-reduce-scatter where the weight is sharded on such a dim, an all-reduce
-where it is not), and cut to the shard on the other dims, where every
-rank computed the same gradient (an all-to-all for the experts).
+rank computed its own tokens' share of the global loss), on those dims
+where the compute layout is whole (a reduce-scatter where the weight is
+sharded on such a dim, an all-reduce where it is not); on the other
+dims every rank computed its own part's whole gradient, which is cut to
+the shard (an all-to-all for the experts). A weight that entered a
+Megatron region whole was summed over "model" there, by
+``common.enter_model``, which is not a data dim under that split.
 """
 from __future__ import annotations
 
@@ -79,8 +91,8 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         from torch.distributed.tensor import Partial
         mesh, src, dst, data_dims = ctx.plan
-        partial = tuple(Partial() if i in data_dims else pl
-                        for i, pl in enumerate(dst))
+        partial = tuple(Partial() if i in data_dims and pl.is_replicate()
+                        else pl for i, pl in enumerate(dst))
         return _redistribute(g, mesh, partial, src), None, None, None, None
 
 
@@ -114,9 +126,10 @@ class ShardedStack:
     """A layer stack ({name: (L, ...) shard}) with each leaf's
     placements; :meth:`layers` yields it layer by layer."""
 
-    def __init__(self, local: dict, placements: dict, mesh, data_dims):
+    def __init__(self, local: dict, placements: dict, mesh, data_dims,
+                 split):
         self.local, self.placements = local, placements
-        self.mesh, self.data_dims = mesh, data_dims
+        self.mesh, self.data_dims, self.split = mesh, data_dims, split
 
     def layers(self):
         """One :class:`ShardedLayer` per layer while autograd records
@@ -134,19 +147,20 @@ class ShardedStack:
                 t, pl = _Gather.apply(t, mesh, pl, rep, dd), rep
             src = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in pl)
             dst = Layout(mesh, compute_spec(
-                k, _full_shape(t, pl, mesh)[1:], mesh)).placements
+                k, _full_shape(t, pl, mesh)[1:], mesh, self.split)).placements
             cols[k], plans[k] = t.unbind(0), (src, dst)
         for vals in zip(*cols.values()):
             layer = ShardedLayer(dict(zip(cols, vals)), plans, mesh, dd)
             yield layer if torch.is_grad_enabled() else layer.gather()
 
 
-def model_view(local, placements, mesh, data_dims=()):
+def model_view(local, placements, mesh, data_dims=(), split=None):
     """The params tree a model reads, from this rank's shards ``local``
     and their ``placements`` (a matching tree; None for a leaf every
     rank holds whole). ``data_dims`` names the mesh dims the batch is
-    split on. Leaves outside the stacks are gathered to their compute
-    layout now."""
+    split on, ``split`` (a ``specs.ModelSplit``; none by default) what
+    this rank computes of its model group's work. Leaves outside the
+    stacks are gathered to their compute layout now."""
     from torch.distributed.tensor import Replicate
     from ..sharding.specs import Layout, compute_spec
     dims = tuple(mesh.mesh_dim_names.index(n) for n in data_dims)
@@ -155,12 +169,12 @@ def model_view(local, placements, mesh, data_dims=()):
     def walk(node, pl, key):
         if isinstance(node, dict):
             if key in STACKS:
-                return ShardedStack(node, pl or {}, mesh, dims)
+                return ShardedStack(node, pl or {}, mesh, dims, split)
             return {k: walk(v, (pl or {}).get(k), k)
                     for k, v in node.items()}
         pl = tuple(pl or rep)
         dst = Layout(mesh, compute_spec(key, _full_shape(node, pl, mesh),
-                                        mesh)).placements
+                                        mesh, split)).placements
         return _Gather.apply(node, mesh, pl, dst, dims)
 
     return walk(local, placements, None)
@@ -175,6 +189,21 @@ def local_shards(tree):
                      else t, tree),
             tree_map(lambda t: tuple(t.placements)
                      if isinstance(t, DTensor) else None, tree))
+
+
+def split_rows(local_batch, mesh, data_dims, split):
+    """(this rank's batch, the mesh dims the batch is split on) under
+    ``split`` (a ``specs.ModelSplit``): where it splits the batch over
+    "model", the rank's contiguous 1/n of its data shard's rows
+    ``local_batch`` and "model" added to ``data_dims``; else both as they
+    are."""
+    from ..tree import leaves, tree_map
+    if not split.batch:
+        return local_batch, data_dims
+    per = leaves(local_batch)[0].shape[0] // split.n
+    lo = mesh.get_local_rank("model") * per
+    return (tree_map(lambda b: b[lo:lo + per], local_batch),
+            data_dims + ("model",))
 
 
 def batch_dims(batch, mesh) -> tuple:

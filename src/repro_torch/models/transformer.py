@@ -107,17 +107,38 @@ def _inv_freq(cfg, device):
                         device=torch.device(device))
 
 
+def _kv_weights(cfg, lp):
+    """(wk, wv, bk, bv) this rank computes K and V with: as gathered, or,
+    where each rank computes the one KV head its query heads read
+    (``model_split().kv == "pick"``), that head's columns of the whole
+    weights, which enter the model region (each rank's gradient of them
+    is partial)."""
+    names = ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+    ws = [lp[k] for k in names]
+    sp = c.model_split()
+    if sp.kv == "pick":
+        hd = cfg.hd
+        kv = c._context_mesh().get_local_rank("model") \
+            * cfg.num_kv_heads // sp.n
+        ws = [c.enter_model(w).narrow(-1, kv * hd, hd) for w in ws]
+    return ws + [None] * (4 - len(ws))
+
+
 def _qkv(cfg, lp, h, positions, inv_freq):
+    """q, k, v of ``h``: every head, or under the heads split
+    (``common.model_split``) this rank's query heads and the KV heads
+    they read, from the column slices ``shards`` gathers."""
     B, S, D = h.shape
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    hd = cfg.hd
+    wk, wv, bk, bv = _kv_weights(cfg, lp)
     q = c.matmul(h, lp["wq"])
-    k = c.matmul(h, lp["wk"])
-    v = c.matmul(h, lp["wv"])
+    k = c.matmul(h, wk)
+    v = c.matmul(h, wv)
     if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KH, hd)
-    v = v.reshape(B, S, KH, hd)
+        q, k, v = q + lp["bq"], k + bk, v + bv
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     rd = _rotary_dim(cfg)
     if rd:
         q = c.apply_rope(q, positions, inv_freq, rd)
@@ -125,24 +146,46 @@ def _qkv(cfg, lp, h, positions, inv_freq):
     return q, k, v
 
 
-def _mlp(cfg, lp, h):
-    if cfg.mlp == "gelu":
-        return c.gelu_mlp(h, lp["w_up"], lp["b_up"], lp["w_down"],
-                          lp["b_down"])
-    return c.gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"])
-
-
-def _layer(cfg, x, lp, positions, inv_freq):
-    h = _norm(cfg, x, lp, "ln1")
+def _attention(cfg, lp, h, positions, inv_freq):
+    """(attention output before the residual, k, v). Under the heads
+    split ``h`` enters the model region and the output is this rank's
+    heads' partial sum (``wo``'s rows), to be summed over "model"."""
+    h = c.enter_model(h, c.model_split().heads)
     q, k, v = _qkv(cfg, lp, h, positions, inv_freq)
     attn = c.blockwise_attention(q, k, v, causal=True,
                                  window=cfg.sliding_window or None)
-    B, S = x.shape[:2]
-    attn_out = c.matmul(attn.reshape(B, S, -1), lp["wo"])
+    B, S = h.shape[:2]
+    return c.matmul(attn.reshape(B, S, -1), lp["wo"]), k, v
+
+
+def _ffn(cfg, lp, h):
+    """The MLP of ``h`` before ``b_down``. Under the FFN split ``h``
+    enters the model region and the result is this rank's FFN columns'
+    partial sum (``w_down``'s rows), to be summed over "model"."""
+    h = c.enter_model(h, c.model_split().ffn)
+    if cfg.mlp == "gelu":
+        return c.matmul(c.gelu(c.matmul(h, lp["w_up"]) + lp["b_up"]),
+                        lp["w_down"])
+    return c.gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _mlp(cfg, lp, h):
+    y = c.model_sum(_ffn(cfg, lp, h), c.model_split().ffn)
+    return y + lp["b_down"] if cfg.mlp == "gelu" else y
+
+
+def _layer(cfg, x, lp, positions, inv_freq):
+    sp = c.model_split()
+    h = _norm(cfg, x, lp, "ln1")
+    attn_out, k, v = _attention(cfg, lp, h, positions, inv_freq)
     if cfg.parallel_block:            # command-r: attn & FFN from same norm
-        x = x + attn_out + _mlp(cfg, lp, h)
+        if sp.heads and sp.ffn:       # both partial: one sum over "model"
+            y = c.model_sum(attn_out + _ffn(cfg, lp, h))
+            x = x + (y + lp["b_down"] if cfg.mlp == "gelu" else y)
+        else:
+            x = x + c.model_sum(attn_out, sp.heads) + _mlp(cfg, lp, h)
     else:
-        x = x + attn_out
+        x = x + c.model_sum(attn_out, sp.heads)
         h2 = _norm(cfg, x, lp, "ln2")
         x = x + _mlp(cfg, lp, h2)
     return x, k, v

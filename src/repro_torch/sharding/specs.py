@@ -95,21 +95,89 @@ def leaf_spec(path, shape, mesh) -> tuple:
 
 
 EXPERT_LEAVES = {"we_gate": 2, "we_up": 2, "we_down": 1}   # F's dim
+MEGATRON_FAMILIES = ("dense", "vlm", "moe")   # heads (and FFN) split
 
 
-def compute_spec(name: str, shape, mesh) -> tuple:
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """What a rank computes of its model group's work (``n`` ranks on
+    "model"), where the reference lets GSPMD split every op there:
+
+      * ``batch``: its contiguous 1/n of its data shard's rows, with
+        whole weights (FSDP over "model");
+      * else Megatron's column / row pairs: ``heads``, its 1/n of the
+        query heads (``wq``, ``bq`` by columns, ``wo`` by rows); ``kv``
+        "split", its 1/n of the KV heads (``wk``, ``wv``, ``bk``,
+        ``bv``), or "pick", the one KV head its query heads read (the
+        KV weights whole); ``ffn``, its 1/n of the FFN dim (``w_gate``,
+        ``w_up``, ``b_up`` by columns, ``w_down`` by rows);
+      * a part with none of these is computed whole by every rank.
+
+    :func:`model_split` chooses it; ``models/shards.py`` gathers each
+    weight to its :func:`compute_spec` under it."""
+    n: int = 1
+    batch: bool = False
+    heads: bool = False
+    kv: str = ""
+    ffn: bool = False
+
+    @property
+    def name(self) -> str:
+        """"batch", "heads+ffn", "heads", "ffn" or "none"."""
+        if self.batch:
+            return "batch"
+        return "+".join(p for p, on in (("heads", self.heads),
+                                        ("ffn", self.ffn)) if on) or "none"
+
+
+def model_split(cfg, rows: int, mesh, micro_batches: int = 1) -> ModelSplit:
+    """How a step over ``rows`` rows a data shard (each of
+    ``micro_batches`` microbatches a rank takes its share of) splits
+    over "model", in this order: the batch, when ``rows`` divides by
+    n x ``micro_batches``; else, for the dense, vlm and MoE families,
+    the query heads where they divide (with the KV heads where they
+    divide, or divide n), and the FFN dim where it divides (not the
+    MoE's: its experts split on their own); else nothing. A part whose
+    dims do not divide stays whole, as the rules replicate a dim that
+    does not divide."""
+    n = _axis_size(mesh, "model")
+    if n == 1:
+        return ModelSplit()
+    if rows % (n * micro_batches) == 0:
+        return ModelSplit(n, batch=True)
+    if cfg.family not in MEGATRON_FAMILIES:
+        return ModelSplit(n)
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    kv = "split" if KH % n == 0 else "pick" if n % KH == 0 else ""
+    heads = bool(kv) and H % n == 0
+    return ModelSplit(n, heads=heads, kv=kv if heads else "",
+                      ffn=cfg.family != "moe" and cfg.d_ff % n == 0)
+
+
+_COLUMNS = {"wq": ("heads", 1), "bq": ("heads", 0), "wo": ("heads", 0),
+            "wk": ("kv", 1), "wv": ("kv", 1), "bk": ("kv", 0),
+            "bv": ("kv", 0), "w_gate": ("ffn", 1), "w_up": ("ffn", 1),
+            "b_up": ("ffn", 0), "w_down": ("ffn", 0)}
+
+
+def compute_spec(name: str, shape, mesh, split: ModelSplit = None) -> tuple:
     """The spec the weight ``name`` of ``shape`` (one layer's, for a
-    stacked leaf) is computed in: whole, except on a "model" dim of more
-    than one rank
+    stacked leaf) is computed in under ``split`` (no split by default):
+    whole, except on a "model" dim of more than one rank
       * the MoE's expert weights, where the expert-sharded branch
         computes them (the reference's ``shard_map`` in_specs): the
         experts on "model" when they divide, else the FFN dim when it
         divides;
       * ``lm_head``'s vocabulary, where the reference's logits are
-        (``constrain_logits``), when it divides."""
+        (``constrain_logits``), when it divides, unless the batch is
+        split over "model" (the logits then are this rank's rows);
+      * the attention's and the MLP's weights, each split on the dim
+        that :class:`ModelSplit` names for the part it splits."""
+    split = split or ModelSplit()
     spec = [None] * len(shape)
     n = mesh_sizes(mesh).get("model", 1)
     f_dim = EXPERT_LEAVES.get(name)
+    part, dim = _COLUMNS.get(name, (None, None))
     if n == 1:
         return tuple(spec)
     if f_dim is not None and len(shape) == 3:
@@ -118,7 +186,13 @@ def compute_spec(name: str, shape, mesh) -> tuple:
         elif shape[f_dim] % n == 0:
             spec[f_dim] = "model"
     elif name == "lm_head" and len(shape) == 2 and shape[1] % n == 0:
-        spec[1] = "model"
+        if not split.batch:
+            spec[1] = "model"
+    elif part is not None and getattr(split, part) in (True, "split"):
+        if shape[dim] % n:
+            raise ValueError(f"{name} {tuple(shape)}: dim {dim} does not "
+                             f"divide over {n} model ranks")
+        spec[dim] = "model"
     return tuple(spec)
 
 

@@ -11,8 +11,14 @@ on what the specs place in the ZeRO-3 manner (``models/shards.py``):
     split on are the data-parallel ones) over its weight shards, each
     layer's weights gathered while the layer runs and gathered again
     for its backward, never all at once, so the model code sees plain
-    tensors and needs no DTensor op coverage; the MoE's expert weights
-    are gathered only to this rank's experts;
+    tensors and needs no DTensor op coverage;
+  * a rank computes 1/n of its "model" group's work
+    (``specs.model_split``): its 1/n of the data shard's rows where they
+    divide ("model" is then a data-parallel dim too, and the MoE gathers
+    the group's rows for its dispatch), else its 1/n of the attention
+    heads and the FFN dim (Megatron) where those divide; a part that
+    divides by neither is computed by every rank of the group. The
+    metrics name the split (``model_split``);
   * the loss is the global batch's mean (``common.cross_entropy`` sums
     the NLL and the labelled tokens over the data dims), and each
     gradient is summed over the data dims and cut back to its weight's
@@ -22,11 +28,8 @@ on what the specs place in the ZeRO-3 manner (``models/shards.py``):
     their shards (ZeRO-1 for free), its global-norm clip a full
     reduction over every shard.
 
-Activations are replicated on "model" rather than split across it: the
-port trades the reference's tensor-parallel activations for gathered
-weights, so each rank of a "model" group repeats its group's compute.
 With ``micro_batches`` > 1 each rank's microbatch ``i`` is the ``i``-th
-slice of its own shard, and each microbatch's loss is the mean over
+slice of its own rows, and each microbatch's loss is the mean over
 those slices of every data rank.
 """
 from __future__ import annotations
@@ -87,14 +90,18 @@ def make_train_step(model, optimizer, micro_batches: int = 1,
         return loss_acc * scale, tree_map(lambda g: g * scale, grad_acc)
 
     def train_step(params, opt_state, batch):
+        split = None
         if _dtensor_leaves(params):
-            loss, grads = sharded_grads(compute_grads, params, batch)
+            loss, grads, split = sharded_grads(
+                compute_grads, params, batch, model.cfg, micro_batches)
         else:
             loss, grads = compute_grads(params, batch)
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         with torch.no_grad():
             metrics = {"loss": loss,
                        "grad_norm": _whole(global_norm(grads))}
+        if split is not None:
+            metrics["model_split"] = split.name
         return new_params, new_opt, metrics
 
     return train_step
@@ -121,26 +128,33 @@ def _whole(x):
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
-def sharded_grads(compute_grads, params, batch):
-    """(loss, grads) of DTensor ``params`` on ``batch`` (DTensors placed
-    by ``specs.batch_placements``, or plain tensors every rank shares):
-    each rank's batch shard through ``compute_grads`` on its weight
-    shards, gathered layer by layer (``shards.model_view``); each
-    gradient comes back summed over the data dims on its weight's
-    placements (a plain weight's plain)."""
+def sharded_grads(compute_grads, params, batch, cfg, micro_batches=1):
+    """(loss, grads, split) of DTensor ``params`` on ``batch`` (DTensors
+    placed by ``specs.batch_placements``, or plain tensors every rank
+    shares): each rank's batch shard through ``compute_grads`` on its
+    weight shards, gathered layer by layer (``shards.model_view``) to
+    their compute layout under ``split``, the ``specs.ModelSplit`` of
+    ``cfg`` at this shard's rows; each gradient comes back summed over
+    the data dims on its weight's placements (a plain weight's
+    plain)."""
     from torch.distributed.tensor import DTensor
+    from ..sharding.specs import model_split
     mesh = _dtensor_leaves(params)[0].device_mesh
     data_dims = shards.batch_dims(batch, mesh)
     local, placements = shards.local_shards(params)
     local_batch = shards.local_shards(batch)[0]
-    with common.use_mesh(mesh, data_dims):
+    split = model_split(cfg, leaves(local_batch)[0].shape[0], mesh,
+                        micro_batches)
+    local_batch, data_dims = shards.split_rows(local_batch, mesh, data_dims,
+                                               split)
+    with common.use_mesh(mesh, data_dims, split):
         loss, grads = compute_grads(
             local, local_batch,
             lambda live: shards.model_view(live, placements, mesh,
-                                           data_dims))
+                                           data_dims, split))
 
     def place(g, p):
         return (DTensor.from_local(g, mesh, p.placements, run_check=False)
                 if isinstance(p, DTensor) else g)
 
-    return loss, tree_map(place, grads, params)
+    return loss, tree_map(place, grads, params), split

@@ -136,6 +136,44 @@ def test_roofline_arithmetic_matches_reference(arch, shape):
         cost, coll, 256, hw=trl.HW)
 
 
+SPLIT_CELLS = {                       # (arch, shape): split, split leaves
+    ("qwen2_1p5b", "train_4k"): ("batch", {"lm_head": (None, None),
+                                           "wq": (None, None)}),
+    ("command_r_35b", "prefill_32k"): ("heads+ffn", {
+        "wq": (None, "model"), "wk": (None, None), "wo": ("model", None),
+        "w_gate": (None, "model"), "w_up": (None, "model"),
+        "w_down": ("model", None), "lm_head": (None, "model"),
+        "ln1_g": (None,)}),
+    ("qwen2_1p5b", "prefill_32k"): ("ffn", {
+        "wq": (None, None), "bq": (None,), "wk": (None, None),
+        "wo": (None, None), "w_gate": (None, "model"),
+        "w_down": ("model", None), "lm_head": (None, "model")}),
+}
+
+
+@pytest.mark.parametrize("cell", list(SPLIT_CELLS), ids="-".join)
+def test_model_split_rule(cell):
+    """Which split a step takes at the pod mesh (16 x 16), and which
+    weights ``compute_spec`` splits there: qwen2 ``train_4k`` (16 rows a
+    data shard) splits its batch; command-r ``prefill_32k`` (2 rows)
+    its 64 heads (the 8 KV heads: each rank the one its 4 query heads
+    read) and its FFN dim; qwen2 ``prefill_32k`` only its FFN dim (12
+    heads do not divide over 16)."""
+    arch, shape = cell
+    want, leaves = SPLIT_CELLS[cell]
+    mesh = specs.MeshShape(("data", "model"), (16, 16))
+    cfg, sh = tcfg.get_config(arch), tcfg.SHAPES[shape]
+    layer = tbuild(cfg).param_specs()["layers"]
+    split = specs.model_split(cfg, sh.batch // 16, mesh,
+                              cfg.micro_batches if sh.kind == "train" else 1)
+    assert split.name == want
+    for name, spec in leaves.items():
+        shp = (tbuild(cfg).param_specs()[name].shape if name == "lm_head"
+               else layer[name].shape[1:])
+        assert specs.compute_spec(name, tuple(shp), mesh, split) == spec, \
+            name
+
+
 def test_roofline_table_is_the_h100s():
     assert trl.HW["peak_flops"] == 989.4e12 and trl.HW["hbm_bw"] == 3.35e12
     assert trl.HW["link_bw"] == 450e9 and "H100" in trl.HW["name"]
@@ -146,7 +184,7 @@ def test_roofline_table_is_the_h100s():
 # ---------------------------------------------------------------------------
 
 WORKER = r'''
-import dataclasses, os, pickle, sys
+import dataclasses, os, pickle, sys, threading
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -184,29 +222,59 @@ def run(rank, world, d):
     pd = specs.distribute_tree(params, specs.tree_placements(params, mesh))
     sd = specs.distribute_tree(st, specs.tree_placements(st, mesh))
     bd = specs.distribute_tree(batch, specs.batch_placements(batch, mesh))
-    p2, s2, m2 = make_train_step(model, opt)(pd, sd, bd)
+    step = make_train_step(model, opt)
+    p2, s2, m2 = step(pd, sd, bd)
     full = tree_map(lambda t: t.full_tensor().numpy(), p2)
     out["train"] = {"loss": float(m2["loss"]), "params": full,
-                    "placements": str(pd["layers"]["wq"].placements)}
+                    "placements": str(pd["layers"]["wq"].placements),
+                    "split": m2["model_split"]}
+    # the Megatron split: 2 x 32 tokens, one row a data shard
+    tok_tp = tok[:2]
+    bd_tp = specs.distribute_tree(
+        {"tokens": tok_tp, "labels": tok_tp},
+        specs.batch_placements({"tokens": tok_tp, "labels": tok_tp}, mesh))
+    p3, _, m3 = step(pd, sd, bd_tp)
+    out["train_megatron"] = {
+        "loss": float(m3["loss"]), "split": m3["model_split"],
+        "params": tree_map(lambda t: t.full_tensor().numpy(), p3)}
 
     # the sharded gradients themselves: as placed by the rules; with
     # labels masked on one data shard only (shards of unequal label
     # counts); and with every leaf of >= 256 elements also sharded on
     # "data" (gradients reduce-scattered there)
-    def grads(params, labels):
+    def off_thread(loss_fn, params, batch, view):
+        """``value_and_grad`` with the backward, and so each layer's
+        recompute, on another thread, as autograd runs it on the card."""
+        from repro_torch.tree import flatten, unflatten
+        flat, treedef = flatten(params)
+        live = [p.detach().requires_grad_() for p in flat]
+        with torch.enable_grad():
+            loss = loss_fn(view(unflatten(treedef, live)), batch)
+        got = []
+        t = threading.Thread(target=lambda: got.extend(torch.autograd.grad(
+            loss, live, allow_unused=True)))
+        t.start()
+        t.join()
+        return loss.detach(), unflatten(treedef, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(live, got)])
+
+    def grads(params, labels, tok=tok, grad_fn=value_and_grad):
         pd = specs.distribute_tree(params, specs.tree_placements(params,
                                                                  mesh))
-        bd = specs.distribute_tree({"tokens": tok, "labels": labels},
-                                   specs.batch_placements(batch, mesh))
-        loss, g = sharded_grads(
-            lambda p, b, view: value_and_grad(model.loss, p, b, view),
-            pd, bd)
+        b = {"tokens": tok, "labels": labels}
+        bd = specs.distribute_tree(b, specs.batch_placements(b, mesh))
+        loss, g, split = sharded_grads(
+            lambda p, b, view: grad_fn(model.loss, p, b, view), pd, bd, cfg)
         return {"loss": float(loss),
                 "grads": tree_map(lambda t: t.full_tensor().numpy(), g),
-                "placements": str(pd["layers"]["wq"].placements)}
+                "placements": str(pd["layers"]["wq"].placements),
+                "split": split.name}
 
     out["grads"] = grads(params, tok)
     out["grads_masked"] = grads(params, torch.from_numpy(inp["masked"]))
+    out["grads_megatron"] = grads(params, tok_tp, tok_tp)
+    out["grads_megatron_thread"] = grads(params, tok_tp, tok_tp, off_thread)
     specs.FSDP_MIN = 256
     out["grads_fsdp"] = grads(params, tok)
 
@@ -239,6 +307,40 @@ def run(rank, world, d):
                   "grad_err": max(float((a - b).abs().max()) for a, b in
                                   zip(*grads)),
                   "grad_max": max(float(b.abs().max()) for b in grads[1])}
+
+    # the batch split over "model": each model rank its half of its data
+    # shard's rows, the group's rows gathered for the dispatch. Against
+    # the single device on the data shard (its rows of the output and of
+    # the input's gradient; the weights' gradients, partial over
+    # "model", summed there as the step's ``shards`` sums them); and at
+    # a capacity that drops assignments, bit for bit against the
+    # expert-sharded dispatch of the whole data shard (the same drops)
+    mine = slice(2 * mesh.get_local_rank("model"),
+                 2 * mesh.get_local_rank("model") + 2)
+    xs = x[lo:lo + 4][mine].clone().requires_grad_()
+    ws = {k: v.clone().requires_grad_() for k, v in lp.items()}
+    with common.use_mesh(mesh, ("data", "model")):
+        o, _ = moe.moe_ffn(mcfg, ws, xs, capacity_factor=50.0)
+    (o * o).sum().backward()
+    got = [xs.grad] + [common._all_reduce(ws[k].grad, mesh, ("model",))
+                       for k in sorted(ws)]
+    want = [grads[1][0][mine]] + grads[1][1:]
+    low = {}
+    for dims, rows in ((("data", "model"), mine), (("data",), slice(0, 4))):
+        with common.use_mesh(mesh, dims), torch.no_grad():
+            low[dims[-1]] = moe.moe_ffn(mcfg, lp, x[lo:lo + 4][rows],
+                                        capacity_factor=1.0)[0]
+    with torch.no_grad():
+        undropped = moe.moe_ffn(mcfg, lp, x[lo:lo + 4],
+                                capacity_factor=50.0)[0]
+    out["moe_rows"] = {
+        "out_close": bool(torch.allclose(o.detach(), outs[1][mine],
+                                         rtol=1e-4, atol=1e-5)),
+        "grad_err": max(float((a - b).abs().max())
+                        for a, b in zip(got, want)),
+        "grad_max": max(float(b.abs().max()) for b in want),
+        "drops_equal": bool(torch.equal(low["model"], low["data"][mine])),
+        "dropped": not torch.allclose(low["data"], undropped)}
 
     # elastic restore onto another mesh layout
     tree = {"w": torch.arange(64.0).reshape(8, 8)}
@@ -298,9 +400,16 @@ def reference_step():
     masked[:3, :20] = -1
     mbatch = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(masked)}
     mloss, mgrads = jax.value_and_grad(model.loss)(params, mbatch)
+    # the first 2 rows: one row a data shard, the Megatron split
+    tbatch = {"tokens": jnp.asarray(tok[:2]), "labels": jnp.asarray(tok[:2])}
+    p_tp, _, m_tp = jax.jit(jmake_train_step(model, opt))(
+        params, opt.init(params), tbatch)
+    tloss, tgrads = jax.value_and_grad(model.loss)(params, tbatch)
     return (jax.tree.map(np.asarray, params), tok, float(m1["loss"]),
             jax.tree.map(np.asarray, p1), jax.tree.map(np.asarray, grads),
-            masked, float(mloss), jax.tree.map(np.asarray, mgrads))
+            masked, float(mloss), jax.tree.map(np.asarray, mgrads),
+            float(m_tp["loss"]), jax.tree.map(np.asarray, p_tp),
+            float(tloss), jax.tree.map(np.asarray, tgrads))
 
 
 @pytest.fixture(scope="module")
@@ -322,24 +431,8 @@ def distributed(tmp_path_factory, reference_step):
 ADAM_EPS = 1e-8                # its eps
 
 
-def test_sharded_train_step_matches_reference(distributed, reference_step):
-    """Loss within 1e-3 and params at rtol 1e-3 / atol 1e-4 of the JAX
-    single-device step, as the reference's test holds its own sharded
-    step, but for the elements whose reference gradient is below 10x
-    Adam's eps. A first AdamW step moves an element by lr * g / (|g| +
-    eps): +-lr wherever |g| >> eps, whatever the rounding, but where
-    |g| is near eps (here ``bk``'s lowest-frequency RoPE dims, which
-    barely rotate over 32 positions and so barely move the scores) the
-    step is proportional to g itself, and g's rounding, which depends on
-    the order of the batch sum (the data ranks' partial sums here),
-    moves it by up to lr * rounding / eps. Those elements (at most 0.1 %
-    of them) are held to Adam's bound, lr; their gradients are held to
-    ``jax.grad`` directly in :func:`test_sharded_grads_match_reference`.
-    Elements whose gradient is exactly zero (the padded vocabulary rows)
-    stay under the tolerance: they do not move in either package."""
-    _, _, loss, want, grads = reference_step[:5]
-    got = distributed["train"]
-    assert "Shard" in got["placements"]          # the params were sharded
+def _assert_step(got, loss, want, grads):
+    """:func:`test_sharded_train_step_matches_reference`'s bounds."""
     assert abs(got["loss"] - loss) < 1e-3
     flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
     flat_d = jax.tree_util.tree_leaves(grads)
@@ -354,6 +447,41 @@ def test_sharded_train_step_matches_reference(distributed, reference_step):
         np.testing.assert_allclose(g[~small], w[~small], rtol=1e-3,
                                    atol=1e-4, err_msg=str(gp))
     assert n_small <= 1e-3 * n_all
+
+
+def test_sharded_train_step_matches_reference(distributed, reference_step):
+    """Loss within 1e-3 and params at rtol 1e-3 / atol 1e-4 of the JAX
+    single-device step, as the reference's test holds its own sharded
+    step, but for the elements whose reference gradient is below 10x
+    Adam's eps. A first AdamW step moves an element by lr * g / (|g| +
+    eps): +-lr wherever |g| >> eps, whatever the rounding, but where
+    |g| is near eps (here ``bk``'s lowest-frequency RoPE dims, which
+    barely rotate over 32 positions and so barely move the scores) the
+    step is proportional to g itself, and g's rounding, which depends on
+    the order of the batch sum (the data ranks' partial sums here),
+    moves it by up to lr * rounding / eps. Those elements (at most 0.1 %
+    of them) are held to Adam's bound, lr; their gradients are held to
+    ``jax.grad`` directly in :func:`test_sharded_grads_match_reference`.
+    Elements whose gradient is exactly zero (the padded vocabulary rows)
+    stay under the tolerance: they do not move in either package. With
+    4 rows a data shard on 2 model ranks, the step splits the batch over
+    "model" too (2 rows a rank)."""
+    _, _, loss, want, grads = reference_step[:5]
+    got = distributed["train"]
+    assert "Shard" in got["placements"]          # the params were sharded
+    assert got["split"] == "batch"
+    _assert_step(got, loss, want, grads)
+
+
+def test_megatron_train_step_matches_reference(distributed, reference_step):
+    """The step on 2 x 32 tokens, one row a data shard, which does not
+    divide over 2 model ranks: Megatron's split of the heads (2 of 4 a
+    rank, 1 of 2 KV heads) and the FFN dim (64 of 128), held to the JAX
+    single-device step on the same batch at the bounds above."""
+    loss, want = reference_step[8:10]
+    got = distributed["train_megatron"]
+    assert got["split"] == "heads+ffn"
+    _assert_step(got, loss, want, reference_step[11])
 
 
 def _assert_grads(got, want):
@@ -373,20 +501,29 @@ def _assert_grads(got, want):
                                    err_msg=str(gp))
 
 
-@pytest.mark.parametrize("case", ["grads", "grads_masked", "grads_fsdp"])
+@pytest.mark.parametrize("case", ["grads", "grads_masked", "grads_fsdp",
+                                  "grads_megatron", "grads_megatron_thread"])
 def test_sharded_grads_match_reference(distributed, reference_step, case):
     """The sharded step's gradients, summed over the data ranks and cut
     back to each weight's shard, against ``jax.grad`` of the reference
     on one device (:func:`_assert_grads`): with the rules' placements;
     with labels masked on one data shard only, so that the loss must be
-    the global batch's mean, not the mean of the shards' means; and with
-    leaves of >= 256 elements also sharded on "data"."""
+    the global batch's mean, not the mean of the shards' means; with
+    leaves of >= 256 elements also sharded on "data" (these three split
+    the batch over "model" too); and on 2 x 32 tokens, where the step
+    takes Megatron's split of the heads and the FFN dim, also with the
+    backward on another thread than the forward, as autograd runs it on
+    the card (each layer's recompute must see the forward's split)."""
     got = distributed[case]
+    megatron = case.startswith("grads_megatron")
     if case == "grads_masked":
         loss, want = reference_step[6], reference_step[7]
+    elif megatron:
+        loss, want = reference_step[10], reference_step[11]
     else:
         loss, want = reference_step[2], reference_step[4]
     assert abs(got["loss"] - loss) < 1e-5
+    assert got["split"] == ("heads+ffn" if megatron else "batch")
     if case == "grads_fsdp":          # wq is sharded on both mesh dims
         assert got["placements"] == "(Shard(dim=1), Shard(dim=2))"
     _assert_grads(got["grads"], want)
@@ -404,6 +541,22 @@ def test_sharded_moe_gradients_match_local(distributed):
     m = distributed["moe"]
     assert m["grad_max"] > 0
     assert m["grad_err"] <= 1e-5 * max(1.0, m["grad_max"])
+
+
+def test_sharded_moe_batch_split_matches_local(distributed):
+    """The expert-sharded branch under the batch split over "model":
+    each rank's rows of the output and of the input's gradient, and the
+    weights' gradients summed over "model", against the single device on
+    the data shard at rtol 1e-4 / atol 1e-5 (gradients as
+    :func:`test_sharded_moe_gradients_match_local` holds them); at a
+    capacity that drops assignments, bit-equal to the dispatch of the
+    whole data shard: the group's rows are gathered, so the capacities
+    and drops are the data shard's."""
+    m = distributed["moe_rows"]
+    assert m["out_close"]
+    assert m["grad_max"] > 0
+    assert m["grad_err"] <= 1e-5 * max(1.0, m["grad_max"])
+    assert m["dropped"] and m["drops_equal"]
 
 
 def test_elastic_checkpoint_restore_new_mesh(distributed):
@@ -442,6 +595,10 @@ dryrun.init_fake_group(8)
 mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
 rec = dryrun.trace_cell(reduced(get_config("qwen2_1p5b")),
                         ShapeSpec("train_small", "train", 64, 8), mesh)
+# the same cell with every rank on "data": what a rank's share is
+m81 = init_device_mesh("cpu", (8, 1), mesh_dim_names=("data", "model"))
+rec81 = dryrun.trace_cell(reduced(get_config("qwen2_1p5b")),
+                          ShapeSpec("train_small", "train", 64, 8), m81)
 # the traced peak of a train step at 2 and 6 layers of a wider config
 peaks = {}
 m18 = init_device_mesh("cpu", (1, 8), mesh_dim_names=("data", "model"))
@@ -460,7 +617,8 @@ for world, multi in ((256, False), (512, True)):
     dryrun.init_fake_group(world)
     m = tmesh.make_production_mesh(multi_pod=multi, device_type="cpu")
     meshes[str(world)] = [list(m.mesh_dim_names), list(m.mesh.shape)]
-print(json.dumps({"rec": rec, "meshes": meshes, "peaks": peaks}))
+print(json.dumps({"rec": rec, "rec81": rec81, "meshes": meshes,
+                  "peaks": peaks}))
 '''
 
 
@@ -505,6 +663,22 @@ def test_dryrun_cell_on_fake_group(dryrun_out):
     assert rec["collectives"]["all-gather"] > 0
     assert rec["collectives"]["all-reduce"] > 0
     assert rec["traced_flops_per_rank"] > 0
+
+
+def test_dryrun_batch_split_over_model(dryrun_out):
+    """On (2, 4) each data shard's 4 rows split over the 4 model ranks
+    (one row a rank), so a rank traces within 5 % of the FLOPs a rank
+    of (8, 1) traces for the same step (before the split: ≈4x, the
+    model group repeating its compute); the record names the split and
+    the roofline's analytic share a rank."""
+    rec, rec81 = dryrun_out["rec"], dryrun_out["rec81"]
+    assert rec["model_split"] == "batch" and rec81["model_split"] == "none"
+    ratio = rec["traced_flops_per_rank"] / rec81["traced_flops_per_rank"]
+    assert abs(ratio - 1) <= 0.05, ratio
+    assert rec["analytic_flops_per_rank"] == rec81["analytic_flops_per_rank"]
+    assert rec["analytic_flops_per_rank"] == trl.analytic_costs(
+        tcfg.reduced(tcfg.get_config("qwen2_1p5b")),
+        tcfg.ShapeSpec("t", "train", 64, 8))["flops_exec"] / 8
 
 
 def test_dryrun_step_holds_one_layer_gathered(dryrun_out):
