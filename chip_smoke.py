@@ -224,6 +224,25 @@ Phases (any failed check exits non-zero before the last line):
    rank's FLOPs (``FlopCounterMode``) at most 0.6 of the unsharded
    step's; per rank the step's ms (CUDA events; two processes on one
    card, not multi-card times) and peak over the arguments.
+18. A decode step split over "model" (``phase_decode_split``): qwen2-1.5B,
+   granite-MoE, mamba2-2.7B, hymba-1.5B and whisper-tiny at full width
+   in bf16 and f32, in two spawned processes sharing the card over gloo
+   on a ("data", "model") = (1, 2) mesh, collectives staged as phase
+   17's. Each rank runs an unsharded prefill of 2 x 512 tokens
+   (whisper's over 1,500 seeded frames), grows the self-attention cache
+   to 1,024 positions, takes its slice of that cache
+   (``decode_cache_spec``) and of the params (``tree_placements``), and
+   runs 8 teacher-forced
+   decode steps under the columns split beside the unsharded
+   ``decode_step``, in bf16 and on the same weights and cache upcast to
+   f32. Per step the split taken and the rank's logits (its vocabulary
+   slice), relative to their largest: in f32 within 1e-3 of the
+   unsharded step's, and in bf16 at most twice as far from the f32
+   logits as the unsharded bf16 step's (over the steps); per family
+   each rank's bf16 FLOPs at most 0.6 of the unsharded step's and its
+   decode state half the unsharded cache's bytes, and the bf16 step's
+   ms beside the unsharded step's (two processes on one card: not
+   multi-card times).
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -3329,6 +3348,223 @@ def phase_split() -> dict:
     return res
 
 
+# phase 18: decode under the columns split on ("data", "model") = (1, 2)
+DECODE_SPLIT_ARCHS = (LM_DENSE, LM_MOE, LM_SSM, LM_HYBRID, LM_AUDIO)
+DECODE_SPLIT_PROMPT = (2, 512)    # unsharded prefill, B x S
+DECODE_SPLIT_CACHE = 1024         # self-attention positions after growth
+DECODE_SPLIT_STEPS = 8            # teacher-forced decode steps
+DECODE_SPLIT_TOL = 1e-3           # f32 logits, relative to their largest
+# bf16: the split's logits at most this many times as far from the f32
+# logits (the same weights and cache, upcast) as the unsharded step's
+DECODE_SPLIT_BF16_FACTOR = 2.0
+
+
+def _rel_errs(got: list, want: list, cols: slice) -> list:
+    """Per step, the largest |got - want| over want's largest, on the
+    vocabulary columns ``cols`` (of ``want``, and of ``got`` where it
+    holds every column)."""
+    out = []
+    for g, w in zip(got, want):
+        w = w[..., cols]
+        g = g[..., cols] if g.shape[-1] != w.shape[-1] else g
+        out.append(float((g - w).abs().max() / w.abs().max()))
+    return out
+
+
+def _decode_split_arch(arch: str, mesh, device) -> dict:
+    """Phase 18 for one family on this rank: the bf16 unsharded prefill
+    and DECODE_SPLIT_STEPS decode steps, the same steps on the same
+    weights and cache upcast to f32, then both under the columns split
+    on this rank's slices of the cache and the params."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config, torch_dtype
+    from repro_torch.models import common, shards
+    from repro_torch.models.api import build_model
+    from repro_torch.sharding import specs
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch)
+    models = {"bf16": build_model(cfg), "f32": build_model(
+        dataclasses.replace(cfg, dtype="float32"))}
+    b, s = DECODE_SPLIT_PROMPT
+    rng = np.random.default_rng(LM_SEED)
+    tok = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s + DECODE_SPLIT_STEPS)).astype(
+            np.int32)).to(device)
+    batch = {"tokens": tok[:, :s]}
+    if cfg.frontend == "audio":
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(
+                device, torch_dtype(cfg.dtype))
+    params = models["bf16"].init(torch.Generator(device).manual_seed(LM_SEED))
+    with torch.no_grad():
+        cache, _ = models["bf16"].prefill(params, batch)
+    cache = {"bf16": _grown(cfg, cache, DECODE_SPLIT_CACHE - s)}
+    cache["f32"] = tree_map(lambda t: t.to(torch.float32, copy=True),
+                            cache["bf16"])       # its own, written in place
+    split = specs.model_split_decode(mesh)
+    local = {k: {n: t.to_local().clone() for n, t in specs.distribute_tree(
+        c, specs.decode_cache_placements(c, mesh, cfg.family)).items()}
+        for k, c in cache.items()}
+    shards_bf16 = shards.local_shards(specs.distribute_tree(
+        params, specs.tree_placements(params, mesh)))
+
+    def steps(model, p, c):
+        """(logits of each step, FLOPs of the first, ms of the rest)."""
+        out, flops, ms = [], 0, []
+        for t in range(DECODE_SPLIT_STEPS):
+            tk = tok[:, s + t:s + t + 1]
+            if t == 0:
+                with FlopCounterMode(display=False) as fc:
+                    lg, _ = model.decode_step(p, c, tk, s + t)
+                flops = fc.get_total_flops()
+            else:
+                got = {}
+                ms.append(_event_ms(lambda: got.update(
+                    lg=model.decode_step(p, c, tk, s + t)[0])))
+                lg = got["lg"]
+            out.append(lg.float())
+        return out, flops, ms
+
+    def upcast(tree):
+        return tree_map(lambda t: t.float(), tree)
+
+    # one model's whole weights at a time (the card also holds what
+    # phases 1-17 keep, and the other rank's)
+    full, split_run = {}, {}
+    with torch.no_grad():
+        full["bf16"] = steps(models["bf16"], params, cache["bf16"])
+        params = upcast(params)
+        full["f32"] = steps(models["f32"], params, cache["f32"])
+        state_full = sum(t.numel() * t.element_size()
+                         for t in cache["bf16"].values())
+        del params, cache
+        sh, pl = shards_bf16
+        del shards_bf16
+        for k in ("bf16", "f32"):
+            if k == "f32":
+                sh = upcast(sh)
+            view = shards.model_view(sh, pl, mesh, (), split)
+            with common.use_mesh(mesh, (), split):
+                split_run[k] = steps(models[k], view, local[k])
+            del view
+    v = split_run["bf16"][0][0].shape[-1]      # this rank's vocabulary
+    cols = slice(mesh.get_local_rank("model") * v,
+                 (mesh.get_local_rank("model") + 1) * v)
+    want = full["f32"][0]
+    return {"split": split.name, "vocab_slice": [cols.start, cols.stop],
+            "f32_rel_err_per_step": _rel_errs(split_run["f32"][0], want,
+                                              cols),
+            "bf16_rel_err_per_step": _rel_errs(split_run["bf16"][0], want,
+                                               cols),
+            "unsharded_bf16_rel_err_per_step": _rel_errs(full["bf16"][0],
+                                                         want, cols),
+            "bf16_vs_unsharded_bf16_rel_err_per_step": _rel_errs(
+                split_run["bf16"][0], full["bf16"][0], cols),
+            "flops": split_run["bf16"][1], "unsharded_flops": full["bf16"][1],
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for t in local["bf16"].values()),
+            "unsharded_state_bytes": state_full,
+            "step_ms": float(np.median(split_run["bf16"][2])),
+            "unsharded_step_ms": float(np.median(full["bf16"][2])),
+            "f32_step_ms": float(np.median(split_run["f32"][2])),
+            "unsharded_f32_step_ms": float(np.median(full["f32"][2]))}
+
+
+def _decode_split_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """Phase 18, one of two processes on the one card: each of
+    DECODE_SPLIT_ARCHS through :func:`_decode_split_arch` on a ("data",
+    "model") = (1, 2) gloo mesh, collectives staged through the host as
+    phase 17's. Rank 0 writes every rank's numbers to
+    ``tmp/decode_split.json``. ``device`` is "cuda" (the card's first)
+    but for a rehearsal on the CPU."""
+    import datetime
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = torch.device(device, 0)
+    staged: dict = {}
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        transport = _stage_through_host(staged)   # kept while it runs
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "rendezvous"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = init_device_mesh(device.type, (1, world),
+                                mesh_dim_names=("data", "model"))
+        res = {"rank": rank, "archs": {}}
+        for arch in DECODE_SPLIT_ARCHS:
+            dist.barrier()                # the ranks' steps start together
+            t0 = time.perf_counter()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            a = res["archs"][arch] = _decode_split_arch(arch, mesh, device)
+            a["s"] = time.perf_counter() - t0
+            if device.type == "cuda":
+                a["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                    device)
+                _free()
+        res["staged_collectives"] = dict(staged)
+        every = [None] * world
+        dist.all_gather_object(every, res)
+        if rank == 0:
+            with open(os.path.join(tmp, "decode_split.json"), "w") as f:
+                json.dump({"ranks": every}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        if device.type == "cuda":
+            del transport
+
+
+def phase_decode_split() -> dict:
+    """Phase 18: :func:`_decode_split_rank` in two spawned processes
+    sharing the card over gloo. Per family and rank, at every step: the
+    columns split; in f32 the logits within DECODE_SPLIT_TOL of the
+    unsharded step's, relative to their largest (the same function); in
+    bf16, on the same weights and cache, the logits at most
+    DECODE_SPLIT_BF16_FACTOR times as far from the f32 logits as the
+    unsharded bf16 step's, over the steps (the split adds no more
+    rounding than it has); the bf16 FLOPs at most SPLIT_FLOP_SHARE of
+    the unsharded step's and the decode state half the unsharded
+    cache's."""
+    import tempfile
+    import torch.multiprocessing as mp
+    _free()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_decode_split_rank, args=(2, tmp, "cuda"), nprocs=2)
+        with open(os.path.join(tmp, "decode_split.json")) as f:
+            res = json.load(f)
+    log("phase 18: " + json.dumps(res))
+    for r in res["ranks"]:
+        for arch, a in r["archs"].items():
+            where = f"{arch}: rank {r['rank']}"
+            check(a["split"] == "columns",
+                  f"{where} took split {a['split']}, not columns")
+            check(max(a["f32_rel_err_per_step"]) <= DECODE_SPLIT_TOL,
+                  f"{where} f32 logits off by {a['f32_rel_err_per_step']} "
+                  f"relative to the unsharded step's")
+            bound = DECODE_SPLIT_BF16_FACTOR * max(
+                a["unsharded_bf16_rel_err_per_step"])
+            check(max(a["bf16_rel_err_per_step"]) <= bound,
+                  f"{where} bf16 logits off the f32 ones by "
+                  f"{a['bf16_rel_err_per_step']}, the unsharded bf16 "
+                  f"step's by {a['unsharded_bf16_rel_err_per_step']}")
+            check(a["flops"] <= SPLIT_FLOP_SHARE * a["unsharded_flops"],
+                  f"{where} runs {a['flops']:.4g} FLOP, the unsharded "
+                  f"step {a['unsharded_flops']:.4g}")
+            check(2 * a["state_bytes"] == a["unsharded_state_bytes"],
+                  f"{where} holds {a['state_bytes']} B of decode state, "
+                  f"the unsharded cache {a['unsharded_state_bytes']} B")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3679,6 +3915,35 @@ def main(argv=None) -> int:
                 f"{ref['peak_over_args_bytes']} B unsharded ({card})")
         log(f"phase 17: split over model ok ({time.perf_counter() - t0:.1f} "
             f"s)")
+        t0 = time.perf_counter()
+        ds = result["decode_split"] = phase_decode_split()
+        for arch in DECODE_SPLIT_ARCHS:
+            ranks = [r["archs"][arch] for r in ds["ranks"]]
+            worst = {k: [max(a[k + "_rel_err_per_step"]) for a in ranks]
+                     for k in ("f32", "bf16", "unsharded_bf16",
+                               "bf16_vs_unsharded_bf16")}
+            log(f"phase 18: {arch} full width, {DECODE_SPLIT_STEPS} decode "
+                f"steps on {DECODE_SPLIT_PROMPT[0]} rows after a "
+                f"{DECODE_SPLIT_PROMPT[1]}-token prefill, cache "
+                f"{DECODE_SPLIT_CACHE} positions, split "
+                f"{ranks[0]['split']} over (data, model) = (1, 2): logits "
+                f"max rel err a rank against the unsharded f32 step: split "
+                f"f32 {worst['f32']}, split bf16 {worst['bf16']}, unsharded "
+                f"bf16 {worst['unsharded_bf16']} (split bf16 against "
+                f"unsharded bf16 {worst['bf16_vs_unsharded_bf16']}); bf16 "
+                f"FLOP a rank {[a['flops'] for a in ranks]} vs "
+                f"{ranks[0]['unsharded_flops']} unsharded; decode state a "
+                f"rank {[a['state_bytes'] for a in ranks]} B vs "
+                f"{ranks[0]['unsharded_state_bytes']} B; bf16 step ms a "
+                f"rank (CUDA events, median of {DECODE_SPLIT_STEPS - 1}, two "
+                f"processes sharing one card: not multi-card times) "
+                f"{[round(a['step_ms'], 2) for a in ranks]} vs "
+                f"{[round(a['unsharded_step_ms'], 2) for a in ranks]} "
+                f"unsharded; peak allocated a rank "
+                f"{[a['max_memory_allocated'] for a in ranks]} B ({card})")
+        log(f"phase 18: decode split over model ok "
+            f"({time.perf_counter() - t0:.1f} s; staged calls a rank: "
+            f"{json.dumps([r['staged_collectives'] for r in ds['ranks']])})")
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1

@@ -38,8 +38,11 @@ the reference's shape, with these differences:
     chips (what a rank would run were the work split evenly);
   * ``model_split`` names what a rank computes of its "model" group's
     work (``specs.ModelSplit``): "batch" (its rows of the data shard),
-    Megatron's "heads+ffn", "heads" or "ffn", or "none" (every rank the
-    group's whole work, as every decode step does).
+    Megatron's "heads+ffn", "heads" or "ffn", "columns" (every decode
+    step on a "model" dim of more than one rank: each weight used where
+    its shard lives, the cache placed by ``specs.decode_cache_spec``
+    and each rank handed its local slice), or "none" (every rank the
+    group's whole work).
 
 A cell that raises is recorded with its error and the run goes on (the
 reference's ``run_cell``); the run exits 1 if any cell errors. Results go
@@ -169,7 +172,11 @@ def _reshard(local, like):
 def trace_cell(cfg, shape, mesh) -> dict:
     """The step of ``cfg`` x ``shape`` on meta DTensors over ``mesh``:
     what rank 0 holds, moves and computes. Returns the record's
-    ``memory``, ``collectives`` and ``traced_flops_per_rank``."""
+    ``memory``, ``collectives`` and ``traced_flops_per_rank``. A decode
+    step under a split without ``columns`` (a "model" dim of one rank)
+    reads the cache placed by the reference's ``specs.cache_spec``,
+    gathered to its data shard."""
+    from torch.distributed.tensor import DTensor
     from torch.utils.flop_counter import FlopCounterMode
     model = build_model(cfg)
     params = model.param_specs()
@@ -194,13 +201,15 @@ def trace_cell(cfg, shape, mesh) -> dict:
                                   mesh)
         local_batch, dims = shards.split_rows(local_batch, mesh, dims, split)
     else:
-        cd = specs.distribute_tree(
-            ins["cache"], specs.cache_placements(ins["cache"], mesh))
+        split = specs.model_split_decode(mesh)
+        cd = specs.distribute_tree(ins["cache"], (
+            specs.decode_cache_placements(ins["cache"], mesh, cfg.family)
+            if split.columns else
+            specs.cache_placements(ins["cache"], mesh)))
         tok = specs.distribute(ins["token"], specs.Layout(
             mesh, specs.batch_spec(tuple(ins["token"].shape), mesh)))
         dims = shards.batch_dims(tok, mesh)
         args = (pd, cd, tok, ins["length"])
-        split = specs.ModelSplit(specs.mesh_sizes(mesh).get("model", 1))
     counter = rl.CollectiveCounter()
     flops = FlopCounterMode(display=False)
     mem = MemoryTracker([t for t in leaves(shards.local_shards(args)[0])
@@ -216,11 +225,18 @@ def trace_cell(cfg, shape, mesh) -> dict:
                                      local_batch)
             alias, split_name = (), split.name
         else:
+            local = (shards.local_shards(cd)[0] if split.columns
+                     else tree_map(_batch_local, cd))
             with torch.no_grad(), common.use_mesh(mesh, dims, split):
                 logits, cache = model.decode_step(
-                    _view(pd, mesh, dims, split), tree_map(_batch_local, cd),
-                    _batch_local(tok), shape.seq - 1)
-            new_cache = tree_map(_reshard, cache, cd)
+                    _view(pd, mesh, dims, split), local, _batch_local(tok),
+                    shape.seq - 1)
+            if split.columns:             # each rank's slice as it is
+                new_cache = tree_map(lambda t, like: DTensor.from_local(
+                    t, like.device_mesh, like.placements, run_check=False),
+                    cache, cd)
+            else:
+                new_cache = tree_map(_reshard, cache, cd)
             outs, alias = (logits, new_cache), new_cache
             split_name = split.name
     arg_b, out_b, alias_b = (_local_bytes(args), _local_bytes(outs),

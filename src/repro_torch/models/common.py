@@ -497,21 +497,40 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def decode_attention(q, k_cache, v_cache, length, *, window=None):
+def decode_attention(q, k_cache, v_cache, length, *, window=None,
+                     split=None):
     """Single-token attention against a cache.
     q: (B, 1, H, hd); caches: (B, S_max, KH, hd); length: current length
     (int, 0-d tensor or (B,) tensor) — positions >= length are masked
     (-1e30, as the reference). GQA is grouped against the KH-headed
     cache. Products are exact with an f32 accumulator: the operands are
     upcast, and the softmax weights are first rounded to the cache's
-    dtype, as the reference's ``p.astype(v_cache.dtype)``."""
+    dtype, as the reference's ``p.astype(v_cache.dtype)``.
+
+    ``split`` names how the context's "model" ranks split the cache
+    (:func:`model_split`'s ``columns``), with ``q`` whole on each:
+      * "positions": each rank holds its contiguous S_max / n positions
+        (global positions mask them); the row max and the sum of
+        ``exp(s - max)`` are reduced over "model", ``p`` rounded as
+        above, and the partial ``p @ v`` summed over "model";
+      * "head_dim": each rank holds its slice of the head dim; the
+        scores' partial products are summed over "model" before the
+        scale, ``p`` is whole on every rank, and each rank's slice of
+        the output is all-gathered."""
     b, one, h, hd = q.shape
-    kh = k_cache.shape[2]
+    s_loc, kh, hd_loc = k_cache.shape[1:]
     rep = h // kh
+    mesh = _context_mesh() if split else None
+    r = mesh.get_local_rank("model") if split else 0
     qg = q.reshape(b, one, kh, rep, hd)
-    scale = 1.0 / np.sqrt(hd)
-    s = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), k_cache.float()) * scale
-    pos = torch.arange(k_cache.shape[1], device=q.device)
+    if split == "head_dim":
+        qg = qg[..., r * hd_loc:(r + 1) * hd_loc]
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), k_cache.float())
+    if split == "head_dim":
+        s = _all_reduce(s, mesh, ("model",))
+    s = s * (1.0 / np.sqrt(hd))
+    lo = r * s_loc if split == "positions" else 0
+    pos = torch.arange(lo, lo + s_loc, device=q.device)
     ln = length             # a Python int stays one: no copy to the device
     if isinstance(ln, torch.Tensor):
         ln = ln.to(q.device)
@@ -520,10 +539,18 @@ def decode_attention(q, k_cache, v_cache, length, *, window=None):
     if window is not None:
         mask &= pos[None, None, None, None, :] >= (ln - window)
     s = torch.where(mask, s, -1e30)
-    p = torch.softmax(s, dim=-1)
+    if split == "positions":
+        top = _all_reduce(s.amax(dim=-1, keepdim=True), mesh, ("model",),
+                          "max")
+        e = torch.exp(s - top)
+        p = e / _all_reduce(e.sum(dim=-1, keepdim=True), mesh, ("model",))
+    else:
+        p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkrqs,bskd->bqkrd", p.to(v_cache.dtype).float(),
                      v_cache.float())
-    return o.reshape(b, one, h, hd).to(q.dtype)
+    if split == "positions":
+        o = _all_reduce(o, mesh, ("model",))
+    return gather_columns(o.reshape(b, one, h, hd_loc).to(q.dtype), hd)
 
 
 # ---------------------------------------------------------------------------
@@ -541,6 +568,59 @@ def matmul(a, b):
     return torch.matmul(a, b)
 
 
+# ---------------------------------------------------------------------------
+# the columns split of a decode step (``specs.ModelSplit.columns``): every
+# weight where the rules placed it, only activations cross "model"
+# ---------------------------------------------------------------------------
+
+def gather_columns(y, width: int):
+    """``y`` whole on its last dim, ``width`` long, under the context's
+    columns split: ``y`` itself, or, where it is this "model" rank's
+    contiguous 1/n of it, every rank's concatenated in rank order (an
+    all-gather over "model"). ``y`` itself under any other split."""
+    if y.shape[-1] == width or not model_split().columns:
+        return y
+    import torch.distributed._functional_collectives as funcol
+    return _wait(funcol.all_gather_tensor(
+        y.contiguous(), y.ndim - 1, _model_group(_context_mesh())))
+
+
+def split_matmul(x, w, width: int):
+    """``x @ w`` (``width`` columns) whole on every "model" rank under
+    the context's ``columns`` split, with ``x`` whole and ``w`` as the
+    rules placed it (``specs.compute_spec``):
+      * this rank's columns: its products, all-gathered. Each column is
+        computed on its own (:func:`matmul`), so the result is the
+        unsharded product's bit for bit wherever the GEMM's reduction
+        order does not depend on how many columns it is given;
+      * its rows (the input dim on "model"): its slice of ``x`` times
+        them in f32, summed over "model" and rounded once;
+      * whole: the product.
+    ``w`` may be a batch of weights (its last two dims the product's).
+    Under any other split, :func:`matmul`."""
+    if not model_split().columns:
+        return matmul(x, w)
+    if w.shape[-2] != x.shape[-1]:
+        mesh = _context_mesh()
+        k = w.shape[-2]
+        lo = mesh.get_local_rank("model") * k
+        part = torch.matmul(x[..., lo:lo + k].float(), w.float())
+        return _all_reduce(part, mesh, ("model",)).to(x.dtype)
+    return gather_columns(matmul(x, w), width)
+
+
+def cache_positions(cache_len: int) -> tuple:
+    """(its first global position, all positions) of a self-attention
+    cache of ``cache_len`` positions: under the columns split, this
+    "model" rank's contiguous share of n x ``cache_len`` positions
+    (``specs.decode_cache_spec``); else (0, ``cache_len``)."""
+    sp = model_split()
+    if not sp.columns:
+        return 0, cache_len
+    return _context_mesh().get_local_rank("model") * cache_len, \
+        sp.n * cache_len
+
+
 def silu(x):
     """``jax.nn.silu``'s formula, op by op in x's dtype: in bf16 each op
     rounds, and ``F.silu`` (one rounding) differs in 4 of 10 values."""
@@ -556,14 +636,20 @@ def gelu(x):
     return x * cdf
 
 
-def gated_mlp(x, w_gate, w_up, w_down):
-    h = silu(matmul(x, w_gate)) * matmul(x, w_up)
-    return matmul(h, w_down)
+def gated_mlp(x, w_gate, w_up, w_down, d_ff=None):
+    """The gated-SiLU MLP. Under the columns split (:func:`split_matmul`)
+    the gate and up weights are split alike, so ``h`` is formed on this
+    rank's columns and gathered once, to ``d_ff``."""
+    h = silu(split_matmul(x, w_gate, w_gate.shape[-1])) \
+        * split_matmul(x, w_up, w_up.shape[-1])
+    return split_matmul(gather_columns(h, d_ff or h.shape[-1]), w_down,
+                        x.shape[-1])
 
 
-def gelu_mlp(x, w_up, b_up, w_down, b_down):
-    h = gelu(matmul(x, w_up) + b_up)
-    return matmul(h, w_down) + b_down
+def gelu_mlp(x, w_up, b_up, w_down, b_down, d_ff=None):
+    """The GELU MLP; ``d_ff`` as :func:`gated_mlp`'s."""
+    h = gelu(split_matmul(x, w_up, d_ff or w_up.shape[-1]) + b_up)
+    return split_matmul(h, w_down, x.shape[-1]) + b_down
 
 
 def cross_entropy(logits, labels, vocab_real: Optional[int] = None,

@@ -50,7 +50,7 @@ def init_params(cfg, gen):
 def _ssm_in(cfg, lp, h):
     """The SSM branch's projection, split: (z, silu(xBC), dt_raw)."""
     din, H, P, N = _dims(cfg)
-    zxbcdt = c.matmul(h, lp["ssm_in"])
+    zxbcdt = c.split_matmul(h, lp["ssm_in"], 2 * din + 2 * N + H)
     return (zxbcdt[..., :din], c.silu(zxbcdt[..., din:2 * din + 2 * N]),
             zxbcdt[..., 2 * din + 2 * N:])
 
@@ -59,7 +59,7 @@ def _ssm_out(cfg, lp, y, z, dtype):
     B, S = y.shape[:2]
     y = y.reshape(B, S, cfg.din).to(dtype)
     y = c.rmsnorm(y, lp["ssm_norm_g"], cfg.norm_eps) * c.silu(z)
-    return c.matmul(y, lp["ssm_out"])
+    return c.split_matmul(y, lp["ssm_out"], cfg.d_model)
 
 
 def _ssm_branch(cfg, lp, h):
@@ -137,42 +137,61 @@ def _window_attention(cfg, q, kc, vc, length):
     """One query against the right-aligned window: entry i holds
     absolute position length-(W-1-i), valid where that is >= 0. Unlike
     ``common.decode_attention``, the softmax weights stay f32 for the
-    product with v, as the reference's."""
-    W = kc.shape[1]
+    product with v, as the reference's.
+
+    Under the columns split the window keeps the reference's layout,
+    this "model" rank's slice of the head dim (its first entry would
+    otherwise come from its neighbour every step): the scores' partial
+    products are summed over "model", ``p`` is whole on every rank, and
+    each rank's slice of the output is all-gathered."""
+    W, hd_loc = kc.shape[1], kc.shape[-1]
+    hd = cfg.hd
     valid = torch.arange(W, device=q.device) >= (W - 1 - length)
     rep = cfg.num_heads // cfg.num_kv_heads
     kk = c._repeat_kv(kc, rep).float()
     vv = c._repeat_kv(vc, rep).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / np.sqrt(cfg.hd)
-    s = torch.where(valid[None, None, None, :], s, -1e30)
-    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
+    q = mamba2.state_slice(q, hd, hd_loc)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk)
+    if hd_loc != hd:
+        s = c._all_reduce(s, c._context_mesh(), ("model",))
+    s = torch.where(valid[None, None, None, :], s / np.sqrt(hd), -1e30)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
+    return c.gather_columns(o, hd)
 
 
 def decode_step(cfg, params, cache, token, length):
     """Sliding-window KV (right-aligned, newest last) + O(1) SSM step.
-    The cache's leaves are updated in place and returned."""
+    The cache's leaves are updated in place and returned. Under the
+    columns split each product is ``common.split_matmul``'s, the window
+    holds this rank's slice of the head dim (:func:`_window_attention`)
+    and the SSM state its slice of N (``mamba2.ssm_step``)."""
     length = int(length)
     din, H, P, N = _dims(cfg)
     inv_freq = tfm._inv_freq(cfg, params["embed"].device)
-    x = params["embed"][token]
+    x = c.gather_columns(params["embed"][token], cfg.d_model)
     B = x.shape[0]
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
     for i, lp in enumerate(tfm.layers(params)):
         kc, vc = cache["k"][i], cache["v"][i]
         hn = tfm._norm(cfg, x, lp, "ln1")
         q, k, v = tfm._qkv(cfg, lp, hn, pos, inv_freq)
+        k, v = (mamba2.state_slice(t, cfg.hd, kc.shape[-1]) for t in (k, v))
         kc.copy_(torch.cat([kc[:, 1:], k.to(kc.dtype)], dim=1))
         vc.copy_(torch.cat([vc[:, 1:], v.to(vc.dtype)], dim=1))
         attn = _window_attention(cfg, q, kc, vc, length).to(x.dtype)
-        attn_out = c.matmul(attn.reshape(B, 1, -1), lp["wo"])
+        attn_out = c.split_matmul(attn.reshape(B, 1, -1), lp["wo"],
+                                  cfg.d_model)
         # SSM single step (conv-free)
         z, xBC, dt_raw = _ssm_in(cfg, lp, hn)
         xs = xBC[:, 0, :din].reshape(B, H, P)
+        n_loc = cache["ssm_state"].shape[-1]
         dtv = mamba2.softplus(dt_raw[:, 0].float() + lp["dt_bias"])
         A = -torch.exp(lp["A_log"])
-        y, h = mamba2.ssm_step(cache["ssm_state"][i], xs,
-                               xBC[:, 0, din:din + N], xBC[:, 0, din + N:],
-                               dtv, A, lp["Dd"])
+        y, h = mamba2.ssm_step(
+            cache["ssm_state"][i], xs,
+            mamba2.state_slice(xBC[:, 0, din:din + N], N, n_loc),
+            mamba2.state_slice(xBC[:, 0, din + N:], N, n_loc),
+            dtv, A, lp["Dd"], mamba2.ssm_sum())
         cache["ssm_state"][i] = h
         ssm_out = _ssm_out(cfg, lp, y.reshape(B, 1, din), z, x.dtype)
         x = x + 0.5 * (attn_out + ssm_out)

@@ -196,44 +196,78 @@ def prefill(cfg, params, batch):
     return {"ssm_state": h, "conv_state": conv}, logits
 
 
-def ssm_step(h, xs, Bm, Cm, dt, A, D):
+def ssm_step(h, xs, Bm, Cm, dt, A, D, model_sum=None):
     """One recurrent SSD step in f32. h: (B,H,P,N); xs: (B,H,P); Bm, Cm:
-    (B,N); dt: (B,H) post-softplus. Returns (y (B,H,P), h')."""
+    (B,N); dt: (B,H) post-softplus. Returns (y (B,H,P), h').
+
+    Under the columns split ``h``, ``Bm`` and ``Cm`` are this "model"
+    rank's slice of N: the update is elementwise in N, and ``C . h``
+    is partial, summed by ``model_sum`` before ``D * x`` is added, once."""
     xf = xs.float()
     dA = torch.exp(dt * A)                                  # (B,H)
     h = h * dA[:, :, None, None] + torch.einsum(
         "bh,bn,bhp->bhpn", dt, Bm.float(), xf)
-    y = torch.einsum("bn,bhpn->bhp", Cm.float(), h) + D[None, :, None] * xf
-    return y, h
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), h)
+    if model_sum is not None:
+        y = model_sum(y)
+    return y + D[None, :, None] * xf, h
+
+
+def state_slice(t, width: int, n_local: int):
+    """The slice of ``t``'s last dim (``width`` long) that this "model"
+    rank holds ``n_local`` of: all of it, or, under the columns split,
+    its contiguous share."""
+    if n_local == width:
+        return t
+    lo = c._context_mesh().get_local_rank("model") * n_local
+    return t[..., lo:lo + n_local]
+
+
+def ssm_sum():
+    """What sums ``C . h`` over the slices of N (:func:`ssm_step`): the
+    sum over "model" under the columns split, else nothing."""
+    return c.model_sum if c.model_split().columns else None
 
 
 def decode_step(cfg, params, cache, token, length):
     """O(1) recurrent step. cache: ssm_state (L,B,H,P,N), conv_state
     (L,B,CONV_K,conv_dim) holding the last raw xBC inputs; both are
-    updated in place and returned. ``length`` is not used."""
+    updated in place and returned. ``length`` is not used.
+
+    Under the columns split (``common.model_split``) each product is
+    ``common.split_matmul``'s, and the state is as
+    ``specs.decode_cache_spec`` places it: this rank's channels of
+    ``conv_state`` (the conv runs on them, then ``xBC`` is gathered)
+    and its slice of N of ``ssm_state``."""
     del length
     din, H, P, N = _dims(cfg)
-    x = params["embed"][token]                  # (B,1,D)
+    x = c.gather_columns(params["embed"][token], cfg.d_model)  # (B,1,D)
     B = x.shape[0]
+    conv_dim = din + 2 * N
     for i, lp in enumerate(tfm.layers(params)):
         hid = c.rmsnorm(x, lp["ln_g"], cfg.norm_eps)
-        zxbcdt = c.matmul(hid, lp["in_proj"])
+        zxbcdt = c.split_matmul(hid, lp["in_proj"], 2 * din + 2 * N + H)
         z, xBC_raw, dt_raw = _split_proj(cfg, zxbcdt)
-        conv = torch.cat([cache["conv_state"][i, :, 1:], xBC_raw], dim=1)
+        cs = cache["conv_state"][i]
+        xBC_raw = state_slice(xBC_raw, conv_dim, cs.shape[-1])
+        conv = torch.cat([cs[:, 1:], xBC_raw], dim=1)
         cache["conv_state"][i] = conv
         # exact products, an f32 sum, one rounding: the reference's einsum
         xBC = c.silu(torch.einsum("bkc,kc->bc", conv.float(),
                                   lp["conv_w"].float()).to(conv.dtype)
-                     + lp["conv_b"])
+                     + state_slice(lp["conv_b"], conv_dim, cs.shape[-1]))
+        xBC = c.gather_columns(xBC, conv_dim)
         xs = xBC[:, :din].reshape(B, H, P)
-        Bm = xBC[:, din:din + N]
-        Cm = xBC[:, din + N:]
+        n_loc = cache["ssm_state"].shape[-1]
+        Bm = state_slice(xBC[:, din:din + N], N, n_loc)
+        Cm = state_slice(xBC[:, din + N:], N, n_loc)
         dt = softplus(dt_raw[:, 0].float() + lp["dt_bias"])   # (B,H)
         A = -torch.exp(lp["A_log"])
-        y, h = ssm_step(cache["ssm_state"][i], xs, Bm, Cm, dt, A, lp["D"])
+        y, h = ssm_step(cache["ssm_state"][i], xs, Bm, Cm, dt, A, lp["D"],
+                        ssm_sum())
         cache["ssm_state"][i] = h
         y = y.reshape(B, 1, din).to(x.dtype)
         y = c.rmsnorm(y, lp["norm_g"], cfg.norm_eps) * c.silu(z)
-        x = x + c.matmul(y, lp["out_proj"])
+        x = x + c.split_matmul(y, lp["out_proj"], cfg.d_model)
     x = c.rmsnorm(x, params["ln_f_g"], cfg.norm_eps)
     return c.logits(cfg, x, params["lm_head"]), cache

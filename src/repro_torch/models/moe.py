@@ -71,16 +71,20 @@ def _ranks_in_expert(sorted_e):
     return ar - start
 
 
-def _route(x, router_w, top_k, e_real=None):
-    logits = x.float() @ router_w                        # (T, E_pad)
-    if e_real is not None and e_real < router_w.shape[1]:
+def _route(x, router_w, top_k, e_real=None, e_pad=None):
+    """(gate weights, expert ids, aux loss) of the tokens ``x``; under
+    the columns split ``router_w`` is this rank's columns of the
+    ``e_pad`` experts, and the logits are gathered."""
+    logits = c.gather_columns(x.float() @ router_w,     # (T, E_pad)
+                              e_pad or router_w.shape[1])
+    if e_real is not None and e_real < logits.shape[1]:
         eid = torch.arange(logits.shape[1], device=logits.device)
         logits = torch.where(eid < e_real, logits, -1e30)
     gw, gi = torch.topk(logits, top_k, dim=-1)
     gw = torch.softmax(gw, dim=-1)
     # aux load-balance loss (Switch): E * mean(frac_tokens * frac_router)
     probs = torch.softmax(logits, dim=-1)
-    E = router_w.shape[1]
+    E = logits.shape[1]
     frac_router = probs.mean(dim=0)
     hard = torch.zeros(E, device=x.device).index_add_(
         0, gi.reshape(-1), torch.ones(gi.numel(), device=x.device)) \
@@ -89,9 +93,17 @@ def _route(x, router_w, top_k, e_real=None):
     return gw, gi, aux
 
 
-def _expert_ffn(buf, wg, wu, wd):
-    h = c.silu(c.matmul(buf, wg)) * c.matmul(buf, wu)
-    return c.matmul(h, wd)
+def _expert_ffn(buf, wg, wu, wd, d_ff):
+    """The experts' gated MLP on their buffers. Under the columns split
+    each weight is as the rules placed it (``common.split_matmul``):
+    the gate and up products give this rank's columns of the ``d_ff``
+    FFN dim, whose ``h`` is all-gathered once, and the result is this
+    rank's columns of d_model where ``wd`` holds them (gathered after
+    the combine, which adds column by column)."""
+    h = c.silu(c.split_matmul(buf, wg, wg.shape[-1])) \
+        * c.split_matmul(buf, wu, wu.shape[-1])
+    h = c.gather_columns(h, d_ff)
+    return c.split_matmul(h, wd, wd.shape[-1])
 
 
 def _scatter_rows(x_rows, slot, size):
@@ -115,8 +127,8 @@ def _combine(x, tok_id, keep, slot, y, gatew):
     rows = torch.where(keep[:, None], y[torch.clamp(slot, max=size - 1)],
                        0.0) * gatew[:, None]
     by_token = rows[torch.argsort(tok_id, stable=True)].view(
-        x.shape[0], -1, x.shape[1])
-    out = torch.zeros_like(x)
+        x.shape[0], -1, y.shape[1])
+    out = x.new_zeros((x.shape[0], y.shape[1]))
     for j in range(by_token.shape[1]):
         out = out + by_token[:, j]
     return out
@@ -133,8 +145,8 @@ def _dispatch_group(x, tok_id, sorted_e, rank, gatew, group_lo, group_hi,
     keep = in_group & (rank < cap)
     slot = torch.where(keep, (sorted_e - group_lo) * cap + rank, n_exp * cap)
     buf = _scatter_rows(x[tok_id], slot, n_exp * cap)
-    y = _expert_ffn(buf.reshape(n_exp, cap, D), wg, wu, wd) \
-        .reshape(n_exp * cap, D)
+    y = _expert_ffn(buf.reshape(n_exp, cap, D), wg, wu, wd, wg.shape[-1])
+    y = y.reshape(n_exp * cap, -1)
     return _combine(x, tok_id, keep, slot, y, gatew)
 
 
@@ -154,7 +166,7 @@ def _moe_ffn_tokens(cfg, router, wg, wu, wd, x, r, e_per, n_model,
     """
     T, D = x.shape
     E, K = cfg.num_experts_padded, cfg.top_k
-    gw, gi, aux = _route(x, router, K, cfg.num_experts)
+    gw, gi, aux = _route(x, router, K, cfg.num_experts, E)
     flat_e = gi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -181,17 +193,19 @@ def _moe_ffn_tokens(cfg, router, wg, wu, wd, x, r, e_per, n_model,
     slot = torch.where(keep, off_j + rank, bufsize)
     buf = _scatter_rows(x[tok_id], slot, bufsize)
     hb = h_per * c_hot
+    F = cfg.moe_d_ff or cfg.d_ff
     parts = []
     if h_per > 0:                            # Little: hot experts
         parts.append(_expert_ffn(
             buf[:hb].reshape(h_per, c_hot, D),
-            wg[:h_per], wu[:h_per], wd[:h_per]).reshape(hb, D))
+            wg[:h_per], wu[:h_per], wd[:h_per], F).reshape(hb, -1))
     if e_per > h_per:                        # Big: cold experts
         parts.append(_expert_ffn(
             buf[hb:].reshape(e_per - h_per, c_cold, D),
-            wg[h_per:], wu[h_per:], wd[h_per:]).reshape(bufsize - hb, D))
+            wg[h_per:], wu[h_per:], wd[h_per:], F).reshape(bufsize - hb, -1))
     y = torch.cat(parts)
-    return _combine(x, tok_id, keep, slot, y, gatew), aux
+    out = _combine(x, tok_id, keep, slot, y, gatew)
+    return c.gather_columns(out, D), aux
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +283,12 @@ def moe_ffn(cfg, lp, h, capacity_factor=None):
     is split over "model" too: the model group's rows are gathered for
     the dispatch and the sum is reduce-scattered back to each rank's
     rows. The expert weights are whole or this rank's share already.
+
+    Under the columns split of a decode step the expert weights come as
+    the rules placed them: where that is the experts on "model", the
+    expert-sharded branch; else the single-device dispatch (its
+    capacities and drops), each product split as ``_expert_ffn`` says,
+    so that no expert weight crosses "model".
     """
     capacity_factor = (cfg.capacity_factor if capacity_factor is None
                        else capacity_factor)
@@ -277,7 +297,8 @@ def moe_ffn(cfg, lp, h, capacity_factor=None):
     from ..sharding.specs import mesh_sizes
     n_model = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
     E, F = cfg.num_experts_padded, cfg.moe_d_ff or cfg.d_ff
-    if n_model == 1 or (E % n_model and F % n_model):
+    columns = c.model_split().columns and lp["we_gate"].shape[0] == E
+    if n_model == 1 or (E % n_model and F % n_model) or columns:
         # every rank computes everything: nothing to sum (the
         # reference's psum over "model" would add n_model equal outputs)
         if n_model > 1 and "model" in c._data_dims():
@@ -343,19 +364,23 @@ def prefill(cfg, params, batch):
 def decode_step(cfg, params, cache, token, length):
     """One token with a KV cache (written at position ``length``; the
     cache's leaves are updated in place and returned). As the
-    reference, the decode attention takes no sliding window here."""
+    reference, the decode attention takes no sliding window here. Under
+    the columns split, attention as ``transformer.decode_step``'s and
+    the MoE FFN as :func:`moe_ffn` says."""
     length = int(length)
-    x = params["embed"][token]
+    x = c.gather_columns(params["embed"][token], cfg.d_model)
     B = x.shape[0]
     inv_freq = tfm._inv_freq(cfg, x.device)
+    split = tfm.self_attention_split()
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
     for i, lp in enumerate(tfm.layers(params)):
         kc, vc = cache["k"][i], cache["v"][i]
         h = tfm._norm(cfg, x, lp, "ln1")
         q, k, v = tfm._qkv(cfg, lp, h, pos, inv_freq)
         tfm.write_kv(kc, vc, k, v, length)
-        attn = c.decode_attention(q, kc, vc, length + 1)
-        x = x + c.matmul(attn.reshape(B, 1, -1), lp["wo"])
+        attn = c.decode_attention(q, kc, vc, length + 1, split=split)
+        x = x + c.split_matmul(attn.reshape(B, 1, -1), lp["wo"],
+                               cfg.d_model)
         h2 = tfm._norm(cfg, x, lp, "ln2")
         y, _ = moe_ffn(cfg, lp, h2)
         x = x + y

@@ -127,13 +127,14 @@ def _kv_weights(cfg, lp):
 def _qkv(cfg, lp, h, positions, inv_freq):
     """q, k, v of ``h``: every head, or under the heads split
     (``common.model_split``) this rank's query heads and the KV heads
-    they read, from the column slices ``shards`` gathers."""
+    they read, from the column slices ``shards`` gathers; under the
+    columns split every head, on every rank."""
     B, S, D = h.shape
     hd = cfg.hd
     wk, wv, bk, bv = _kv_weights(cfg, lp)
-    q = c.matmul(h, lp["wq"])
-    k = c.matmul(h, wk)
-    v = c.matmul(h, wv)
+    q = c.split_matmul(h, lp["wq"], cfg.num_heads * hd)
+    k = c.split_matmul(h, wk, cfg.num_kv_heads * hd)
+    v = c.split_matmul(h, wv, cfg.num_kv_heads * hd)
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + bk, v + bv
     q = q.reshape(B, S, -1, hd)
@@ -164,9 +165,9 @@ def _ffn(cfg, lp, h):
     partial sum (``w_down``'s rows), to be summed over "model"."""
     h = c.enter_model(h, c.model_split().ffn)
     if cfg.mlp == "gelu":
-        return c.matmul(c.gelu(c.matmul(h, lp["w_up"]) + lp["b_up"]),
-                        lp["w_down"])
-    return c.gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        return c.split_matmul(c.gelu(c.split_matmul(h, lp["w_up"], cfg.d_ff)
+                                     + lp["b_up"]), lp["w_down"], cfg.d_model)
+    return c.gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.d_ff)
 
 
 def _mlp(cfg, lp, h):
@@ -239,32 +240,51 @@ def prefill(cfg, params, batch):
 
 
 def write_kv(kc, vc, k, v, length: int):
-    """Write one position of layer caches (B, S_max, KH, hd) in place.
-    The reference's ``dynamic_update_slice`` clamps a start past the end;
-    here that is an error."""
-    if not 0 <= length < kc.shape[1]:
+    """Write one position of layer caches (B, S, KH, hd) in place: all
+    the positions, or under the columns split this "model" rank's share
+    of them (``common.cache_positions``), which it writes only where
+    ``length`` falls in it. The reference's ``dynamic_update_slice``
+    clamps a start past the end; here that is an error."""
+    lo, total = c.cache_positions(kc.shape[1])
+    if not 0 <= length < total:
         raise IndexError(f"decode position {length} outside a cache of "
-                         f"{kc.shape[1]} positions")
-    kc[:, length:length + 1] = k.to(kc.dtype)
-    vc[:, length:length + 1] = v.to(vc.dtype)
+                         f"{total} positions")
+    j = length - lo
+    if 0 <= j < kc.shape[1]:
+        kc[:, j:j + 1] = k.to(kc.dtype)
+        vc[:, j:j + 1] = v.to(vc.dtype)
+
+
+def self_attention_split():
+    """How a decode step's self-attention reads its KV cache
+    (``common.decode_attention``'s ``split``): by this rank's positions
+    under the columns split, else whole."""
+    return "positions" if c.model_split().columns else None
 
 
 def decode_step(cfg, params, cache, token, length):
     """One token with a KV cache (written at position ``length``).
-    The cache's leaves are updated in place and returned."""
+    The cache's leaves are updated in place and returned. Under the
+    columns split (``common.model_split``) each product is
+    ``common.split_matmul``'s and the cache holds this rank's positions
+    (``specs.decode_cache_spec``); the logits are this rank's slice of
+    the vocabulary where ``lm_head`` is split."""
     length = int(length)
-    x = params["embed"][token]                       # (B, 1, D)
+    x = c.gather_columns(params["embed"][token], cfg.d_model)  # (B,1,D)
     B = x.shape[0]
     inv_freq = _inv_freq(cfg, x.device)
     window = cfg.sliding_window or None
+    split = self_attention_split()
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
     for i, lp in enumerate(layers(params)):
         kc, vc = cache["k"][i], cache["v"][i]
         h = _norm(cfg, x, lp, "ln1")
         q, k, v = _qkv(cfg, lp, h, pos, inv_freq)
         write_kv(kc, vc, k, v, length)
-        attn = c.decode_attention(q, kc, vc, length + 1, window=window)
-        attn_out = c.matmul(attn.reshape(B, 1, -1), lp["wo"])
+        attn = c.decode_attention(q, kc, vc, length + 1, window=window,
+                                  split=split)
+        attn_out = c.split_matmul(attn.reshape(B, 1, -1), lp["wo"],
+                                  cfg.d_model)
         if cfg.parallel_block:
             x = x + attn_out + _mlp(cfg, lp, h)
         else:

@@ -73,8 +73,9 @@ def _ln(cfg, x, lp, name):
     return c.layernorm(x, lp[name + "_g"], lp[name + "_b"], cfg.norm_eps)
 
 
-def _mlp(lp, h):
-    return c.gelu_mlp(h, lp["w_up"], lp["b_up"], lp["w_down"], lp["b_down"])
+def _mlp(cfg, lp, h):
+    return c.gelu_mlp(h, lp["w_up"], lp["b_up"], lp["w_down"], lp["b_down"],
+                      cfg.d_ff)
 
 
 def _self_attn(cfg, lp, h, causal):
@@ -90,7 +91,7 @@ def _self_attn(cfg, lp, h, causal):
 def _enc_layer(cfg, x, lp):
     a, _ = _self_attn(cfg, lp, _ln(cfg, x, lp, "ln1"), causal=False)
     x = x + a
-    return x + _mlp(lp, _ln(cfg, x, lp, "ln2"))
+    return x + _mlp(cfg, lp, _ln(cfg, x, lp, "ln2"))
 
 
 def encode(cfg, params, enc_embeds):
@@ -120,7 +121,7 @@ def _dec_layer(cfg, x, lp, enc_out):
     xk, xv = _cross_kv(cfg, lp, enc_out)
     o = c.blockwise_attention(q, xk, xv, causal=False)
     x = x + c.matmul(o.reshape(B, S, -1), lp["xo"])
-    return x + _mlp(lp, _ln(cfg, x, lp, "ln2")), (k, v, xk, xv)
+    return x + _mlp(cfg, lp, _ln(cfg, x, lp, "ln2")), (k, v, xk, xv)
 
 
 def decode_stack(cfg, params, tokens, enc_out, collect_kv=False):
@@ -164,28 +165,35 @@ def decode_step(cfg, params, cache, token, length):
     """One token: self-attention against the cache (written at position
     ``length``, in place) and cross-attention over every encoder frame.
     The position row is the reference's, from a table of the cache's
-    length + 1 rows."""
+    length + 1 rows. Under the columns split each product is
+    ``common.split_matmul``'s, the self-attention cache holds this
+    rank's positions (as ``transformer.decode_step``'s) and the cross
+    cache, in the reference's layout, its slice of the head dim."""
     length = int(length)
     dt = c.dtype_of(cfg)
     B = token.shape[0]
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    pos_tab = sinusoid_pos(cache["k"].shape[2] + 1, cfg.d_model, dt,
-                           token.device)
-    x = params["embed"][token] + pos_tab[length:length + 1][None]
+    split = tfm.self_attention_split()
+    _, positions = c.cache_positions(cache["k"].shape[2])
+    pos_tab = sinusoid_pos(positions + 1, cfg.d_model, dt, token.device)
+    x = c.gather_columns(params["embed"][token], cfg.d_model) \
+        + pos_tab[length:length + 1][None]
     for i, lp in enumerate(tfm.layers(params)):
         kc, vc = cache["k"][i], cache["v"][i]
         xk, xv = cache["cross_k"][i], cache["cross_v"][i]
         h = _ln(cfg, x, lp, "ln1")
-        q = c.matmul(h, lp["wq"]).reshape(B, 1, H, hd)
-        k = c.matmul(h, lp["wk"]).reshape(B, 1, KH, hd)
-        v = c.matmul(h, lp["wv"]).reshape(B, 1, KH, hd)
+        q = c.split_matmul(h, lp["wq"], H * hd).reshape(B, 1, H, hd)
+        k = c.split_matmul(h, lp["wk"], KH * hd).reshape(B, 1, KH, hd)
+        v = c.split_matmul(h, lp["wv"], KH * hd).reshape(B, 1, KH, hd)
         tfm.write_kv(kc, vc, k, v, length)
-        a = c.decode_attention(q, kc, vc, length + 1)
-        x = x + c.matmul(a.reshape(B, 1, -1), lp["wo"])
+        a = c.decode_attention(q, kc, vc, length + 1, split=split)
+        x = x + c.split_matmul(a.reshape(B, 1, -1), lp["wo"], cfg.d_model)
         hx = _ln(cfg, x, lp, "lnx")
-        qx = c.matmul(hx, lp["xq"]).reshape(B, 1, H, hd)
-        ox = c.decode_attention(qx, xk, xv, xk.shape[1])
-        x = x + c.matmul(ox.reshape(B, 1, -1), lp["xo"])
-        x = x + _mlp(lp, _ln(cfg, x, lp, "ln2"))
+        qx = c.split_matmul(hx, lp["xq"], H * hd).reshape(B, 1, H, hd)
+        ox = c.decode_attention(qx, xk, xv, xk.shape[1],
+                                split="head_dim" if xk.shape[-1] != hd
+                                else None)
+        x = x + c.split_matmul(ox.reshape(B, 1, -1), lp["xo"], cfg.d_model)
+        x = x + _mlp(cfg, lp, _ln(cfg, x, lp, "ln2"))
     x = c.layernorm(x, params["ln_f_g"], params["ln_f_b"], cfg.norm_eps)
     return c.logits(cfg, x, params["lm_head"]), cache

@@ -111,21 +111,30 @@ class ModelSplit:
         ``bv``), or "pick", the one KV head its query heads read (the
         KV weights whole); ``ffn``, its 1/n of the FFN dim (``w_gate``,
         ``w_up``, ``b_up`` by columns, ``w_down`` by rows);
+      * ``columns`` (a decode step): every weight where the rules
+        placed it on "model", each product this rank's output columns
+        (all-gathered) or, where "model" is the weight's input dim, its
+        partial sum (summed over "model"); the decode state split as
+        :func:`decode_cache_spec` places it;
       * a part with none of these is computed whole by every rank.
 
-    :func:`model_split` chooses it; ``models/shards.py`` gathers each
-    weight to its :func:`compute_spec` under it."""
+    :func:`model_split` and :func:`model_split_decode` choose it;
+    ``models/shards.py`` gathers each weight to its :func:`compute_spec`
+    under it."""
     n: int = 1
     batch: bool = False
     heads: bool = False
     kv: str = ""
     ffn: bool = False
+    columns: bool = False
 
     @property
     def name(self) -> str:
-        """"batch", "heads+ffn", "heads", "ffn" or "none"."""
+        """"batch", "columns", "heads+ffn", "heads", "ffn" or "none"."""
         if self.batch:
             return "batch"
+        if self.columns:
+            return "columns"
         return "+".join(p for p, on in (("heads", self.heads),
                                         ("ffn", self.ffn)) if on) or "none"
 
@@ -154,6 +163,15 @@ def model_split(cfg, rows: int, mesh, micro_batches: int = 1) -> ModelSplit:
                       ffn=cfg.family != "moe" and cfg.d_ff % n == 0)
 
 
+def model_split_decode(mesh) -> ModelSplit:
+    """How a decode step splits over "model": ``columns`` wherever the
+    "model" dim has more than one rank, whatever the rows or heads (the
+    weights and the decode state stay where the rules placed them, and
+    only activations move over "model"); else nothing."""
+    n = _axis_size(mesh, "model")
+    return ModelSplit(n, columns=True) if n > 1 else ModelSplit()
+
+
 _COLUMNS = {"wq": ("heads", 1), "bq": ("heads", 0), "wo": ("heads", 0),
             "wk": ("kv", 1), "wv": ("kv", 1), "bk": ("kv", 0),
             "bv": ("kv", 0), "w_gate": ("ffn", 1), "w_up": ("ffn", 1),
@@ -164,13 +182,17 @@ def compute_spec(name: str, shape, mesh, split: ModelSplit = None) -> tuple:
     """The spec the weight ``name`` of ``shape`` (one layer's, for a
     stacked leaf) is computed in under ``split`` (no split by default):
     whole, except on a "model" dim of more than one rank
+      * ``lm_head``'s vocabulary, where the reference's logits are
+        (``constrain_logits``), when it divides, unless the batch is
+        split over "model" (the logits then are this rank's rows);
+      * under ``columns``, every other weight of two or more dims on the
+        dim :func:`leaf_spec` put on "model" (one layer's dims, for a
+        stacked leaf), the MoE's expert weights too, so that no weight
+        crosses "model"; a 1-D weight (a norm gain, a bias) whole;
       * the MoE's expert weights, where the expert-sharded branch
         computes them (the reference's ``shard_map`` in_specs): the
         experts on "model" when they divide, else the FFN dim when it
         divides;
-      * ``lm_head``'s vocabulary, where the reference's logits are
-        (``constrain_logits``), when it divides, unless the batch is
-        split over "model" (the logits then are this rank's rows);
       * the attention's and the MLP's weights, each split on the dim
         that :class:`ModelSplit` names for the part it splits."""
     split = split or ModelSplit()
@@ -180,14 +202,18 @@ def compute_spec(name: str, shape, mesh, split: ModelSplit = None) -> tuple:
     part, dim = _COLUMNS.get(name, (None, None))
     if n == 1:
         return tuple(spec)
-    if f_dim is not None and len(shape) == 3:
+    if name == "lm_head" and len(shape) == 2:
+        if shape[1] % n == 0 and not split.batch:
+            spec[1] = "model"
+    elif split.columns:
+        if len(shape) >= 2:
+            return tuple("model" if ax == "model" else None
+                         for ax in leaf_spec((name,), tuple(shape), mesh))
+    elif f_dim is not None and len(shape) == 3:
         if shape[0] % n == 0:
             spec[0] = "model"
         elif shape[f_dim] % n == 0:
             spec[f_dim] = "model"
-    elif name == "lm_head" and len(shape) == 2 and shape[1] % n == 0:
-        if not split.batch:
-            spec[1] = "model"
     elif part is not None and getattr(split, part) in (True, "split"):
         if shape[dim] % n:
             raise ValueError(f"{name} {tuple(shape)}: dim {dim} does not "
@@ -233,6 +259,29 @@ def cache_spec(shape, mesh) -> tuple:
     return tuple(spec)
 
 
+def decode_cache_spec(name: str, shape, mesh, family: str) -> tuple:
+    """The placement of the decode-state leaf ``name`` of ``shape`` that
+    a split decode step (:func:`model_split_decode`) reads, for a model
+    of ``family``: :func:`cache_spec`'s, but for the self-attention
+    ``k`` / ``v`` caches (L, B, S, KH, hd) of every family but the
+    hybrid's (whose 1,024-entry window shifts every step), which hold
+    their positions (dim 2) on "model" in place of the head dim: a
+    rank's attention then reads only its own positions, and only its
+    softmax statistics and its partial output are summed over "model".
+    Raises where the positions do not divide over "model"."""
+    spec = list(cache_spec(shape, mesh))
+    n = _axis_size(mesh, "model")
+    if n == 1 or name not in ("k", "v") or family == "hybrid":
+        return tuple(spec)
+    if shape[2] % n:
+        raise ValueError(f"decode cache {name} {tuple(shape)}: its "
+                         f"{shape[2]} positions do not divide over {n} "
+                         f"model ranks")
+    spec = [None if ax == "model" else ax for ax in spec]
+    spec[2] = "model"
+    return tuple(spec)
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """A spec on a mesh: the reference's ``NamedSharding``."""
@@ -267,6 +316,14 @@ def batch_placements(tree, mesh):
 def cache_placements(tree, mesh):
     return tree_map(lambda l: Layout(mesh, cache_spec(tuple(l.shape), mesh)),
                     tree)
+
+
+def decode_cache_placements(cache: dict, mesh, family: str) -> dict:
+    """:class:`Layout` of every leaf of a decode cache by
+    :func:`decode_cache_spec`."""
+    return {k: Layout(mesh, decode_cache_spec(k, tuple(v.shape), mesh,
+                                              family))
+            for k, v in cache.items()}
 
 
 def replicated(mesh) -> Layout:

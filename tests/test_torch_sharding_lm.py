@@ -25,11 +25,20 @@ MoE, elastic restore) and one dry-run cell.
   atol 1e-5, its gradients too; a checkpoint saved from a ("data",) =
   (4,) mesh restored bit-equal onto ("a", "b") = (2, 2) with spec
   ("b", "a").
+* The split decode (``ModelSplit.columns``), in the same spawn: for
+  each family (reduced qwen2, granite, mamba2, hymba and whisper, f32),
+  4 decode steps of the port on each rank's slice of a cache made by the
+  JAX package's prefill, placed by ``specs.decode_cache_spec``, against
+  the JAX package's single-device ``decode_step`` (logits and each
+  rank's slice of the updated cache at rtol 1e-4 / atol 1e-5); the
+  column product bit-equal to the unsharded one.
 * Dry run: one cell of reduced qwen2 (train, 8 x 64) on a fake group of
   8 ranks, mesh (2, 4), in a subprocess: ok, and its argument bytes are
-  those of the reference's shard shapes; and the traced peak of a train
+  those of the reference's shard shapes; the traced peak of a train
   step at 2 and 6 layers, which grows per layer by less than a whole
-  layer (the weights are gathered layer by layer).
+  layer (the weights are gathered layer by layer); and a decode cell of
+  reduced qwen2 on (1, 4) under the columns split against the same cell
+  traced with no split.
 """
 import dataclasses
 import json
@@ -57,7 +66,7 @@ from repro_torch.models.api import build_model as tbuild
 from repro_torch.optim.adafactor import adafactor
 from repro_torch.optim.adamw import adamw
 from repro_torch.sharding import specs
-from repro_torch.tree import flatten_with_path
+from repro_torch.tree import flatten_with_path, leaves
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 MESHES = {"16x16": (("data", "model"), (16, 16)),
@@ -148,6 +157,37 @@ SPLIT_CELLS = {                       # (arch, shape): split, split leaves
         "wq": (None, None), "bq": (None,), "wk": (None, None),
         "wo": (None, None), "w_gate": (None, "model"),
         "w_down": ("model", None), "lm_head": (None, "model")}),
+    ("command_r_35b", "decode_32k"): ("columns", {
+        "wq": (None, "model"), "wk": (None, "model"), "wo": (None, "model"),
+        "w_down": (None, "model"), "ln1_g": (None,),
+        "embed": (None, "model"), "lm_head": (None, "model")}),
+    ("granite_moe_3b_a800m", "decode_32k"): ("columns", {
+        "router": (None, "model"), "we_gate": (None, None, "model"),
+        "we_down": (None, None, "model"), "wo": (None, "model")}),
+    ("mamba2_2p7b", "long_500k"): ("columns", {
+        "in_proj": (None, "model"), "conv_w": (None, "model"),
+        "out_proj": (None, "model"), "A_log": (None,), "norm_g": (None,)}),
+    ("hymba_1p5b", "decode_32k"): ("columns", {
+        "ssm_in": ("model", None), "ssm_out": (None, "model"),
+        "wq": (None, "model"), "Dd": (None,)}),
+    ("whisper_tiny", "decode_32k"): ("columns", {
+        "xq": (None, "model"), "xo": (None, "model"),
+        "w_up": (None, "model"), "b_up": (None,)}),
+}
+DECODE_CACHE = {                      # (arch, shape): decode_cache_spec
+    ("command_r_35b", "decode_32k"): {
+        "k": (None, "data", "model", None, None)},
+    ("granite_moe_3b_a800m", "decode_32k"): {
+        "v": (None, "data", "model", None, None)},
+    ("mamba2_2p7b", "long_500k"): {
+        "ssm_state": (None, None, None, None, "model"),
+        "conv_state": (None, None, None, "model")},
+    ("hymba_1p5b", "decode_32k"): {
+        "k": (None, "data", None, None, "model"),
+        "ssm_state": (None, "data", None, None, "model")},
+    ("whisper_tiny", "decode_32k"): {
+        "v": (None, "data", "model", None, None),
+        "cross_k": (None, "data", None, None, "model")},
 }
 
 
@@ -158,20 +198,81 @@ def test_model_split_rule(cell):
     data shard) splits its batch; command-r ``prefill_32k`` (2 rows)
     its 64 heads (the 8 KV heads: each rank the one its 4 query heads
     read) and its FFN dim; qwen2 ``prefill_32k`` only its FFN dim (12
-    heads do not divide over 16)."""
+    heads do not divide over 16). Every decode cell takes the columns
+    split, whatever its rows or heads: each weight where the rules put
+    "model" (hymba's ``ssm_in``, 3,257 columns, on its input dim;
+    granite's expert weights on their last dim), norm gains and biases
+    whole; its cache by
+    ``decode_cache_spec``: the long ``k`` / ``v`` by positions, hymba's
+    window, whisper's cross cache and the SSM state as the reference
+    places them."""
     arch, shape = cell
     want, leaves = SPLIT_CELLS[cell]
     mesh = specs.MeshShape(("data", "model"), (16, 16))
     cfg, sh = tcfg.get_config(arch), tcfg.SHAPES[shape]
-    layer = tbuild(cfg).param_specs()["layers"]
-    split = specs.model_split(cfg, sh.batch // 16, mesh,
-                              cfg.micro_batches if sh.kind == "train" else 1)
+    params = tbuild(cfg).param_specs()
+    if sh.kind == "decode":
+        split = specs.model_split_decode(mesh)
+    else:
+        split = specs.model_split(cfg, sh.batch // 16, mesh,
+                                  cfg.micro_batches if sh.kind == "train"
+                                  else 1)
     assert split.name == want
     for name, spec in leaves.items():
-        shp = (tbuild(cfg).param_specs()[name].shape if name == "lm_head"
-               else layer[name].shape[1:])
+        shp = (params[name].shape if name in ("lm_head", "embed")
+               else params["layers"][name].shape[1:])
         assert specs.compute_spec(name, tuple(shp), mesh, split) == spec, \
             name
+    caches = tcfg.cache_specs(cfg, sh.batch, sh.seq)
+    for name, spec in DECODE_CACHE.get(cell, {}).items():
+        assert specs.decode_cache_spec(name, tuple(caches[name].shape), mesh,
+                                       cfg.family) == spec, name
+
+
+DECODE_CELLS = [(a, s) for a in tcfg.ARCH_IDS
+                for s, sh in tcfg.SHAPES.items() if sh.kind == "decode"
+                and tcfg.supports(tcfg.get_config(a), sh)[0]]
+
+
+@pytest.mark.parametrize("cell", DECODE_CELLS, ids="-".join)
+def test_every_decode_cell_takes_columns(cell):
+    """At the pod mesh (16 x 16) every decode cell takes the columns
+    split. ``decode_cache_spec`` is the reference's ``cache_spec`` but
+    for the self-attention ``k`` / ``v`` of every family but the
+    hybrid's, whose positions take "model" in place of the head dim;
+    ``compute_spec`` keeps every weight of two or more dims, the MoE's
+    expert weights too, on the dim ``leaf_spec`` put on "model" (no
+    weight crosses "model"; ``lm_head`` keeps its vocabulary rule) and
+    gathers 1-D weights whole."""
+    arch, shape = cell
+    mesh = specs.MeshShape(("data", "model"), (16, 16))
+    cfg, sh = tcfg.get_config(arch), tcfg.SHAPES[shape]
+    split = specs.model_split_decode(mesh)
+    assert split.name == "columns" and split.n == 16
+    for name, leaf in tcfg.cache_specs(cfg, sh.batch, sh.seq).items():
+        shp = tuple(leaf.shape)
+        got = specs.decode_cache_spec(name, shp, mesh, cfg.family)
+        ref = specs.cache_spec(shp, mesh)
+        if name in ("k", "v") and cfg.family != "hybrid":
+            assert got == ref[:2] + ("model", None, None), name
+        else:
+            assert got == ref, name
+    n = 0
+    for path, leaf in flatten_with_path(tbuild(cfg).param_specs())[0]:
+        if path[-1] == "lm_head":
+            continue
+        lo = int(path[0] in ("layers", "enc_layers"))
+        shp = tuple(leaf.shape)[lo:]
+        want = [None] * len(shp)
+        if len(shp) >= 2:
+            for d, ax in enumerate(specs.leaf_spec(path, tuple(leaf.shape),
+                                                   mesh)):
+                if ax == "model":
+                    want[d - lo] = "model"
+                    n += 1
+        assert specs.compute_spec(path[-1], shp, mesh, split) == tuple(
+            want), path
+    assert n > 3
 
 
 def test_roofline_table_is_the_h100s():
@@ -278,6 +379,54 @@ def run(rank, world, d):
     specs.FSDP_MIN = 256
     out["grads_fsdp"] = grads(params, tok)
 
+    # the split decode: each family's 4 steps on this rank's slices of
+    # the reference's cache (leaves of >= 256 elements also sharded on
+    # "data" still, so each layer's weights are gathered over "data")
+    from repro_torch.models import shards
+    split = specs.model_split_decode(mesh)
+    rows = slice(2 * mesh.get_local_rank("data"),
+                 2 * mesh.get_local_rank("data") + 2)
+    out["coords"] = (mesh.get_local_rank("data"),
+                     mesh.get_local_rank("model"))
+    out["decode"] = {}
+    for arch, ref in inp["decode"].items():
+        dcfg = dataclasses.replace(reduced(get_config(arch)),
+                                   dtype="float32")
+        dmodel = build_model(dcfg)
+        dp = convert.lm_params_from_numpy(ref["params"], "cpu")
+        view = shards.model_view(*shards.local_shards(specs.distribute_tree(
+            dp, specs.tree_placements(dp, mesh))), mesh, ("data",), split)
+        cache = convert.lm_params_from_numpy(ref["cache"], "cpu")
+        local = shards.local_shards(specs.distribute_tree(
+            cache, specs.decode_cache_placements(cache, mesh,
+                                                 dcfg.family)))[0]
+        dtok = torch.from_numpy(ref["tokens"])[rows]
+        logits = []
+        with torch.no_grad(), common.use_mesh(mesh, ("data",), split):
+            for t in range(dtok.shape[1]):
+                lg, local = dmodel.decode_step(view, local, dtok[:, t:t + 1],
+                                               ref["prompt"] + t)
+                logits.append(lg.numpy())
+        out["decode"][arch] = {"split": split.name, "logits": logits,
+                               "cache": {k: v.numpy()
+                                         for k, v in local.items()}}
+
+    # the column product against the unsharded one, and the row product
+    g = torch.Generator().manual_seed(3)
+    xs = torch.randn((4, 1, 64), generator=g)
+    w = torch.randn((64, 148), generator=g)
+    mr = mesh.get_local_rank("model")
+    cols = {}
+    with torch.no_grad(), common.use_mesh(mesh, ("data",), split):
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = xs.to(dt), w.to(dt)
+            cols[str(dt)] = torch.equal(
+                common.split_matmul(a, b[:, mr * 74:(mr + 1) * 74], 148),
+                common.matmul(a, b))
+        rows_err = float((common.split_matmul(xs, w[mr * 32:(mr + 1) * 32],
+                                              148) - xs @ w).abs().max())
+    out["columns"] = {"bit_equal": cols, "rows_err": rows_err}
+
     # the sharded MoE (expert-sharded branch) against the local one
     mcfg = dataclasses.replace(reduced(get_config("granite_moe_3b_a800m")),
                                moe_dispatch="biglittle")
@@ -365,6 +514,10 @@ def run(rank, world, d):
                         "act": str(a.placements),
                         "equal": bool(torch.equal(c.full_tensor(),
                                                   logits.full_tensor()))}
+    every = [None] * world
+    dist.all_gather_object(every, {k: out[k] for k in
+                                   ("coords", "decode", "columns")})
+    out["ranks"] = every
     if rank == 0:
         pickle.dump(out, open(f"{d}/out.pkl", "wb"))
     dist.barrier()
@@ -412,13 +565,66 @@ def reference_step():
             float(tloss), jax.tree.map(np.asarray, tgrads))
 
 
+DECODE_ARCHS = ["qwen2_1p5b", "granite_moe_3b_a800m", "mamba2_2p7b",
+                "hymba_1p5b", "whisper_tiny"]
+DECODE = (4, 6, 4, 16)         # batch, prompt, decode steps, cache positions
+
+
 @pytest.fixture(scope="module")
-def distributed(tmp_path_factory, reference_step):
+def decode_reference():
+    """Per family, reduced and in f32: the JAX package's prefill of a
+    4 x 6 prompt, its self-attention ``k`` / ``v`` grown to 16 positions
+    (so that, split over 2 model ranks, the 4 steps write positions 6-9
+    across the ranks' boundary), then its single-device ``decode_step``
+    on 4 teacher-forced tokens. The reduced configs' splits at n = 2:
+    the 16 positions, hymba's 16-wide head dim (its 32-entry window and
+    whisper's 24-frame cross cache keep the reference's layout), N = 8
+    of mamba2 and hymba, mamba2's 80 conv channels, and every product's
+    columns (mamba2's and hymba's 148-wide input projections included)
+    divide by 2."""
+    B, P, T, S = DECODE
+    out = {}
+    for arch in DECODE_ARCHS:
+        cfg = dataclasses.replace(jcfg.reduced(jcfg.get_config(arch)),
+                                  dtype="float32")
+        model = jbuild(cfg)
+        params = model.init(jax.random.key(0))
+        rs = np.random.RandomState(1)
+        tok = rs.randint(0, cfg.vocab_size, (B, P + T)).astype(np.int32)
+        batch = {"tokens": jnp.asarray(tok[:, :P])}
+        if cfg.frontend == "audio":
+            batch["enc_embeds"] = jnp.asarray(
+                rs.randn(B, cfg.encoder_seq, cfg.d_model), jnp.float32)
+        cache, _ = jax.jit(model.prefill)(params, batch)
+        if cfg.family != "hybrid":
+            cache = {k: (jnp.pad(v, [(0, 0), (0, 0), (0, S - P)]
+                                 + [(0, 0)] * (v.ndim - 3))
+                         if k in ("k", "v") else v) for k, v in cache.items()}
+        first = jax.tree.map(np.asarray, cache)
+        step = jax.jit(model.decode_step)
+        logits = []
+        for t in range(T):
+            lg, cache = step(params, cache,
+                             jnp.asarray(tok[:, P + t:P + t + 1]),
+                             jnp.int32(P + t))
+            logits.append(np.asarray(lg))
+        out[arch] = {"params": jax.tree.map(np.asarray, params),
+                     "cache": first, "tokens": tok[:, P:], "prompt": P,
+                     "logits": logits,
+                     "final": jax.tree.map(np.asarray, cache)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def distributed(tmp_path_factory, reference_step, decode_reference):
     d = tmp_path_factory.mktemp("dist")
     params, tok = reference_step[:2]
     with open(d / "in.pkl", "wb") as f:
         pickle.dump({"params": params, "tokens": tok,
-                     "masked": reference_step[5]}, f)
+                     "masked": reference_step[5],
+                     "decode": {a: {k: r[k] for k in ("params", "cache",
+                                                      "tokens", "prompt")}
+                                for a, r in decode_reference.items()}}, f)
     (d / "worker.py").write_text(WORKER)
     r = subprocess.run([sys.executable, str(d / "worker.py"), str(d)],
                        env=_env(), capture_output=True, text=True,
@@ -581,6 +787,63 @@ def test_constraints_redistribute_dtensors(distributed):
     assert common.constrain_logits(x) is x and common.constrain_act(x) is x
 
 
+def _block(a, spec, coords, sizes):
+    """The block of ``a`` that the mesh rank at ``coords`` ({dim name:
+    index}) holds under ``spec``."""
+    idx = []
+    for d, ax in enumerate(spec):
+        if ax is None:
+            idx.append(slice(None))
+            continue
+        per = a.shape[d] // sizes[ax]
+        idx.append(slice(coords[ax] * per, (coords[ax] + 1) * per))
+    return a[tuple(idx)]
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_split_decode_matches_reference(distributed, decode_reference, arch):
+    """4 decode steps under the columns split on ("data", "model") = (2,
+    2), each rank on its slice of the reference prefill's cache placed by
+    ``decode_cache_spec`` (positions 6-9 written across the model ranks'
+    boundary of 8), against the JAX package's single-device
+    ``decode_step``: each step's logits (the rank's data rows and its
+    vocabulary slice) and each rank's slice of the updated cache at rtol
+    1e-4 / atol 1e-5."""
+    ref = decode_reference[arch]
+    mesh = specs.MeshShape(("data", "model"), (2, 2))
+    cfg = tcfg.reduced(tcfg.get_config(arch))
+    for r in distributed["ranks"]:
+        coords = dict(zip(("data", "model"), r["coords"]))
+        got = r["decode"][arch]
+        assert got["split"] == "columns"
+        for t, (g, w) in enumerate(zip(got["logits"], ref["logits"])):
+            assert g.shape[-1] == cfg.vocab_padded // 2
+            np.testing.assert_allclose(
+                g, _block(w, ("data", None, "model"), coords,
+                          {"data": 2, "model": 2}),
+                rtol=1e-4, atol=1e-5, err_msg=f"step {t} at {coords}")
+        assert len(got["logits"]) == DECODE[2]
+        for name, want in ref["final"].items():
+            spec = specs.decode_cache_spec(name, want.shape, mesh, cfg.family)
+            assert "model" in spec, name
+            block = _block(want, spec, coords, {"data": 2, "model": 2})
+            assert got["cache"][name].shape == block.shape, name
+            np.testing.assert_allclose(got["cache"][name], block, rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{name} {coords}")
+
+
+def test_column_product_is_bit_equal(distributed):
+    """Under the columns split a product with this rank's columns of a
+    (64, 148) weight, all-gathered, equals the unsharded ``matmul`` bit
+    for bit, in f32 and bf16; a product with its rows (64 / 2) is the
+    unsharded one within f32 reassociation."""
+    for r in distributed["ranks"]:
+        c = r["columns"]
+        assert c["bit_equal"] == {"torch.float32": True,
+                                  "torch.bfloat16": True}
+        assert c["rows_err"] <= 1e-4
+
+
 # ---------------------------------------------------------------------------
 # one dry-run cell on a fake group
 # ---------------------------------------------------------------------------
@@ -591,6 +854,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs import ShapeSpec, get_config, reduced
 from repro_torch.launch import dryrun, mesh as tmesh
 from repro_torch.models.api import build_model
+from repro_torch.sharding import specs
 dryrun.init_fake_group(8)
 mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
 rec = dryrun.trace_cell(reduced(get_config("qwen2_1p5b")),
@@ -613,12 +877,22 @@ for layers in (2, 6):
 meshes = {}
 m = tmesh.make_host_mesh(model=4, device_type="cpu")
 meshes["host"] = [list(m.mesh_dim_names), list(m.mesh.shape)]
+# a decode cell on (1, 4): the columns split, and the same with none
+dryrun.init_fake_group(4)
+m14 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+dsh = ShapeSpec("decode_small", "decode", 64, 8)
+decode = {"columns": dryrun.trace_cell(reduced(get_config("qwen2_1p5b")),
+                                      dsh, m14)}
+# the same cell as traced before the split: every model rank the group's
+# whole work on the whole cache
+specs.model_split_decode = lambda mesh: specs.ModelSplit(4)
+decode["none"] = dryrun.trace_cell(reduced(get_config("qwen2_1p5b")), dsh, m14)
 for world, multi in ((256, False), (512, True)):
     dryrun.init_fake_group(world)
     m = tmesh.make_production_mesh(multi_pod=multi, device_type="cpu")
     meshes[str(world)] = [list(m.mesh_dim_names), list(m.mesh.shape)]
 print(json.dumps({"rec": rec, "rec81": rec81, "meshes": meshes,
-                  "peaks": peaks}))
+                  "peaks": peaks, "decode": decode}))
 '''
 
 
@@ -689,6 +963,38 @@ def test_dryrun_step_holds_one_layer_gathered(dryrun_out):
     whole layers and more, were the step to gather the model)."""
     (p2, layer), (p6, _) = (dryrun_out["peaks"][k] for k in ("2", "6"))
     assert 0 < (p6 - p2) / 4 < layer
+
+
+def test_dryrun_decode_split_over_model(dryrun_out):
+    """Reduced qwen2's decode step (8 rows, a 64-position cache) on a
+    fake (1, 4) mesh: under the columns split a rank's arguments are
+    exactly its shards (the reference's ``leaf_spec`` for the params,
+    ``decode_cache_spec`` for the cache, whole token and length); what
+    it all-gathers (1-D weights and activations) is less than one
+    layer's whole weights, so no weight crossed "model"; and it traces
+    at most half the FLOPs of the same cell with no split (ideal: above
+    a quarter, the vocabulary of ``lm_head`` being split in both)."""
+    dec, none = dryrun_out["decode"]["columns"], dryrun_out["decode"]["none"]
+    assert dec["model_split"] == "columns" and none["model_split"] == "none"
+    jc = jcfg.reduced(jcfg.get_config("qwen2_1p5b"))
+    cfg = tcfg.reduced(tcfg.get_config("qwen2_1p5b"))
+    duck = _duck(("data", "model"), (1, 4))
+    port = specs.MeshShape(("data", "model"), (1, 4))
+    want = _shard_bytes(jbuild(jc).param_specs(), duck,
+                        lambda p, l: jspecs.leaf_spec(p, l.shape, duck))
+    for name, leaf in tcfg.cache_specs(cfg, 8, 64).items():
+        spec = specs.decode_cache_spec(name, tuple(leaf.shape), port,
+                                       cfg.family)
+        assert spec[2] == "model", name
+        want += leaf.numel() * leaf.element_size() // 4
+    want += 8 * 4 + 4                            # token (8, 1), length
+    assert dec["memory"]["argument_bytes"] == want
+    stack = tbuild(cfg).param_specs()["layers"]
+    layer = sum(v.numel() * v.element_size()
+                for v in stack.values()) // cfg.num_layers
+    assert 0 < dec["collectives"]["all-gather"] < layer
+    ratio = dec["traced_flops_per_rank"] / none["traced_flops_per_rank"]
+    assert 0.25 < ratio <= 0.5, ratio
 
 
 def test_meshes_on_fake_groups(dryrun_out):
