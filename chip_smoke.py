@@ -38,7 +38,9 @@ Phases (any failed check exits non-zero before the last line):
    edges, the per-entry form (``fuse_lanes=False``: its launches, time
    and bound, and its gather bit-equal to the fused one), and one
    PageRank iteration split into Big gathers, GAS launches, merge,
-   Apply and the convergence test with CUDA events. Then one ``kernels``
+   Apply and the convergence test with CUDA events, the Big gathers
+   beside their bound (the ids read, each value they pick read and
+   written once, at 3,350 GB/s). Then one ``kernels``
    JSON line: per kernel its launches on the main path, error against
    the plain version, its time, the plain version's time, one
    ``scatter_reduce`` over pre-gathered values (``library_ms``) and the
@@ -221,8 +223,8 @@ Phases (any failed check exits non-zero before the last line):
    of each leaf's largest (an element whose unsharded gradient is
    within SHARD_TOL of the leaf's largest is held to 2 lr more: AdamW's
    first step moves it by +-lr whatever the gradient's size), each
-   rank's FLOPs (``FlopCounterMode``) at most 0.6 of the unsharded
-   step's; per rank the step's ms (CUDA events; two processes on one
+   rank's FLOPs (``FlopCounterMode``'s formulas, summed by
+   ``_flop_count``) at most 0.6 of the unsharded step's; per rank the step's ms (CUDA events; two processes on one
    card, not multi-card times) and peak over the arguments.
 18. A decode step split over "model" (``phase_decode_split``): qwen2-1.5B,
    granite-MoE, mamba2-2.7B, hymba-1.5B and whisper-tiny at full width
@@ -243,6 +245,42 @@ Phases (any failed check exits non-zero before the last line):
    decode state half the unsharded cache's bytes, and the bf16 step's
    ms beside the unsharded step's (two processes on one card: not
    multi-card times).
+19. Train and prefill steps split by positions (``phase_seq_split``,
+   the sequence split): two spawned processes sharing the card over
+   gloo on a ("data", "model") = (1, 2) mesh, collectives staged as
+   phase 17's. 19a: qwen2-1.5B, granite-MoE, mamba2-2.7B, hymba-1.5B
+   and whisper-tiny at full width and depth, a prefill of one row of
+   4,096 positions (1 row does not divide over 2 ranks, and the
+   positions do: each rank takes 2,048; whisper over 1,500 seeded
+   frames, 750 a rank) through ``shards.sharded_prefill`` beside the
+   unsharded ``prefill`` (on the second process), in bf16 and on the
+   same weights upcast to f32, the weights placed whole on each rank
+   (under the rules' placements each layer's weights would cross the
+   host, as in 19b, and set the step's time). Per family: on each rank
+   the split taken and the FLOPs at most 0.6 of the unsharded step's
+   (``_flop_count`` on the f32 steps, the same shapes, equal to
+   ``FlopCounterMode``'s count of the same run), every rank's logits and
+   cache the same (a digest of each leaf); in f32 the last logits and
+   every cache leaf within 1e-5 of the unsharded step's largest value
+   (1e-4 for mamba2 and hymba, whose scan sums in a new order); in bf16
+   each at most twice as far from the unsharded f32 step's as the
+   unsharded bf16 step's, and within SEQ_SPLIT_BF16_CEIL of the
+   unsharded bf16 step's itself (each cache leaf's first layer within
+   SEQ_SPLIT_BF16_FIRST_LAYER: no depth yet to grow a flipped rounding);
+   the bf16 step's ms (CUDA events) and peak beside the unsharded
+   step's (two processes on one card: not multi-card times). For qwen2
+   and granite the rule is made to give the sequence split: their query
+   heads divide over 2 ranks, so at (1, 2) it gives them Megatron's
+   split (it gives them "sequence" at the pod's 16); granite at capacity
+   factor
+   5, where no expert can drop a token at 1 or 2 model ranks (at its
+   1.25 the reference's capacities, and so its drops, depend on the
+   model ranks). 19b: hymba-1.5B in bf16, one
+   AdamW step on 2 x 2,048 tokens in 2 microbatches (2 rows do not
+   divide over 2 ranks x 2 microbatches), placed by ``specs`` against
+   the unsharded step (rank 0, computed and freed before the ranks
+   place anything), held as phase 17 holds its steps; its FLOPs and ms
+   from one run of each step (the ms with the count's host work).
 
 Needs one CUDA card; imports neither JAX nor the reference package.
 """
@@ -921,7 +959,16 @@ def phase_breakdown(main_res: dict, device, reps: int = REPS) -> dict:
                 dev_ms[name] += ev[i].elapsed_time(ev[i + 1]) / reps
     check(torch.equal(new, ex.iteration(vprops, 0)),
           "breakdown's steps != Executor.iteration")
-    return {"device_ms": dev_ms, "host_ms": host_ms}
+    # the Big gathers' bound: each lane's unique_src ids read, and each
+    # value they pick read once and written once, over the card's rate
+    ids = [p["unique_src"] for p in main_res["_payloads"]
+           if p["kind"] == "big"]
+    gather_bytes = sum(i.numel() * (i.element_size()
+                                    + 2 * vprops.element_size())
+                       for i in ids)
+    return {"device_ms": dev_ms, "host_ms": host_ms,
+            "big_gather_bytes": gather_bytes,
+            "big_gather_bound_ms": gather_bytes / H100_BYTES_PER_S * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -2865,6 +2912,29 @@ def _rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _flop_count():
+    """A dispatch mode that sums ``torch.utils.flop_counter``'s formulas
+    (its ``flop_registry``, which ``FlopCounterMode`` applies) over the
+    ops run under it, into ``total``: ``FlopCounterMode``'s count without
+    its module tracking or its per-op guard, so with less host work in
+    the steps it counts and times (phase 19 checks the two counts
+    equal)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.total += formula(*args, **kwargs, out_val=out)
+            return out
+    return Count()
+
+
 def _shard_train(device) -> dict:
     """16a: one AdamW step of qwen2-1.5B at full width in bf16 on 4 x 512
     tokens, unsharded and with params, state and batch placed by
@@ -3201,7 +3271,7 @@ def _split_rank(rank: int, world: int, tmp: str, device: str) -> None:
     ``specs`` on a ("data", "model") = (1, 2) gloo mesh, from the same
     seeded init. Per case and rank: the split the step took, loss,
     params, step ms (CUDA events), peak over the arguments and FLOPs
-    (``FlopCounterMode``). Rank 0 writes every rank's numbers to
+    (:func:`_flop_count`). Rank 0 writes every rank's numbers to
     ``tmp/split.json``. ``device`` is "cuda" (the card's first) but for
     a rehearsal on the CPU."""
     import datetime
@@ -3210,7 +3280,6 @@ def _split_rank(rank: int, world: int, tmp: str, device: str) -> None:
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.optim.adamw import adamw
@@ -3235,9 +3304,9 @@ def _split_rank(rank: int, world: int, tmp: str, device: str) -> None:
         return {"tokens": tok.to(device), "labels": tok.to(device)}
 
     def counted(fn):
-        with FlopCounterMode(display=False) as fc:
+        with _flop_count() as fc:
             out = fn()
-        return out, fc.get_total_flops()
+        return out, fc.total
 
     res = {"rank": rank, "cases": {}}
     ref = {}
@@ -3379,7 +3448,6 @@ def _decode_split_arch(arch: str, mesh, device) -> dict:
     import dataclasses
     import numpy as np
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config, torch_dtype
     from repro_torch.models import common, shards
     from repro_torch.models.api import build_model
@@ -3417,9 +3485,9 @@ def _decode_split_arch(arch: str, mesh, device) -> dict:
         for t in range(DECODE_SPLIT_STEPS):
             tk = tok[:, s + t:s + t + 1]
             if t == 0:
-                with FlopCounterMode(display=False) as fc:
+                with _flop_count() as fc:
                     lg, _ = model.decode_step(p, c, tk, s + t)
-                flops = fc.get_total_flops()
+                flops = fc.total
             else:
                 got = {}
                 ms.append(_event_ms(lambda: got.update(
@@ -3562,6 +3630,413 @@ def phase_decode_split() -> dict:
             check(2 * a["state_bytes"] == a["unsharded_state_bytes"],
                   f"{where} holds {a['state_bytes']} B of decode state, "
                   f"the unsharded cache {a['unsharded_state_bytes']} B")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: train and prefill steps split by positions over "model"
+# ---------------------------------------------------------------------------
+
+SEQ_SPLIT_ARCHS = (LM_DENSE, LM_MOE, LM_SSM, LM_HYBRID, LM_AUDIO)
+SEQ_SPLIT_PREFILL = (1, 4096)     # rows x positions: 2,048 a rank
+SEQ_SPLIT_TRAIN = (2, 2048, 2)    # 19b: rows x positions, microbatches
+SEQ_SPLIT_TOL = 1e-5              # f32 against the unsharded step, of its
+SEQ_SPLIT_SCAN_TOL = 1e-4         # largest value; mamba2 and hymba
+SEQ_SPLIT_BF16_FACTOR = 2.0       # bf16: at most this x the unsharded's
+# bf16 against the unsharded bf16 step itself, relative to the largest
+# value: every leaf, and the first layer's slice of each cache leaf
+# (on the card: 0 for qwen2, mamba2 and whisper, at most 0.0246 for
+# granite and 0.0358 for hymba, and 0 at every first layer; the unsharded
+# bf16 step is 0.13-0.22 from f32 for hymba, 0.025 for granite). The
+# ceiling is 2.2x the largest reading, under half hymba's distance from
+# f32; the first layer's bound is one or two bf16 roundings of the
+# largest value, far under what a position misplaced or dropped gives
+SEQ_SPLIT_BF16_CEIL = 0.08
+SEQ_SPLIT_BF16_FIRST_LAYER = 1e-2
+SEQ_SPLIT_HEAVY = (LM_MOE, LM_SSM)  # f32 weights too big beside 19b's step
+# granite's capacity factor in 19a: every expert's smallest capacity, at
+# 1 and at 2 model ranks, holds all 4,096 tokens (top-k experts are
+# distinct, so no expert gets more), so neither dispatch drops. At its
+# own 1.25 the capacities differ with the model ranks (the biglittle
+# split rounds its hot experts to them, as the reference's does), and
+# so do the drops: a different function, whatever the split
+SEQ_SPLIT_MOE_CAPACITY = 5.0
+
+
+def _seq_inputs(arch: str, device) -> tuple:
+    """(config by dtype, model by dtype, bf16 batch) of phase 19a's
+    ``arch``: full width and depth, granite at SEQ_SPLIT_MOE_CAPACITY,
+    one row of SEQ_SPLIT_PREFILL[1] seeded tokens (and whisper's seeded
+    frames)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, torch_dtype
+    from repro_torch.models.api import build_model
+    cfg = get_config(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=SEQ_SPLIT_MOE_CAPACITY)
+    cfgs = {"bf16": cfg, "f32": dataclasses.replace(cfg, dtype="float32")}
+    b, s = SEQ_SPLIT_PREFILL
+    rng = np.random.default_rng(LM_SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(device)}
+    if cfg.frontend == "audio":
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(
+                device, torch_dtype(cfg.dtype))
+    return cfgs, {k: build_model(c) for k, c in cfgs.items()}, batch
+
+
+def _upcast(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                    tree)
+
+
+def _seq_run(fn, counted: bool, device) -> dict:
+    """``fn()``'s (cache, logits[, split]) as f32 copies, with its FLOPs
+    (:func:`_flop_count`, and ``FlopCounterMode``'s count of the same
+    run beside it) where ``counted``, else its ms (CUDA events) and peak
+    over what was allocated before it. Each step of phase 19a runs once:
+    the f32 step is counted, the bf16 one timed (the counts depend on
+    the shapes alone)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    got, res = [], {}
+    if counted:
+        with _flop_count() as fc, FlopCounterMode(display=False) as ref:
+            got.append(fn())
+        res.update(flops=fc.total, flops_counter_mode=ref.get_total_flops())
+    else:
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        res["ms"] = _event_ms(lambda: got.append(fn()))
+        res["peak_over_args_bytes"] = \
+            torch.cuda.max_memory_allocated(device) - base
+    out = got.pop()
+    res.update(cache=_upcast(out[0]), logits=out[1].float())
+    if len(out) > 2:
+        res["split"] = out[2].name
+    return res
+
+
+def _seq_unsharded(arch: str, device) -> dict:
+    """Phase 19a's unsharded prefills of ``arch`` on this rank: bf16
+    (timed after one untimed run), then on the same weights upcast to
+    f32 (counted)."""
+    import torch
+    cfgs, models, batch = _seq_inputs(arch, device)
+    params = models["bf16"].init(torch.Generator(device).manual_seed(LM_SEED))
+    full = {}
+    with torch.no_grad():
+        models["bf16"].prefill(params, batch)      # warm-up, not timed
+        full["bf16"] = _seq_run(lambda: models["bf16"].prefill(params, batch),
+                                False, device)
+        params = _upcast(params)
+        full["f32"] = _seq_run(lambda: models["f32"].prefill(
+            params, _upcast(batch)), True, device)
+    return full
+
+
+def _seq_split_prefill(arch: str, mesh, device, full=None) -> dict:
+    """Phase 19a for one family on this rank: its bf16 and f32 prefills
+    through ``shards.sharded_prefill`` under the sequence split, on the
+    params placed replicated (the bf16 ones, then upcast): the split
+    taken, FLOPs, ms, peak and a digest of every leaf (its f64 sum and
+    largest |value|: every rank returns the same cache and logits, so
+    the ranks' digests are equal), and, on the rank given the unsharded
+    prefills ``full`` (:func:`_seq_unsharded`), each leaf's distance
+    from the unsharded f32 step's, relative to its largest value."""
+    import torch
+    from repro_torch.models import shards
+    from repro_torch.models.moe_schedule import biglittle_split
+    from repro_torch.sharding import specs
+    cfgs, models, batch = _seq_inputs(arch, device)
+    cfg = cfgs["bf16"]
+    b, s = SEQ_SPLIT_PREFILL
+    n = mesh.size(mesh.mesh_dim_names.index("model"))
+    least_capacity = None
+    if cfg.family == "moe":
+        least_capacity = min(min(biglittle_split(
+            cfg.num_experts_padded, cfg.top_k, b * s, cfg.capacity_factor,
+            round_to=r)[1:]) for r in (1, n))
+    # the whole weights on every rank (placed replicated): under the
+    # rules' placements every layer's weights would cross "model" through
+    # the host on this one card (19b's step and phases 16-18 do that),
+    # and that, not the split, would be the step's time
+    pd = specs.distribute_tree(
+        models["bf16"].init(torch.Generator(device).manual_seed(LM_SEED)),
+        specs.replicated(mesh))
+    # the rule's split at this mesh; where it is Megatron's (the query
+    # heads of qwen2 and granite divide over 2 ranks, not over the pod's
+    # 16), the rule is made to give the sequence split for these steps
+    rule_fn = specs.model_split
+    rule = rule_fn(cfg, b, mesh, seq=s)
+    split = {}
+    try:
+        if not rule.sequence:
+            specs.model_split = lambda *a, **k: specs.ModelSplit(
+                rule.n, sequence=True)
+        for k in ("bf16", "f32"):
+            if k == "f32":
+                pd = _upcast(pd)
+            bk = batch if k == "bf16" else _upcast(batch)
+            bd = specs.distribute_tree(bk, specs.batch_placements(bk, mesh))
+            split[k] = _seq_run(lambda: shards.sharded_prefill(
+                models[k].prefill, pd, bd, cfgs[k]), k == "f32", device)
+    finally:
+        specs.model_split = rule_fn
+    del pd
+    names = ["logits"] + sorted(split["f32"]["cache"])
+
+    def leaf(r, name):
+        return r["logits"] if name == "logits" else r["cache"][name]
+
+    out = {"split": split["bf16"]["split"], "f32_split": split["f32"]["split"],
+           "rule_split": rule.name, "moe_least_capacity": least_capacity,
+           "flops": split["f32"]["flops"],
+           "flops_counter_mode": split["f32"]["flops_counter_mode"],
+           "step_ms": split["bf16"]["ms"],
+           "peak_over_args_bytes": split["bf16"]["peak_over_args_bytes"],
+           "digest": {k: {n: [float(leaf(r, n).double().sum()),
+                              float(leaf(r, n).abs().max())] for n in names}
+                      for k, r in split.items()}}
+    if full is not None:
+        pairs = {"f32": (split["f32"], full["f32"]),
+                 "bf16": (split["bf16"], full["f32"]),
+                 "unsharded_bf16": (full["bf16"], full["f32"]),
+                 "bf16_to_unsharded_bf16": (split["bf16"], full["bf16"])}
+        out.update(
+            tol=SEQ_SPLIT_SCAN_TOL if cfg.family in ("ssm", "hybrid")
+            else SEQ_SPLIT_TOL,
+            rel_err={k: {n: _rel_err(leaf(a, n), leaf(w, n)) for n in names}
+                     for k, (a, w) in pairs.items()},
+            # the cache's leaves layer by layer (each relative to that
+            # layer's largest value): where the bf16 distances come from
+            rel_err_by_layer={k: {n: [_rel_err(x, y) for x, y in zip(
+                leaf(pairs[k][0], n), leaf(pairs[k][1], n))]
+                for n in names if n != "logits"}
+                for k in ("unsharded_bf16", "bf16_to_unsharded_bf16")},
+            unsharded_flops=full["f32"]["flops"],
+            unsharded_step_ms=full["bf16"]["ms"],
+            unsharded_peak_over_args_bytes=full["bf16"][
+                "peak_over_args_bytes"])
+    return out
+
+
+def _seq_split_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """Phase 19, one of two processes on the one card: each of
+    SEQ_SPLIT_ARCHS' unsharded prefills (:func:`_seq_unsharded`, the
+    last rank) and 19b's unsharded hymba step (rank 0), before either
+    rank places anything, then on a ("data", "model") = (1, 2) gloo mesh
+    each family's split prefills (:func:`_seq_split_prefill`) and 19b's
+    step placed by ``specs``. Rank 0 writes every rank's numbers to
+    ``tmp/seq_split.json``. ``device`` is "cuda" (the card's first) but
+    for a rehearsal on the CPU."""
+    import datetime
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.sharding import specs
+    from repro_torch.train.step import make_train_step, value_and_grad
+    from repro_torch.tree import flatten_with_path, leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    device = torch.device(device, 0)
+    staged: dict = {}
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        transport = _stage_through_host(staged)   # kept while it runs
+    cfg = get_config(LM_HYBRID)
+    model = build_model(cfg)
+    opt = adamw(lr=SPLIT_LR)
+    b, s, micro = SEQ_SPLIT_TRAIN
+    step = make_train_step(model, opt, micro_batches=micro)
+    tok = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(device)
+    batch = {"tokens": tok, "labels": tok}
+
+    def counted(fn):
+        """((new params, metrics), FLOPs, ms, peak over what was
+        allocated before) of one step: counted and timed in one run (the
+        ms include the count's host work, in both steps)."""
+        got = []
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        with _flop_count() as fc:
+            ms = _event_ms(lambda: got.append(fn()[::2]))
+        return got.pop(), fc.total, ms, \
+            torch.cuda.max_memory_allocated(device) - base
+
+    def unsharded(archs):
+        for arch in archs:
+            t0 = time.perf_counter()
+            full[arch] = _seq_unsharded(arch, device)
+            full[arch]["s"] = time.perf_counter() - t0
+            _free()
+
+    # before either rank places anything: 19b's unsharded step on rank 0
+    # beside the unsharded prefills of the lighter families on the last
+    # rank, then those of the heavier ones (the card holds 19b's step
+    # beside one light prefill and what phases 1-18 keep, not beside
+    # granite's or mamba2's f32 weights)
+    full, ref = {}, {}
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "rendezvous"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        if rank == world - 1:
+            unsharded(a for a in SEQ_SPLIT_ARCHS if a not in SEQ_SPLIT_HEAVY)
+        if rank == 0:
+            params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+            state = opt.init(params)
+            (p1, m1), flops, ms, peak = counted(
+                lambda: step(params, state, batch))
+            ref = {"loss": float(m1["loss"]), "flops": flops, "step_ms": ms,
+                   "peak_over_args_bytes": peak,
+                   "params": [t.cpu() for t in leaves(p1)],
+                   "paths": [".".join(k)
+                             for k, _ in flatten_with_path(p1)[0]]}
+            del p1, m1
+            ref["grads"] = [t.cpu() for t in leaves(value_and_grad(
+                model.loss, params, batch)[1])]
+            del params, state
+            _free()
+        dist.barrier()
+        if rank == world - 1:
+            unsharded(SEQ_SPLIT_HEAVY)
+        dist.barrier()
+        mesh = init_device_mesh(device.type, (1, world),
+                                mesh_dim_names=("data", "model"))
+        res = {"rank": rank, "archs": {}}
+        for arch in SEQ_SPLIT_ARCHS:
+            dist.barrier()                # the ranks' steps start together
+            t0 = time.perf_counter()
+            unsharded = full.pop(arch, None)
+            a = res["archs"][arch] = _seq_split_prefill(arch, mesh, device,
+                                                        unsharded)
+            a["s"] = time.perf_counter() - t0
+            if unsharded is not None:
+                a["unsharded_s"] = unsharded["s"]
+            del unsharded
+            _free()
+        params = model.init(torch.Generator(device).manual_seed(LM_SEED))
+        pd = specs.distribute_tree(params, specs.tree_placements(params,
+                                                                 mesh))
+        del params
+        sd = opt.init(pd)                 # the moments placed as the params
+        sd["step"] = specs.distribute(sd["step"], specs.replicated(mesh))
+        bd = specs.distribute_tree(batch, specs.batch_placements(batch, mesh))
+        dist.barrier()                    # the ranks' steps start together
+        (p2, m2), flops, ms, peak = counted(lambda: step(pd, sd, bd))
+        train = {"split": m2["model_split"], "loss": float(m2["loss"]),
+                 "flops": flops, "step_ms": ms, "peak_over_args_bytes": peak,
+                 "shape": [b, s, micro]}
+        got = [t.full_tensor() for t in leaves(p2)]
+        del p2, m2
+        if rank == 0:
+            train.update(_held_to_unsharded(got, ref))
+            for k in ("params", "grads", "paths"):
+                del ref[k]
+        del got
+        res["train"] = train
+        del pd, sd
+        _free()
+        res["staged_collectives"] = dict(staged)
+        every = [None] * world
+        dist.all_gather_object(every, res)
+        if rank == 0:
+            with open(os.path.join(tmp, "seq_split.json"), "w") as f:
+                json.dump({"unsharded_train": ref, "ranks": every}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        if device.type == "cuda":
+            del transport
+
+
+def phase_seq_split() -> dict:
+    """Phase 19: :func:`_seq_split_rank` in two spawned processes sharing
+    the card over gloo. 19a per family: on every rank the sequence
+    split, the FLOPs at most SPLIT_FLOP_SHARE of the unsharded step's
+    and the logits and cache of the last rank (their digests equal); on
+    the last rank, in f32 the logits and every cache leaf within
+    SEQ_SPLIT_TOL (mamba2 and hymba SEQ_SPLIT_SCAN_TOL) of the unsharded
+    step's, relative to its largest value, and in bf16 each at most
+    SEQ_SPLIT_BF16_FACTOR times as far from the unsharded f32 step's as
+    the unsharded bf16 step's, and each within SEQ_SPLIT_BF16_CEIL of
+    the unsharded bf16 step's (every cache leaf's first layer within
+    SEQ_SPLIT_BF16_FIRST_LAYER). 19b: hymba's step takes the sequence
+    split, loss and params held as
+    phase 17's, FLOPs a rank at most SPLIT_FLOP_SHARE of the unsharded
+    step's."""
+    import tempfile
+    import torch.multiprocessing as mp
+    _free()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_seq_split_rank, args=(2, tmp, "cuda"), nprocs=2)
+        with open(os.path.join(tmp, "seq_split.json")) as f:
+            res = json.load(f)
+    log("phase 19: " + json.dumps(res))
+    held = res["ranks"][-1]["archs"]       # the rank with the unsharded
+    for r in res["ranks"]:
+        for arch, a in r["archs"].items():
+            where = f"19a {arch}: rank {r['rank']}"
+            h = held[arch]
+            check(a["split"] == a["f32_split"] == "sequence",
+                  f"{where} took split {a['split']}, not sequence")
+            check(a["digest"] == h["digest"],
+                  f"{where}'s logits and cache differ from rank "
+                  f"{res['ranks'][-1]['rank']}'s: {a['digest']} vs "
+                  f"{h['digest']}")
+            check(a["flops"] == a["flops_counter_mode"],
+                  f"{where}: the lean count {a['flops']} is not "
+                  f"FlopCounterMode's {a['flops_counter_mode']}")
+            check(a["flops"] <= SPLIT_FLOP_SHARE * h["unsharded_flops"],
+                  f"{where} runs {a['flops']:.4g} FLOP, the unsharded "
+                  f"step {h['unsharded_flops']:.4g}")
+            check(a["moe_least_capacity"] is None or a["moe_least_capacity"]
+                  >= SEQ_SPLIT_PREFILL[0] * SEQ_SPLIT_PREFILL[1],
+                  f"{where}: an expert's capacity "
+                  f"{a['moe_least_capacity']} could drop tokens")
+        t, ref = r["train"], res["unsharded_train"]
+        where = f"19b {LM_HYBRID}: rank {r['rank']}"
+        check(t["split"] == "sequence",
+              f"{where} took split {t['split']}, not sequence")
+        check(abs(t["loss"] - ref["loss"]) <= SHARD_TOL * abs(ref["loss"]),
+              f"{where} loss {t['loss']} vs unsharded {ref['loss']}")
+        check(t["flops"] <= SPLIT_FLOP_SHARE * ref["flops"],
+              f"{where} runs {t['flops']:.4g} FLOP, the unsharded step "
+              f"{ref['flops']:.4g}")
+    for arch, a in held.items():
+        for name, e in a["rel_err"]["f32"].items():
+            check(e <= a["tol"], f"19a {arch}: f32 {name} off by {e} of its "
+                  f"largest, beyond {a['tol']}")
+            un = a["rel_err"]["unsharded_bf16"][name]
+            got = a["rel_err"]["bf16"][name]
+            check(got <= SEQ_SPLIT_BF16_FACTOR * un,
+                  f"19a {arch}: bf16 {name} {got} from the f32 step, the "
+                  f"unsharded bf16 step {un}")
+            e = a["rel_err"]["bf16_to_unsharded_bf16"][name]
+            check(e <= SEQ_SPLIT_BF16_CEIL, f"19a {arch}: bf16 {name} off by "
+                  f"{e} of the unsharded bf16 step's largest")
+        for name, by in a["rel_err_by_layer"][
+                "bf16_to_unsharded_bf16"].items():
+            check(by[0] <= SEQ_SPLIT_BF16_FIRST_LAYER,
+                  f"19a {arch}: bf16 {name}'s first layer off by {by[0]} of "
+                  f"the unsharded bf16 step's largest there")
+    t = res["ranks"][0]["train"]
+    check(t["params_max_rel_err_settled"] <= SHARD_TOL
+          and t["near_zero_beyond_tol_max"] <= 2 * SPLIT_LR,
+          f"19b: params off by {t['params_max_rel_err_settled']} relative, "
+          f"{t['near_zero_beyond_tol_max']} beyond it where the gradient "
+          f"is near zero")
     return res
 
 
@@ -3944,6 +4419,50 @@ def main(argv=None) -> int:
         log(f"phase 18: decode split over model ok "
             f"({time.perf_counter() - t0:.1f} s; staged calls a rank: "
             f"{json.dumps([r['staged_collectives'] for r in ds['ranks']])})")
+        t0 = time.perf_counter()
+        qs = result["seq_split"] = phase_seq_split()
+        b, s = SEQ_SPLIT_PREFILL
+        for arch in SEQ_SPLIT_ARCHS:
+            ranks = [r["archs"][arch] for r in qs["ranks"]]
+            held = ranks[-1]
+            worst = {k: max(held["rel_err"][k].values())
+                     for k in ("f32", "bf16", "unsharded_bf16")}
+            log(f"phase 19a: {arch} full width, prefill of {b} x {s} split "
+                f"{ranks[0]['split']} over (data, model) = (1, 2) (the "
+                f"rule's there: {ranks[0]['rule_split']}), every rank's "
+                f"logits and cache the same: largest error of a leaf "
+                f"relative to its largest value, against the unsharded f32 "
+                f"step: split f32 {worst['f32']} (bound {held['tol']}), "
+                f"split bf16 {worst['bf16']}, unsharded bf16 "
+                f"{worst['unsharded_bf16']}; FLOP a rank "
+                f"{[a['flops'] for a in ranks]} vs {held['unsharded_flops']} "
+                f"unsharded; bf16 step ms a rank (CUDA events, two processes "
+                f"sharing one card: not multi-card times) "
+                f"{[round(a['step_ms'], 1) for a in ranks]} vs "
+                f"{held['unsharded_step_ms']:.1f} unsharded; peak over the "
+                f"arguments a rank {[a['peak_over_args_bytes'] for a in ranks]}"
+                f" B vs {held['unsharded_peak_over_args_bytes']} B ({card})")
+        ref = qs["unsharded_train"]
+        ranks = [r["train"] for r in qs["ranks"]]
+        rb, rs, rm = SEQ_SPLIT_TRAIN
+        log(f"phase 19b: {LM_HYBRID} full width bf16, one AdamW step on {rb} "
+            f"x {rs} in {rm} microbatches over (data, model) = (1, 2), split "
+            f"{ranks[0]['split']}: loss {ranks[0]['loss']:.6f} vs "
+            f"{ref['loss']:.6f} unsharded, params max rel err "
+            f"{ranks[0]['params_max_rel_err_settled']:.3g} "
+            f"({ranks[0]['params_max_rel_err']:.3g} with the "
+            f"{ranks[0]['near_zero_flipped']} elements of near-zero gradient "
+            f"that moved the other way); FLOP a rank "
+            f"{[r['flops'] for r in ranks]} vs {ref['flops']} unsharded; step "
+            f"ms a rank (CUDA events around the FLOP-counted step, two "
+            f"processes sharing one card: not multi-card times) "
+            f"{[round(r['step_ms'], 1) for r in ranks]} vs "
+            f"{ref['step_ms']:.1f} unsharded; peak over the arguments a rank "
+            f"{[r['peak_over_args_bytes'] for r in ranks]} B vs "
+            f"{ref['peak_over_args_bytes']} B unsharded ({card})")
+        log(f"phase 19: sequence split ok ({time.perf_counter() - t0:.1f} s;"
+            f" staged calls a rank: "
+            f"{json.dumps([r['staged_collectives'] for r in qs['ranks']])})")
     except CheckFailed as exc:
         log(f"FAIL: {exc}")
         return 1

@@ -35,10 +35,14 @@ the reference's shape, with these differences:
     program, under the reference's names; ``traced_flops_per_rank`` is
     ``FlopCounterMode``'s count of that program, beside
     ``analytic_flops_per_rank``, the roofline's ``flops_exec`` over the
-    chips (what a rank would run were the work split evenly);
+    chips (what a rank would run were the work split evenly), and
+    ``traced_flops_by_op``, the count by aten op (``mm`` the products,
+    ``bmm`` the attention's and the SSD's einsums and the MoE's experts);
   * ``model_split`` names what a rank computes of its "model" group's
     work (``specs.ModelSplit``): "batch" (its rows of the data shard),
-    Megatron's "heads+ffn", "heads" or "ffn", "columns" (every decode
+    Megatron's "heads+ffn", "heads" or "ffn", "sequence" (its share of
+    each row's positions, the train and prefill steps of any family
+    where neither the rows nor the heads divide), "columns" (every decode
     step on a "model" dim of more than one rank: each weight used where
     its shard lives, the cache placed by ``specs.decode_cache_spec``
     and each rank handed its local slice), or "none" (every rank the
@@ -194,12 +198,7 @@ def trace_cell(cfg, shape, mesh) -> dict:
     elif shape.kind == "prefill":
         bd = specs.distribute_tree(
             ins["batch"], specs.batch_placements(ins["batch"], mesh))
-        dims = shards.batch_dims(bd, mesh)
         args = (pd, bd)
-        local_batch = tree_map(_batch_local, bd)
-        split = specs.model_split(cfg, leaves(local_batch)[0].shape[0],
-                                  mesh)
-        local_batch, dims = shards.split_rows(local_batch, mesh, dims, split)
     else:
         split = specs.model_split_decode(mesh)
         cd = specs.distribute_tree(ins["cache"], (
@@ -220,10 +219,9 @@ def trace_cell(cfg, shape, mesh) -> dict:
             outs, alias = (new_p, new_s, metrics), (new_p, new_s)
             split_name = metrics["model_split"]
         elif shape.kind == "prefill":
-            with torch.no_grad(), common.use_mesh(mesh, dims, split):
-                outs = model.prefill(_view(pd, mesh, dims, split),
-                                     local_batch)
-            alias, split_name = (), split.name
+            cache, logits, split = shards.sharded_prefill(model.prefill, pd,
+                                                          bd, cfg)
+            outs, alias, split_name = (cache, logits), (), split.name
         else:
             local = (shards.local_shards(cd)[0] if split.columns
                      else tree_map(_batch_local, cd))
@@ -260,6 +258,8 @@ def trace_cell(cfg, shape, mesh) -> dict:
         },
         "collectives": counter.result(),
         "traced_flops_per_rank": float(flops.get_total_flops()),
+        "traced_flops_by_op": {str(op): float(n) for op, n in
+                               flops.get_flop_counts()["Global"].items()},
         "analytic_flops_per_rank":
             rl.analytic_costs(cfg, shape)["flops_exec"] / mesh.size(),
         "model_split": split_name,

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..configs import torch_dtype
+from . import shards
 from .shards import ShardedLayer
 
 
@@ -59,7 +60,8 @@ def use_mesh(mesh, data_dims=None, split=None):
     "data", those the mesh has, by default; "model" too where the batch
     is split there). ``split`` (a ``sharding.specs.ModelSplit``) is what
     this rank computes of its model group's work: the layers read it
-    (:func:`model_split`) and split their heads and FFN dim by it."""
+    (:func:`model_split`) and split their heads and FFN dim, or their
+    positions, by it."""
     if mesh is not None and data_dims is None:
         data_dims = tuple(a for a in ("pod", "data")
                           if a in mesh.mesh_dim_names)
@@ -175,38 +177,98 @@ def _wait(x):
 
 
 class _GatherRows(torch.autograd.Function):
-    """The model group's rows: each rank's ``x`` concatenated on dim 0
-    in "model" rank order (an all-gather). Backward: each rank's rows of
-    the gradient summed over "model" (a reduce-scatter), since each
-    rank's gradient of the whole is partial."""
+    """The model group's rows: each rank's ``x`` concatenated on ``dim``
+    (0 by default) in "model" rank order (an all-gather). Backward: each
+    rank's rows of the gradient summed over "model" (a reduce-scatter),
+    since each rank's gradient of the whole is partial."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, dim=0):
         import torch.distributed._functional_collectives as funcol
-        ctx.mesh = mesh
-        return _wait(funcol.all_gather_tensor(x.contiguous(), 0,
+        ctx.mesh, ctx.dim = mesh, dim
+        return _wait(funcol.all_gather_tensor(x.contiguous(), dim,
                                               _model_group(mesh)))
 
     @staticmethod
     def backward(ctx, g):
-        return _ScatterRows.apply(g, ctx.mesh), None
+        return _ScatterRows.apply(g, ctx.mesh, ctx.dim), None, None
 
 
 class _ScatterRows(torch.autograd.Function):
-    """This rank's rows of ``y`` (rows of the model group, each rank's
-    ``y`` a partial sum) summed over "model" (a reduce-scatter).
-    Backward: the gradients of every rank's rows (an all-gather)."""
+    """This rank's rows on ``dim`` (0 by default) of ``y`` (rows of the
+    model group, each rank's ``y`` a partial sum) summed over "model" (a
+    reduce-scatter). Backward: the gradients of every rank's rows (an
+    all-gather)."""
 
     @staticmethod
-    def forward(ctx, y, mesh):
+    def forward(ctx, y, mesh, dim=0):
         import torch.distributed._functional_collectives as funcol
-        ctx.mesh = mesh
-        return _wait(funcol.reduce_scatter_tensor(y.contiguous(), "sum", 0,
+        ctx.mesh, ctx.dim = mesh, dim
+        return _wait(funcol.reduce_scatter_tensor(y.contiguous(), "sum", dim,
                                                   _model_group(mesh)))
 
     @staticmethod
     def backward(ctx, g):
-        return _GatherRows.apply(g, ctx.mesh), None
+        return _GatherRows.apply(g, ctx.mesh, ctx.dim), None, None
+
+
+# ---------------------------------------------------------------------------
+# the sequence split of a train or prefill step (``specs.ModelSplit.
+# sequence``): each "model" rank its contiguous share of the positions
+# ---------------------------------------------------------------------------
+
+def step_positions(length: int) -> tuple:
+    """(its first global position, all positions) of a step whose rows
+    hold ``length`` positions here: under the sequence split, this
+    "model" rank's contiguous share of n x ``length`` positions
+    (``shards.split_positions``); else (0, ``length``)."""
+    sp = model_split()
+    if not sp.sequence:
+        return 0, length
+    return _context_mesh().get_local_rank("model") * length, sp.n * length
+
+
+def position_share(length: int) -> tuple:
+    """(its first position, its count, every rank's positions) of this
+    "model" rank's share of ``length`` positions under the sequence split
+    (``shards.position_share``: padded at the end to divide); else (0,
+    ``length``, ``length``)."""
+    sp = model_split()
+    if not sp.sequence:
+        return 0, length, length
+    return shards.position_share(length, sp.n,
+                                 _context_mesh().get_local_rank("model"))
+
+
+def gather_positions(t, total: Optional[int] = None):
+    """``t`` (B, S, ...) at every position of the step under the
+    sequence split: every "model" rank's positions concatenated in rank
+    order (an all-gather; its backward reduce-scatters the gradient to
+    each position's owner), cut to the first ``total`` where they were
+    padded to divide; ``t`` itself under any other split."""
+    if not model_split().sequence:
+        return t
+    out = _GatherRows.apply(t, _context_mesh(), 1)
+    return out if total is None else out[:, :total]
+
+
+def gather_model(t):
+    """Every "model" rank's ``t`` stacked on a new leading dim in rank
+    order (n, ...) (an all-gather; its backward sums each rank's part of
+    the gradient to its owner)."""
+    return _GatherRows.apply(t[None], _context_mesh(), 0)
+
+
+def from_last_rank(t):
+    """Under the sequence split, the last "model" rank's ``t`` (what is
+    taken at the step's last position) on every rank; else ``t``."""
+    return gather_model(t)[-1] if model_split().sequence else t
+
+
+def last_position(x):
+    """(B, 1, D): the step's last position of ``x`` (B, S, D), from the
+    "model" rank that holds it under the sequence split."""
+    return from_last_rank(x[:, -1:])
 
 
 def _is_dtensor(x) -> bool:
@@ -359,8 +421,13 @@ def _repeat_kv(k, n_rep):
         .reshape(b, s, kh * n_rep, hd)
 
 
-def _block_mask(qi_ids, kj_ids, causal, window, sq, skv):
+def _block_mask(qi_ids, kj_ids, causal, window, sq, skv, q_offset=0):
+    """Which (query, key) pairs are seen: ``qi_ids`` count the queries
+    from 0 here (those past ``sq`` are padding) and ``q_offset`` more in
+    the sequence, which numbers the keys from 0."""
     mask = (kj_ids < skv) & (qi_ids < sq)
+    if q_offset:
+        qi_ids = qi_ids + q_offset
     if causal:
         mask &= kj_ids <= qi_ids
     if window is not None:
@@ -376,23 +443,32 @@ def _blocks(x, n, blk):
 
 
 def blockwise_attention(q, k, v, *, causal=True, window: Optional[int] = None,
-                        q_block=512, kv_block=512):
-    """q,k,v: (B, S, H, hd) / (B, S, KH, hd) with H % KH == 0.
+                        q_block=512, kv_block=512, q_offset: int = 0):
+    """q: (B, Sq, H, hd), k, v: (B, Skv, KH, hd) with H % KH == 0; the
+    queries are positions ``q_offset`` to ``q_offset + Sq`` of the
+    keys' sequence (0 and Sq = Skv for self-attention over one span; a
+    rank's positions against every key under the sequence split).
     Online softmax over KV blocks, in f32: the reference's
     ``_flash_fwd_impl`` (-inf masking with its ``m_safe`` / ``alpha``
-    guards). Returns q's dtype.
+    guards). Every KV block is visited, also those the queries cannot
+    see, which leave ``m``, ``l`` and ``o`` as they are. Returns q's
+    dtype.
 
     Differentiable through :class:`_Flash`, the reference's flash
     ``custom_vjp``: the forward saves only (q, k, v, out, lse) and the
     backward re-derives each P panel from lse. The KV heads are repeated
-    outside it, so autograd sums dk / dv over each GQA group."""
+    outside it, so autograd sums dk / dv over each GQA group. A query
+    block is at most the queries there are (the reference pads them to
+    ``q_block``): a rank's share of the positions under the sequence
+    split may be shorter than a block, and padded queries are work."""
+    q_block = min(q_block, q.shape[1])
     h = q.shape[2]
     k = _repeat_kv(k, h // k.shape[2])
     v = _repeat_kv(v, h // v.shape[2])
-    return _Flash.apply(q, k, v, causal, window, q_block, kv_block)
+    return _Flash.apply(q, k, v, causal, window, q_block, kv_block, q_offset)
 
 
-def _flash_fwd_impl(q, k, v, causal, window, q_block, kv_block):
+def _flash_fwd_impl(q, k, v, causal, window, q_block, kv_block, q_offset=0):
     """Every q block runs the same recurrence over the KV blocks, so the
     q blocks go through it side by side: one (nq, B, H, q_block,
     kv_block) panel stack is live at a time. Returns (out in q's dtype,
@@ -414,7 +490,7 @@ def _flash_fwd_impl(q, k, v, causal, window, q_block, kv_block):
     for kj in range(nk):
         s = torch.einsum("nbhqd,bhkd->nbhqk", qb, kb[kj].float()) * scale
         mask = _block_mask(q_ids[:, :, None], k_ids[kj][None, None, :],
-                           causal, window, sq, skv)[:, None, None]
+                           causal, window, sq, skv, q_offset)[:, None, None]
         s = torch.where(mask, s, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -438,7 +514,7 @@ def _unblock(x, length):
 
 
 def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_block,
-                    kv_block):
+                    kv_block, q_offset=0):
     """The reference's ``_flash_bwd``: D_i = rowsum(dout * out), each P
     panel recomputed from lse; ``p`` is rounded to q's dtype for dv and
     ``ds`` for dq / dk, every product exact with an f32 sum. The q
@@ -464,7 +540,7 @@ def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_block,
         kf, vf = kb[kj].to(f32), vb[kj].to(f32)
         s = torch.einsum("nbhqd,bhkd->nbhqk", qf, kf) * scale
         mask = _block_mask(q_ids[:, :, None], k_ids[kj][None, None, :],
-                           causal, window, sq, skv)[:, None, None]
+                           causal, window, sq, skv, q_offset)[:, None, None]
         p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
         pb = p.to(q.dtype).to(f32)
         dvs.append(torch.einsum("nbhqk,nbhqd->bhkd", pb, dof))
@@ -483,18 +559,18 @@ class _Flash(torch.autograd.Function):
     (``_flash_fwd`` / ``_flash_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_block, kv_block):
-        out, lse = _flash_fwd_impl(q, k, v, causal, window, q_block,
-                                   kv_block)
+    def forward(ctx, q, k, v, *args):
+        """``args``: (causal, window, q_block, kv_block[, q_offset])."""
+        out, lse = _flash_fwd_impl(q, k, v, *args)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, window, q_block, kv_block)
+        ctx.args = args
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, dout, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return (dq, dk, dv) + (None,) * len(ctx.args)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, window=None,

@@ -72,7 +72,7 @@ def _ssm_branch(cfg, lp, h):
     Cm = xBC[..., din + N:]
     dt = mamba2.softplus(dt_raw.float() + lp["dt_bias"])
     A = -torch.exp(lp["A_log"])
-    y, h_fin = mamba2.ssd_chunked(cfg, xs, Bm, Cm, dt, A, lp["Dd"])
+    y, h_fin = mamba2.ssd_span(cfg, xs, Bm, Cm, dt, A, lp["Dd"])
     return _ssm_out(cfg, lp, y, z, h.dtype), h_fin
 
 
@@ -87,7 +87,7 @@ def _layer(cfg, x, lp, positions, inv_freq, collect_state=False):
     W = cfg.sliding_window
     h = tfm._norm(cfg, x, lp, "ln1")
     q, k, v = tfm._qkv(cfg, lp, h, positions, inv_freq)
-    attn = c.blockwise_attention(q, k, v, causal=True, window=W)
+    attn, k, v = tfm.self_attention(q, k, v, W)
     B, S = x.shape[:2]
     attn_out = c.matmul(attn.reshape(B, S, -1), lp["wo"])
     ssm_out, h_fin = _ssm_branch(cfg, lp, h)
@@ -126,11 +126,14 @@ def loss_fn(cfg, params, batch):
 
 
 def prefill(cfg, params, batch):
+    """The window of the last positions' k / v (gathered over "model"
+    under the sequence split, so every rank's), the final SSM state and
+    the last position's logits (the last "model" rank's under it)."""
     x = params["embed"][batch["tokens"]]
     x, (k, v, h) = backbone(cfg, params, x, tfm._positions(x),
                             collect_state=True)
-    return ({"k": k, "v": v, "ssm_state": h},
-            c.logits(cfg, x[:, -1:], params["lm_head"]))
+    return ({"k": k, "v": v, "ssm_state": c.from_last_rank(h)},
+            c.logits(cfg, c.last_position(x), params["lm_head"]))
 
 
 def _window_attention(cfg, q, kc, vc, length):

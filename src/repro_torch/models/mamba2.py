@@ -3,8 +3,11 @@
 Chunked SSD forward: the sequence is split into chunks; within a chunk
 the quadratic dual form runs as batched products, between chunks the
 SSM state (B, H, P, N) is carried by a Python loop over the chunks (the
-reference's ``lax.scan``) — O(S) memory, O(S·Q) compute. Decode is the
-O(1) recurrent step. Attention-free (no KV cache).
+reference's ``lax.scan``) — O(S) memory, O(S·Q) compute. Under the
+sequence split each "model" rank scans its span of positions and the
+spans' states are folded across ranks (:func:`ssd_span`); the causal
+conv takes the previous rank's last rows (:func:`rows_before`). Decode
+is the O(1) recurrent step. Attention-free (no KV cache).
 
 Shapes: d_inner = expansion (cfg.din), P = ssm_head_dim, H = din/P heads,
 N = ssm_state. B/C are shared across heads (ngroups=1, as in the paper).
@@ -81,12 +84,14 @@ def _split_proj(cfg, zxbcdt):
     return z, xBC, dt_raw
 
 
-def _causal_conv(xBC, w, b):
-    """Depthwise causal conv, kernel CONV_K. xBC: (B, S, C). A Python
+def _causal_conv(xBC, w, b, left=None):
+    """Depthwise causal conv, kernel CONV_K. xBC: (B, S, C); ``left``
+    (B, CONV_K - 1, C) the rows before it (zeros by default). A Python
     ``sum`` of the CONV_K products, each rounded to xBC's dtype, as the
     reference adds them."""
     S = xBC.shape[1]
-    pads = F.pad(xBC, (0, 0, CONV_K - 1, 0))
+    pads = (F.pad(xBC, (0, 0, CONV_K - 1, 0)) if left is None
+            else torch.cat([left, xBC], dim=1))
     out = sum(pads[:, i:i + S] * w[i] for i in range(CONV_K))
     return c.silu(out + b)
 
@@ -135,6 +140,62 @@ def ssd_chunked(cfg, x, Bm, Cm, dt, A, D, h0=None):
     return y, h
 
 
+def rows_before(t, k: int):
+    """Under the sequence split, the ``k`` rows of (B, S, C) ``t`` that
+    come before this "model" rank's: the previous rank's last ``k``
+    (zeros on the first rank), exchanged over "model" with a backward;
+    else None (the sequence starts here)."""
+    if not c.model_split().sequence:
+        return None
+    if t.shape[1] < CONV_K:
+        raise ValueError(f"the sequence split gives this rank {t.shape[1]} "
+                         f"positions: the conv's state needs {CONV_K}")
+    tails = c.gather_model(t[:, -k:])
+    r = c._context_mesh().get_local_rank("model")
+    # the first rank reads a tail too (and takes zeros), so that every
+    # rank's backward runs the exchange's reduce-scatter
+    return torch.where(torch.tensor(r > 0, device=t.device), tails[r - 1],
+                       torch.zeros_like(tails[0]))
+
+
+def carry_in(y, h, Cm, a_cum, states, decays, r: int):
+    """The span ``r`` of a sequence scanned span by span, each from a
+    zero state, with the state the earlier spans carry into it: (y, h)
+    of :func:`ssd_chunked` over the span from ``h0 = 0``, the span's
+    ``Cm`` (B, S, N) and cumulative ``dt * A`` (B, S, H), and every
+    span's final state from zero (n, B, H, P, N) and total decay
+    ``exp(sum dt * A)`` (n, B, H) in span order. The incoming state
+    folds spans 0..r-1 in order; its contribution ``C_t . h_in *
+    exp(a_cum_t)`` is added to ``y`` and its decay over the span to
+    ``h``. Returns (y, h) as the scan from the sequence's start gives
+    them, up to f32 reassociation. Every span's state and decay is read
+    (those from span ``r`` on leave ``h_in`` as it is), so that the
+    backward of their exchange over "model" runs on every rank."""
+    h_in = torch.zeros_like(h)
+    for j in range(len(states)):
+        h_in = torch.where(torch.tensor(j < r, device=h.device),
+                           h_in * decays[j][..., None, None] + states[j],
+                           h_in)
+    y = y + torch.einsum("bsn,bhpn->bshp", Cm.float(), h_in) \
+        * torch.exp(a_cum)[..., None]
+    return y, h + h_in * decays[r][..., None, None]
+
+
+def ssd_span(cfg, x, Bm, Cm, dt, A, D):
+    """:func:`ssd_chunked` over the step's positions; under the sequence
+    split over this "model" rank's span, from a zero state, then the
+    state of every earlier span folded in (:func:`carry_in`): each
+    rank's final state and total decay are exchanged over "model" (with
+    a backward: in a train step this runs inside ``common.remat``)."""
+    y, h = ssd_chunked(cfg, x, Bm, Cm, dt, A, D)
+    if not c.model_split().sequence:
+        return y, h
+    a_cum = torch.cumsum(dt * A, dim=1)
+    return carry_in(y, h, Cm, a_cum, c.gather_model(h),
+                    c.gather_model(torch.exp(a_cum[:, -1])),
+                    c._context_mesh().get_local_rank("model"))
+
+
 def layer_forward(cfg, lp, x, return_state=False):
     """One mamba2 block. x: (B,S,D). With ``return_state`` also the final
     SSM state and the conv state: the last CONV_K raw (pre-conv) xBC
@@ -144,13 +205,14 @@ def layer_forward(cfg, lp, x, return_state=False):
     hid = c.rmsnorm(x, lp["ln_g"], cfg.norm_eps)
     zxbcdt = c.matmul(hid, lp["in_proj"])
     z, xBC_raw, dt_raw = _split_proj(cfg, zxbcdt)
-    xBC = _causal_conv(xBC_raw, lp["conv_w"], lp["conv_b"])
+    xBC = _causal_conv(xBC_raw, lp["conv_w"], lp["conv_b"],
+                       rows_before(xBC_raw, CONV_K - 1))
     xs = xBC[..., :din].reshape(B, S, H, P)
     Bm = xBC[..., din:din + N]
     Cm = xBC[..., din + N:]
     dt = softplus(dt_raw.float() + lp["dt_bias"])
     A = -torch.exp(lp["A_log"])
-    y, h_fin = ssd_chunked(cfg, xs, Bm, Cm, dt, A, lp["D"])
+    y, h_fin = ssd_span(cfg, xs, Bm, Cm, dt, A, lp["D"])
     y = y.reshape(B, S, din).to(x.dtype)
     y = c.rmsnorm(y, lp["norm_g"], cfg.norm_eps) * c.silu(z)
     out = x + c.matmul(y, lp["out_proj"])
@@ -190,10 +252,13 @@ def loss_fn(cfg, params, batch):
 
 
 def prefill(cfg, params, batch):
+    """The final SSM and conv states and the last position's logits:
+    under the sequence split, the last "model" rank's, on every rank."""
     x = params["embed"][batch["tokens"]]
     x, (h, conv) = backbone(cfg, params, x, collect_state=True)
-    logits = c.logits(cfg, x[:, -1:], params["lm_head"])
-    return {"ssm_state": h, "conv_state": conv}, logits
+    logits = c.logits(cfg, c.last_position(x), params["lm_head"])
+    return {"ssm_state": c.from_last_rank(h),
+            "conv_state": c.from_last_rank(conv)}, logits
 
 
 def ssm_step(h, xs, Bm, Cm, dt, A, D, model_sum=None):

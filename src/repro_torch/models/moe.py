@@ -20,9 +20,9 @@ On a mesh (``common.use_mesh``) whose "model" dim is larger than 1,
 dispatches its data shard's tokens against its slice of the experts
 (``E_pad / n_model`` of them) or, where "model" does not divide E_pad,
 against every expert with its slice of the FFN dim; the partial outputs
-are summed over "model" (reduce-scattered to each rank's rows where the
-batch is split over "model" and the group's rows were gathered for the
-dispatch) and the aux loss averaged over the data dims and "model". The
+are summed over "model" (reduce-scattered to each rank's rows or
+positions where the batch or the positions are split over "model" and
+the group's were gathered for the dispatch) and the aux loss averaged over the data dims and "model". The
 combine adds each token's expert rows in the reference's order without
 float atomics (``_combine``), so results repeat bit for bit on the
 card.
@@ -224,29 +224,34 @@ def _split(w, dim, whole, r, n, enter):
     return c.enter_model(w, enter).narrow(dim, r * per, per)
 
 
-def _moe_ffn_sharded(cfg, lp, x, mesh, capacity_factor):
-    """This rank's share of the MoE FFN over its tokens ``x`` (T, D),
+def _moe_ffn_sharded(cfg, lp, h, mesh, capacity_factor):
+    """This rank's share of the MoE FFN over its tokens ``h`` (B, S, D),
     summed over "model": the reference's ``shard_map`` body. Returns
     (out, aux) with ``aux`` averaged over the data dims and "model".
 
-    ``x`` is the rank's data shard, the same on every model rank, or,
-    where the batch is split over "model" too (the context's data dims
-    name it), the rank's rows of it: the model group's rows are then
-    gathered first, so that the dispatch and its capacities are the
-    data shard's, and each rank gets its own rows of the sum back (a
-    reduce-scatter). There nothing enters the region: every gradient
-    is partial over "model", as the step's batch-split gradients are,
-    and ``shards`` sums it (an expert weight it gathered to this rank's
+    ``h`` (B, S, D) is the rank's data shard, the same on every model
+    rank, or, where the batch or the positions are split over "model"
+    too (the context's data dims name it), the rank's rows or positions
+    of it: the model group's are then gathered first (on the rows' or
+    the positions' dim, so that the tokens come in the reference's
+    order, which the capacities' drops depend on), so that the dispatch
+    and its capacities are the data shard's, and each rank gets its own
+    rows or positions of the sum back (a reduce-scatter). There nothing
+    enters the region: every gradient is partial over "model", as the
+    step's batch-split gradients are, and ``shards`` sums it (an expert weight it gathered to this rank's
     share excepted: that gradient is whole over the group's tokens)."""
     from ..sharding.specs import mesh_sizes
     n_model, E = mesh_sizes(mesh)["model"], cfg.num_experts_padded
     F = cfg.moe_d_ff or cfg.d_ff
     r = mesh.get_local_rank("model")
     rows = "model" in c._data_dims()
+    dim = 1 if c.model_split().sequence else 0
     if rows:
-        x, router = c._GatherRows.apply(x, mesh), lp["router"]
+        h, router = c._GatherRows.apply(h, mesh, dim), lp["router"]
     else:
-        x, router = (c.enter_model(t) for t in (x, lp["router"]))
+        h, router = (c.enter_model(t) for t in (h, lp["router"]))
+    B, S, D = h.shape
+    x = h.reshape(B * S, D)
     if E % n_model == 0:                     # experts on "model"
         wg, wu, wd = (_split(lp[k], 0, E, r, n_model, not rows)
                       for k in ("we_gate", "we_up", "we_down"))
@@ -258,7 +263,8 @@ def _moe_ffn_sharded(cfg, lp, x, mesh, capacity_factor):
         wd = _split(lp["we_down"], 1, F, r, n_model, not rows)
         out, aux = _moe_ffn_tokens(cfg, router, wg, wu, wd, x, 0, E, 1,
                                    capacity_factor)
-    out = (c._ScatterRows.apply(out, mesh) if rows
+    out = out.reshape(B, S, D)
+    out = (c._ScatterRows.apply(out, mesh, dim) if rows
            else c.model_sum(out))
     aux = c._ReduceOver.apply(aux, mesh, ("model",), 1 / n_model,
                               1 / n_model)
@@ -279,10 +285,10 @@ def moe_ffn(cfg, lp, h, capacity_factor=None):
     dispatch runs PER DATA SHARD (sort, ranks, scatter stay local),
     experts shard on "model" (each rank computes its expert slice for
     its data shard's tokens, then a sum over "model"; no all-to-all).
-    ``h`` is this rank's data shard, or its rows of it where the batch
-    is split over "model" too: the model group's rows are gathered for
-    the dispatch and the sum is reduce-scattered back to each rank's
-    rows. The expert weights are whole or this rank's share already.
+    ``h`` is this rank's data shard, or its rows (its positions) of it
+    where the batch (the positions) is split over "model" too: the model
+    group's rows (positions) are gathered for the dispatch and the sum
+    is reduce-scattered back to each rank's own. The expert weights are whole or this rank's share already.
 
     Under the columns split of a decode step the expert weights come as
     the rules placed them: where that is the experts on "model", the
@@ -303,16 +309,14 @@ def moe_ffn(cfg, lp, h, capacity_factor=None):
         # reference's psum over "model" would add n_model equal outputs)
         if n_model > 1 and "model" in c._data_dims():
             raise NotImplementedError(
-                f"the batch split over {n_model} model ranks dispatches "
-                f"the group's rows over a split of the experts ({E}) or "
-                f"the FFN dim ({F}), and neither divides")
+                f"the {c.model_split().name} split over {n_model} model "
+                f"ranks dispatches the group's tokens over a split of the "
+                f"experts ({E}) or the FFN dim ({F}), and neither divides")
         out, aux = _moe_ffn_tokens(
             cfg, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
             h.reshape(B * S, D), 0, E, 1, capacity_factor)
         return out.reshape(B, S, D), aux
-    out, aux = _moe_ffn_sharded(cfg, lp, h.reshape(B * S, D), mesh,
-                                capacity_factor)
-    return out.reshape(B, S, D), aux
+    return _moe_ffn_sharded(cfg, lp, h, mesh, capacity_factor)
 
 
 def _layer(cfg, x, lp, positions, inv_freq):
@@ -358,7 +362,7 @@ def prefill(cfg, params, batch):
                             collect_kv=True)
     cdt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
     return ({"k": k.to(cdt), "v": v.to(cdt)},
-            c.logits(cfg, x[:, -1:], params["lm_head"]))
+            c.logits(cfg, c.last_position(x), params["lm_head"]))
 
 
 def decode_step(cfg, params, cache, token, length):

@@ -23,9 +23,10 @@ A weight is gathered to its *compute layout* (``specs.compute_spec``)
 under the step's ``specs.ModelSplit``, so that a rank computes 1/n of
 its model group's work rather than all of it:
 
-  * where the batch is split over "model" too, weights are gathered
-    whole (but the MoE's expert weights, to this rank's own experts, or
-    FFN slice, on "model"), and each rank runs its rows;
+  * where the batch (or the positions) is split over "model" too,
+    weights are gathered whole (but the MoE's expert weights, to this
+    rank's own experts, or FFN slice, on "model"), and each rank runs
+    its rows (its positions of every row);
   * otherwise the attention's and the MLP's weights go to Megatron's
     column / row slices on "model" where their heads and FFN dim divide
     (the layers enter and sum the model region, ``common.enter_model``
@@ -204,6 +205,86 @@ def split_rows(local_batch, mesh, data_dims, split):
     lo = mesh.get_local_rank("model") * per
     return (tree_map(lambda b: b[lo:lo + per], local_batch),
             data_dims + ("model",))
+
+
+POSITIONAL = ("tokens", "labels", "embeds")     # (B, S, ...) inputs
+
+
+def positions(batch) -> int:
+    """The positions a row of ``batch`` (a dict of inputs) holds."""
+    return next(batch[k] for k in POSITIONAL if k in batch).shape[1]
+
+
+def position_share(length: int, n: int, rank: int) -> tuple:
+    """(its first position, its count, every rank's positions) of
+    ``rank``'s contiguous share of ``length`` positions split ``n`` ways:
+    each rank holds ceil(``length`` / n), so the total is ``length``
+    padded at the end to divide by n."""
+    per = -(-length // n)
+    return rank * per, per, n * per
+
+
+def split_positions(local_batch, mesh, data_dims, split):
+    """(this rank's batch, the mesh dims the batch is split on) under
+    ``split`` (a ``specs.ModelSplit``): where it splits the positions
+    over "model", the rank's contiguous 1/n of each of its data shard's
+    rows' positions (``POSITIONAL`` inputs, which must divide by n;
+    whisper's encoder frames stay whole, ``whisper.encode`` takes its
+    own :func:`position_share` of them, padded) and "model" added to
+    ``data_dims``; else both as they are."""
+    if not split.sequence:
+        return local_batch, data_dims
+    s = positions(local_batch)
+    lo, per, total = position_share(s, split.n,
+                                    mesh.get_local_rank("model"))
+    if total != s:
+        raise ValueError(f"{s} positions do not divide over {split.n} "
+                         f"model ranks")
+    return ({k: b[:, lo:lo + per] if k in POSITIONAL else b
+             for k, b in local_batch.items()}, data_dims + ("model",))
+
+
+def local_step(params, batch, cfg, micro_batches: int = 1):
+    """What a rank computes a step on, from DTensor ``params`` and
+    ``batch`` (DTensors placed by ``specs.batch_placements``, or plain
+    tensors every rank shares): (mesh, its weight shards, their
+    placements, its batch, the mesh dims that batch is split on, the
+    ``specs.ModelSplit``: ``specs.model_split`` of ``cfg`` at its data
+    shard's rows and positions). The batch is its data shard's, cut to
+    its rows or positions where the split takes them."""
+    from torch.distributed.tensor import DTensor
+    from ..sharding.specs import model_split
+    from ..tree import leaves
+    mesh = next(t for t in leaves(params)
+                if isinstance(t, DTensor)).device_mesh
+    data_dims = batch_dims(batch, mesh)
+    local, placements = local_shards(params)
+    local_batch = local_shards(batch)[0]
+    split = model_split(cfg, leaves(local_batch)[0].shape[0], mesh,
+                        micro_batches, positions(local_batch))
+    local_batch, data_dims = split_rows(local_batch, mesh, data_dims, split)
+    local_batch, data_dims = split_positions(local_batch, mesh, data_dims,
+                                             split)
+    return mesh, local, placements, local_batch, data_dims, split
+
+
+def sharded_prefill(prefill, params, batch, cfg):
+    """(cache, last logits, split) of ``prefill(params, batch)`` (a
+    ``Model.prefill``) on DTensor ``params`` and ``batch``: each rank's
+    share (:func:`local_step`) through ``prefill`` on its weight shards,
+    gathered layer by layer (:func:`model_view`), with autograd off. The
+    cache and logits are the rank's data shard's: its rows of them
+    under the batch split, every position's cache and the last
+    position's logits on every "model" rank under the sequence split,
+    the cache's KV heads and the logits' vocabulary slice under
+    Megatron's split."""
+    from . import common
+    mesh, local, placements, local_batch, dims, split = local_step(
+        params, batch, cfg)
+    with torch.no_grad(), common.use_mesh(mesh, dims, split):
+        cache, logits = prefill(model_view(local, placements, mesh, dims,
+                                           split), local_batch)
+    return cache, logits, split
 
 
 def batch_dims(batch, mesh) -> tuple:

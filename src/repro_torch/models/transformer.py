@@ -147,14 +147,27 @@ def _qkv(cfg, lp, h, positions, inv_freq):
     return q, k, v
 
 
+def self_attention(q, k, v, window=None, causal=True, total=None):
+    """Self-attention of the step's queries ``q`` over its keys and
+    values: (output, k, v at every position). Under the sequence split
+    ``q``, ``k`` and ``v`` are this rank's positions: the keys and
+    values of every position are gathered over "model"
+    (``common.gather_positions``; cut to the first ``total`` where the
+    positions were padded to divide) and the queries numbered from the
+    rank's first position."""
+    k, v = c.gather_positions(k, total), c.gather_positions(v, total)
+    return c.blockwise_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=c.step_positions(q.shape[1])[0]
+                                 ), k, v
+
+
 def _attention(cfg, lp, h, positions, inv_freq):
     """(attention output before the residual, k, v). Under the heads
     split ``h`` enters the model region and the output is this rank's
     heads' partial sum (``wo``'s rows), to be summed over "model"."""
     h = c.enter_model(h, c.model_split().heads)
     q, k, v = _qkv(cfg, lp, h, positions, inv_freq)
-    attn = c.blockwise_attention(q, k, v, causal=True,
-                                 window=cfg.sliding_window or None)
+    attn, k, v = self_attention(q, k, v, cfg.sliding_window or None)
     B, S = h.shape[:2]
     return c.matmul(attn.reshape(B, S, -1), lp["wo"]), k, v
 
@@ -213,8 +226,12 @@ def embed_input(cfg, params, batch):
 
 
 def _positions(x):
+    """(B, S) global positions of ``x``'s (B, S, ...) rows: from the
+    rank's first position under the sequence split
+    (``common.step_positions``), else from 0."""
     B, S = x.shape[:2]
-    return torch.arange(S, dtype=torch.int32,
+    lo, _ = c.step_positions(S)
+    return torch.arange(lo, lo + S, dtype=torch.int32,
                         device=x.device).expand(B, S)
 
 
@@ -231,11 +248,13 @@ def loss_fn(cfg, params, batch):
 
 
 def prefill(cfg, params, batch):
-    """Full-sequence pass collecting the KV cache."""
+    """Full-sequence pass collecting the KV cache: every position's, on
+    every rank, under the sequence split too, where the last position's
+    logits come from the rank that holds it."""
     x = embed_input(cfg, params, batch)
     x, (k, v) = backbone(cfg, params, x, _positions(x), collect_kv=True)
     cdt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
-    logits_last = c.logits(cfg, x[:, -1:], params["lm_head"])
+    logits_last = c.logits(cfg, c.last_position(x), params["lm_head"])
     return {"k": k.to(cdt), "v": v.to(cdt)}, logits_last
 
 

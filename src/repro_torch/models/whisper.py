@@ -18,6 +18,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import common as c
 from . import transformer as tfm
@@ -78,30 +79,45 @@ def _mlp(cfg, lp, h):
                       cfg.d_ff)
 
 
-def _self_attn(cfg, lp, h, causal):
+def _self_attn(cfg, lp, h, causal, frames=None):
+    """(output, (k, v) at every position): under the sequence split
+    ``h`` is this rank's positions (``transformer.self_attention``;
+    ``frames`` the encoder's real frames, where they were padded)."""
     B, S, D = h.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = c.matmul(h, lp["wq"]).reshape(B, S, H, hd)
     k = c.matmul(h, lp["wk"]).reshape(B, S, KH, hd)
     v = c.matmul(h, lp["wv"]).reshape(B, S, KH, hd)
-    o = c.blockwise_attention(q, k, v, causal=causal)
+    o, k, v = tfm.self_attention(q, k, v, causal=causal, total=frames)
     return c.matmul(o.reshape(B, S, -1), lp["wo"]), (k, v)
 
 
-def _enc_layer(cfg, x, lp):
-    a, _ = _self_attn(cfg, lp, _ln(cfg, x, lp, "ln1"), causal=False)
+def _enc_layer(cfg, x, lp, frames=None):
+    a, _ = _self_attn(cfg, lp, _ln(cfg, x, lp, "ln1"), causal=False,
+                      frames=frames)
     x = x + a
     return x + _mlp(cfg, lp, _ln(cfg, x, lp, "ln2"))
 
 
 def encode(cfg, params, enc_embeds):
+    """The encoder's output (B, S_enc, D) for every frame. Under the
+    sequence split each "model" rank encodes its contiguous share of the
+    frames, padded with zero frames to a multiple of n (the padded
+    frames are masked as keys, and cut from the output, which is
+    gathered over "model"); the encoder is not repeated on every
+    rank."""
     dt = c.dtype_of(cfg)
     B, S, D = enc_embeds.shape
-    x = enc_embeds.to(dt) + sinusoid_pos(S, D, dt, enc_embeds.device)
+    lo, per, total = c.position_share(S)
+    x = enc_embeds if total == S else F.pad(enc_embeds,
+                                              (0, 0, 0, total - S))
+    x = x[:, lo:lo + per].to(dt) \
+        + sinusoid_pos(total, D, dt, enc_embeds.device)[lo:lo + per]
     for lp in tfm.layers(params, "enc_layers"):
-        x = c.remat(cfg, _enc_layer, cfg, x, lp)
-    return c.layernorm(x, params["ln_enc_g"], params["ln_enc_b"],
-                       cfg.norm_eps)
+        x = c.remat(cfg, _enc_layer, cfg, x, lp, S)
+    return c.gather_positions(
+        c.layernorm(x, params["ln_enc_g"], params["ln_enc_b"],
+                    cfg.norm_eps), S)
 
 
 def _cross_kv(cfg, lp, enc_out):
@@ -127,11 +143,14 @@ def _dec_layer(cfg, x, lp, enc_out):
 def decode_stack(cfg, params, tokens, enc_out, collect_kv=False):
     """The decoder layers and the final norm; with ``collect_kv`` also
     the per-layer (k, v, cross_k, cross_v), stacked on a leading L
-    axis."""
+    axis. Under the sequence split ``tokens`` are this rank's positions
+    and ``enc_out`` every frame: a rank's queries cross-attend to the
+    whole encoder output."""
     dt = c.dtype_of(cfg)
     S = tokens.shape[1]
-    x = params["embed"][tokens] + sinusoid_pos(S, cfg.d_model, dt,
-                                               tokens.device)
+    lo, total = c.step_positions(S)
+    x = params["embed"][tokens] + sinusoid_pos(total, cfg.d_model, dt,
+                                               tokens.device)[lo:lo + S]
     kvs = []
     for lp in tfm.layers(params):
         x, kv = c.remat(cfg, _dec_layer, cfg, x, lp, enc_out)
@@ -158,7 +177,7 @@ def prefill(cfg, params, batch):
     x, (k, v, xk, xv) = decode_stack(cfg, params, batch["tokens"], enc_out,
                                      collect_kv=True)
     cache = {"k": k, "v": v, "cross_k": xk, "cross_v": xv}
-    return cache, c.logits(cfg, x[:, -1:], params["lm_head"])
+    return cache, c.logits(cfg, c.last_position(x), params["lm_head"])
 
 
 def decode_step(cfg, params, cache, token, length):

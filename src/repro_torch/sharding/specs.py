@@ -111,6 +111,10 @@ class ModelSplit:
         ``bv``), or "pick", the one KV head its query heads read (the
         KV weights whole); ``ffn``, its 1/n of the FFN dim (``w_gate``,
         ``w_up``, ``b_up`` by columns, ``w_down`` by rows);
+      * ``sequence``: its contiguous 1/n of the step's positions of each
+        of its data shard's rows, with whole weights (FSDP over "model",
+        as under ``batch``); only the attention's keys and values and
+        the recurrences' carried state cross "model";
       * ``columns`` (a decode step): every weight where the rules
         placed it on "model", each product this rank's output columns
         (all-gathered) or, where "model" is the weight's input dim, its
@@ -127,40 +131,50 @@ class ModelSplit:
     kv: str = ""
     ffn: bool = False
     columns: bool = False
+    sequence: bool = False
 
     @property
     def name(self) -> str:
-        """"batch", "columns", "heads+ffn", "heads", "ffn" or "none"."""
+        """"batch", "sequence", "columns", "heads+ffn", "heads", "ffn" or
+        "none"."""
         if self.batch:
             return "batch"
+        if self.sequence:
+            return "sequence"
         if self.columns:
             return "columns"
         return "+".join(p for p, on in (("heads", self.heads),
                                         ("ffn", self.ffn)) if on) or "none"
 
 
-def model_split(cfg, rows: int, mesh, micro_batches: int = 1) -> ModelSplit:
+def model_split(cfg, rows: int, mesh, micro_batches: int = 1,
+                seq: int = None) -> ModelSplit:
     """How a step over ``rows`` rows a data shard (each of
-    ``micro_batches`` microbatches a rank takes its share of) splits
-    over "model", in this order: the batch, when ``rows`` divides by
-    n x ``micro_batches``; else, for the dense, vlm and MoE families,
-    the query heads where they divide (with the KV heads where they
-    divide, or divide n), and the FFN dim where it divides (not the
-    MoE's: its experts split on their own); else nothing. A part whose
-    dims do not divide stays whole, as the rules replicate a dim that
-    does not divide."""
+    ``micro_batches`` microbatches a rank takes its share of) and
+    ``seq`` positions a row splits over "model", in this order: the
+    batch, when ``rows`` divides by n x ``micro_batches``; else, for the
+    dense, vlm and MoE families, the query heads where they divide (with
+    the KV heads where they divide, or divide n), and the FFN dim where
+    it divides (not the MoE's: its experts split on their own); else,
+    for every family, the positions, where ``seq`` divides by n; else,
+    for those three families, the FFN dim alone where it divides; else
+    nothing. A part whose dims do not divide stays whole, as the rules
+    replicate a dim that does not divide."""
     n = _axis_size(mesh, "model")
     if n == 1:
         return ModelSplit()
     if rows % (n * micro_batches) == 0:
         return ModelSplit(n, batch=True)
-    if cfg.family not in MEGATRON_FAMILIES:
-        return ModelSplit(n)
-    H, KH = cfg.num_heads, cfg.num_kv_heads
-    kv = "split" if KH % n == 0 else "pick" if n % KH == 0 else ""
-    heads = bool(kv) and H % n == 0
-    return ModelSplit(n, heads=heads, kv=kv if heads else "",
-                      ffn=cfg.family != "moe" and cfg.d_ff % n == 0)
+    megatron = cfg.family in MEGATRON_FAMILIES
+    if megatron:
+        H, KH = cfg.num_heads, cfg.num_kv_heads
+        kv = "split" if KH % n == 0 else "pick" if n % KH == 0 else ""
+        ffn = cfg.family != "moe" and cfg.d_ff % n == 0
+        if kv and H % n == 0:
+            return ModelSplit(n, heads=True, kv=kv, ffn=ffn)
+    if seq is not None and seq % n == 0:
+        return ModelSplit(n, sequence=True)
+    return ModelSplit(n, ffn=megatron and ffn)
 
 
 def model_split_decode(mesh) -> ModelSplit:
@@ -183,8 +197,9 @@ def compute_spec(name: str, shape, mesh, split: ModelSplit = None) -> tuple:
     stacked leaf) is computed in under ``split`` (no split by default):
     whole, except on a "model" dim of more than one rank
       * ``lm_head``'s vocabulary, where the reference's logits are
-        (``constrain_logits``), when it divides, unless the batch is
-        split over "model" (the logits then are this rank's rows);
+        (``constrain_logits``), when it divides, unless the batch or the
+        positions are split over "model" (the logits then are this
+        rank's rows or positions, with the whole vocabulary);
       * under ``columns``, every other weight of two or more dims on the
         dim :func:`leaf_spec` put on "model" (one layer's dims, for a
         stacked leaf), the MoE's expert weights too, so that no weight
@@ -203,7 +218,7 @@ def compute_spec(name: str, shape, mesh, split: ModelSplit = None) -> tuple:
     if n == 1:
         return tuple(spec)
     if name == "lm_head" and len(shape) == 2:
-        if shape[1] % n == 0 and not split.batch:
+        if shape[1] % n == 0 and not (split.batch or split.sequence):
             spec[1] = "model"
     elif split.columns:
         if len(shape) >= 2:

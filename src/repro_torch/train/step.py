@@ -16,9 +16,12 @@ on what the specs place in the ZeRO-3 manner (``models/shards.py``):
     (``specs.model_split``): its 1/n of the data shard's rows where they
     divide ("model" is then a data-parallel dim too, and the MoE gathers
     the group's rows for its dispatch), else its 1/n of the attention
-    heads and the FFN dim (Megatron) where those divide; a part that
-    divides by neither is computed by every rank of the group. The
-    metrics name the split (``model_split``);
+    heads and the FFN dim (Megatron) where those divide, else its 1/n of
+    each row's positions where they divide ("model" a data-parallel dim
+    again; the attention gathers every position's keys and values, the
+    recurrences carry their state across ranks); a part that divides by
+    none of these is computed by every rank of the group. The metrics
+    name the split (``model_split``);
   * the loss is the global batch's mean (``common.cross_entropy`` sums
     the NLL and the labelled tokens over the data dims), and each
     gradient is summed over the data dims and cut back to its weight's
@@ -29,8 +32,9 @@ on what the specs place in the ZeRO-3 manner (``models/shards.py``):
     reduction over every shard.
 
 With ``micro_batches`` > 1 each rank's microbatch ``i`` is the ``i``-th
-slice of its own rows, and each microbatch's loss is the mean over
-those slices of every data rank.
+slice of its own rows (at its own positions under the sequence split),
+and each microbatch's loss is the mean over those slices of every data
+rank.
 """
 from __future__ import annotations
 
@@ -134,19 +138,12 @@ def sharded_grads(compute_grads, params, batch, cfg, micro_batches=1):
     shares): each rank's batch shard through ``compute_grads`` on its
     weight shards, gathered layer by layer (``shards.model_view``) to
     their compute layout under ``split``, the ``specs.ModelSplit`` of
-    ``cfg`` at this shard's rows; each gradient comes back summed over
-    the data dims on its weight's placements (a plain weight's
-    plain)."""
+    ``cfg`` at this shard's rows and positions (``shards.local_step``);
+    each gradient comes back summed over the data dims on its weight's
+    placements (a plain weight's plain)."""
     from torch.distributed.tensor import DTensor
-    from ..sharding.specs import model_split
-    mesh = _dtensor_leaves(params)[0].device_mesh
-    data_dims = shards.batch_dims(batch, mesh)
-    local, placements = shards.local_shards(params)
-    local_batch = shards.local_shards(batch)[0]
-    split = model_split(cfg, leaves(local_batch)[0].shape[0], mesh,
-                        micro_batches)
-    local_batch, data_dims = shards.split_rows(local_batch, mesh, data_dims,
-                                               split)
+    mesh, local, placements, local_batch, data_dims, split = \
+        shards.local_step(params, batch, cfg, micro_batches)
     with common.use_mesh(mesh, data_dims, split):
         loss, grads = compute_grads(
             local, local_batch,

@@ -36,9 +36,10 @@ MoE, elastic restore) and one dry-run cell.
   8 ranks, mesh (2, 4), in a subprocess: ok, and its argument bytes are
   those of the reference's shard shapes; the traced peak of a train
   step at 2 and 6 layers, which grows per layer by less than a whole
-  layer (the weights are gathered layer by layer); and a decode cell of
+  layer (the weights are gathered layer by layer); a decode cell of
   reduced qwen2 on (1, 4) under the columns split against the same cell
-  traced with no split.
+  traced with no split; and a prefill cell of reduced hymba on (1, 4)
+  under the sequence split against the same cell with no split.
 """
 import dataclasses
 import json
@@ -153,10 +154,25 @@ SPLIT_CELLS = {                       # (arch, shape): split, split leaves
         "w_gate": (None, "model"), "w_up": (None, "model"),
         "w_down": ("model", None), "lm_head": (None, "model"),
         "ln1_g": (None,)}),
-    ("qwen2_1p5b", "prefill_32k"): ("ffn", {
+    ("qwen2_1p5b", "prefill_32k"): ("sequence", {
         "wq": (None, None), "bq": (None,), "wk": (None, None),
-        "wo": (None, None), "w_gate": (None, "model"),
-        "w_down": ("model", None), "lm_head": (None, "model")}),
+        "wo": (None, None), "w_gate": (None, None),
+        "w_down": (None, None), "lm_head": (None, None)}),
+    ("granite_moe_3b_a800m", "prefill_32k"): ("sequence", {
+        "wq": (None, None), "router": (None, None),
+        "we_gate": ("model", None, None), "we_down": ("model", None, None),
+        "lm_head": (None, None)}),
+    ("mamba2_2p7b", "prefill_32k"): ("sequence", {
+        "in_proj": (None, None), "conv_w": (None, None),
+        "out_proj": (None, None), "lm_head": (None, None)}),
+    ("hymba_1p5b", "prefill_32k"): ("sequence", {
+        "wq": (None, None), "ssm_in": (None, None), "w_up": (None, None),
+        "lm_head": (None, None)}),
+    ("hymba_1p5b", "train_4k"): ("sequence", {
+        "wk": (None, None), "ssm_out": (None, None), "lm_head": (None, None)}),
+    ("whisper_tiny", "prefill_32k"): ("sequence", {
+        "xq": (None, None), "wq": (None, None), "w_up": (None, None),
+        "lm_head": (None, None)}),
     ("command_r_35b", "decode_32k"): ("columns", {
         "wq": (None, "model"), "wk": (None, "model"), "wo": (None, "model"),
         "w_down": (None, "model"), "ln1_g": (None,),
@@ -197,8 +213,12 @@ def test_model_split_rule(cell):
     weights ``compute_spec`` splits there: qwen2 ``train_4k`` (16 rows a
     data shard) splits its batch; command-r ``prefill_32k`` (2 rows)
     its 64 heads (the 8 KV heads: each rank the one its 4 query heads
-    read) and its FFN dim; qwen2 ``prefill_32k`` only its FFN dim (12
-    heads do not divide over 16). Every decode cell takes the columns
+    read) and its FFN dim; qwen2 and granite ``prefill_32k`` (12 and 24
+    heads do not divide over 16), mamba2, hymba (25 heads) and whisper
+    ``prefill_32k`` (2 rows) and hymba ``train_4k`` (16 rows in 2
+    microbatches do not divide over 16 x 2) their 32,768 or 4,096
+    positions, with every weight whole but the MoE's experts (each rank
+    its own, as under the batch split). Every decode cell takes the columns
     split, whatever its rows or heads: each weight where the rules put
     "model" (hymba's ``ssm_in``, 3,257 columns, on its input dim;
     granite's expert weights on their last dim), norm gains and biases
@@ -216,7 +236,7 @@ def test_model_split_rule(cell):
     else:
         split = specs.model_split(cfg, sh.batch // 16, mesh,
                                   cfg.micro_batches if sh.kind == "train"
-                                  else 1)
+                                  else 1, sh.seq)
     assert split.name == want
     for name, spec in leaves.items():
         shp = (params[name].shape if name in ("lm_head", "embed")
@@ -227,6 +247,21 @@ def test_model_split_rule(cell):
     for name, spec in DECODE_CACHE.get(cell, {}).items():
         assert specs.decode_cache_spec(name, tuple(caches[name].shape), mesh,
                                        cfg.family) == spec, name
+
+
+@pytest.mark.parametrize("arch,want", [("qwen2_1p5b", "ffn"),
+                                       ("command_r_35b", "heads+ffn"),
+                                       ("granite_moe_3b_a800m", "none"),
+                                       ("mamba2_2p7b", "none")])
+def test_model_split_where_positions_do_not_divide(arch, want):
+    """2 rows a data shard of 32,767 positions on the pod mesh: neither
+    the rows nor the positions divide over 16 model ranks, so qwen2 (12
+    heads) splits only its FFN dim, command-r still its heads and FFN
+    dim, and granite (its 24 heads, and no FFN split beside its
+    experts') and mamba2 (no heads) nothing."""
+    mesh = specs.MeshShape(("data", "model"), (16, 16))
+    split = specs.model_split(tcfg.get_config(arch), 2, mesh, 1, 32767)
+    assert split.name == want and not split.sequence
 
 
 DECODE_CELLS = [(a, s) for a in tcfg.ARCH_IDS
@@ -887,12 +922,20 @@ decode = {"columns": dryrun.trace_cell(reduced(get_config("qwen2_1p5b")),
 # whole work on the whole cache
 specs.model_split_decode = lambda mesh: specs.ModelSplit(4)
 decode["none"] = dryrun.trace_cell(reduced(get_config("qwen2_1p5b")), dsh, m14)
+# a prefill of reduced hymba (1 row of 2,048) on (1, 4): each rank its
+# positions; and the same cell with no split
+psh = ShapeSpec("prefill_small", "prefill", 2048, 1)
+prefill = {"sequence": dryrun.trace_cell(reduced(get_config("hymba_1p5b")),
+                                         psh, m14)}
+specs.model_split = lambda *a, **k: specs.ModelSplit(4)
+prefill["none"] = dryrun.trace_cell(reduced(get_config("hymba_1p5b")), psh,
+                                    m14)
 for world, multi in ((256, False), (512, True)):
     dryrun.init_fake_group(world)
     m = tmesh.make_production_mesh(multi_pod=multi, device_type="cpu")
     meshes[str(world)] = [list(m.mesh_dim_names), list(m.mesh.shape)]
 print(json.dumps({"rec": rec, "rec81": rec81, "meshes": meshes,
-                  "peaks": peaks, "decode": decode}))
+                  "peaks": peaks, "decode": decode, "prefill": prefill}))
 '''
 
 
@@ -995,6 +1038,21 @@ def test_dryrun_decode_split_over_model(dryrun_out):
     assert 0 < dec["collectives"]["all-gather"] < layer
     ratio = dec["traced_flops_per_rank"] / none["traced_flops_per_rank"]
     assert 0.25 < ratio <= 0.5, ratio
+
+
+def test_dryrun_prefill_sequence_split(dryrun_out):
+    """Reduced hymba's prefill of 1 row of 2,048 positions on a fake (1,
+    4) mesh: the row does not divide over 4 model ranks and hymba splits
+    no heads, so each rank takes 512 positions ("sequence", one query
+    block of the attention) and traces at most 0.3 of the FLOPs of the
+    same cell with no split (ideal: a quarter; the SSD's carried state
+    and the last position's logits add a little); what it all-gathers
+    beside the weights (the keys and values, the states) is counted."""
+    seq, none = (dryrun_out["prefill"][k] for k in ("sequence", "none"))
+    assert seq["model_split"] == "sequence" and none["model_split"] == "none"
+    ratio = seq["traced_flops_per_rank"] / none["traced_flops_per_rank"]
+    assert 0.25 <= ratio <= 0.3, ratio
+    assert seq["collectives"]["all-gather"] > 0
 
 
 def test_meshes_on_fake_groups(dryrun_out):
