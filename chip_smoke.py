@@ -256,10 +256,16 @@ Phases (any failed check exits non-zero before the last line):
    unsharded ``prefill`` (on the second process), in bf16 and on the
    same weights upcast to f32, the weights placed whole on each rank
    (under the rules' placements each layer's weights would cross the
-   host, as in 19b, and set the step's time). Per family: on each rank
-   the split taken and the FLOPs at most 0.6 of the unsharded step's
-   (``_flop_count`` on the f32 steps, the same shapes, equal to
-   ``FlopCounterMode``'s count of the same run), every rank's logits and
+   host, as in 19b, and set the step's time). qwen2, granite and
+   whisper's decoder lay out a rank's positions as a zigzag of two
+   spans (chunks r and 3 - r of 4), mamba2 and hymba as one contiguous
+   span; the attention visits only the key blocks a query block can see,
+   and each rank's count of visited (query block, KV block) pairs is
+   printed. Per family: on each rank the split taken and its layout,
+   the zigzag ranks' FLOPs within 3 % of each other, and the FLOPs at
+   most 0.6 of the unsharded step's (``_flop_count`` on the f32 steps,
+   the same shapes, equal to ``FlopCounterMode``'s count of the same
+   run), every rank's logits and
    cache the same (a digest of each leaf); in f32 the last logits and
    every cache leaf within 1e-5 of the unsharded step's largest value
    (1e-4 for mamba2 and hymba, whose scan sums in a new order); in bf16
@@ -268,14 +274,15 @@ Phases (any failed check exits non-zero before the last line):
    unsharded bf16 step's itself (each cache leaf's first layer within
    SEQ_SPLIT_BF16_FIRST_LAYER: no depth yet to grow a flipped rounding);
    the bf16 step's ms (CUDA events) and peak beside the unsharded
-   step's (two processes on one card: not multi-card times). For qwen2
-   and granite the rule is made to give the sequence split: their query
-   heads divide over 2 ranks, so at (1, 2) it gives them Megatron's
-   split (it gives them "sequence" at the pod's 16); granite at capacity
-   factor
-   5, where no expert can drop a token at 1 or 2 model ranks (at its
-   1.25 the reference's capacities, and so its drops, depend on the
-   model ranks). 19b: hymba-1.5B in bf16, one
+   step's (two processes on one card: not multi-card times), and the
+   unsharded step's ms beside its reading with every KV block visited
+   (phase 14a prints its flash times so too). For qwen2 and granite the
+   rule is made to give the sequence split (``specs.sequence_split``):
+   their query heads divide over 2 ranks, so at (1, 2) it gives them
+   Megatron's split (it gives them "sequence" at the pod's 16); granite
+   at capacity factor 5, where no expert can drop a token at 1 or 2
+   model ranks (at its 1.25 the reference's capacities, and so its
+   drops, depend on the model ranks). 19b: hymba-1.5B in bf16, one
    AdamW step on 2 x 2,048 tokens in 2 microbatches (2 rows do not
    divide over 2 ranks x 2 microbatches), placed by ``specs`` against
    the unsharded step (rank 0, computed and freed before the ranks
@@ -3661,6 +3668,45 @@ SEQ_SPLIT_HEAVY = (LM_MOE, LM_SSM)  # f32 weights too big beside 19b's step
 # split rounds its hot experts to them, as the reference's does), and
 # so do the drops: a different function, whatever the split
 SEQ_SPLIT_MOE_CAPACITY = 5.0
+# the families the rule lays out in a zigzag of two spans a rank (their
+# positions mix only through attention; 4,096 divide by 2 x 2 ranks),
+# whose ranks then visit as many attention blocks: their FLOPs a rank
+# within SEQ_SPLIT_FLOP_LEVEL of each other
+SEQ_SPLIT_ZIGZAG = (LM_DENSE, LM_MOE, LM_AUDIO)
+SEQ_SPLIT_FLOP_LEVEL = 0.03
+# observations printed beside this run's, not checked: the unsharded
+# bf16 prefill's ms (phase 19a) and phase 14a's flash forward + backward
+# ms with every KV block visited, on an H100 80GB HBM3 at 700 W
+# (``chip_smoke.py`` before attention skipped the blocks its queries
+# cannot see)
+EVERY_BLOCK_PREFILL_MS = {LM_DENSE: 264.2, LM_MOE: 618.0, LM_SSM: 2053.4,
+                          LM_HYBRID: 1625.1, LM_AUDIO: 73.0}
+EVERY_BLOCK_ATTN_MS = {"fp32": 10.71, "bf16": 12.00}
+
+
+def _attention_pairs():
+    """A context that counts the (query block, KV block) pairs
+    ``common.blockwise_attention`` visits, and the pairs there are, while
+    it is open: it yields ``[visited, there]``."""
+    import contextlib
+    from repro_torch.models import common
+
+    @contextlib.contextmanager
+    def counting():
+        visible, pairs = common._visible_q_blocks, [0, 0]
+
+        def counted(causal, window, q_offset, q_block, kv_block, sq, skv):
+            got = visible(causal, window, q_offset, q_block, kv_block, sq,
+                          skv)
+            pairs[0] += sum(z - a for a, z in got)
+            pairs[1] += -(-sq // q_block) * len(got)
+            return got
+        common._visible_q_blocks = counted
+        try:
+            yield pairs
+        finally:
+            common._visible_q_blocks = visible
+    return counting()
 
 
 def _seq_inputs(arch: str, device) -> tuple:
@@ -3697,17 +3743,20 @@ def _upcast(tree):
 def _seq_run(fn, counted: bool, device) -> dict:
     """``fn()``'s (cache, logits[, split]) as f32 copies, with its FLOPs
     (:func:`_flop_count`, and ``FlopCounterMode``'s count of the same
-    run beside it) where ``counted``, else its ms (CUDA events) and peak
-    over what was allocated before it. Each step of phase 19a runs once:
+    run beside it, and the attention's block pairs visited and there
+    are, :func:`_attention_pairs`) where ``counted``, else its ms (CUDA
+    events) and peak over what was allocated before it. Each step of phase 19a runs once:
     the f32 step is counted, the bf16 one timed (the counts depend on
     the shapes alone)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     got, res = [], {}
     if counted:
-        with _flop_count() as fc, FlopCounterMode(display=False) as ref:
+        with _flop_count() as fc, FlopCounterMode(display=False) as ref, \
+                _attention_pairs() as pairs:
             got.append(fn())
-        res.update(flops=fc.total, flops_counter_mode=ref.get_total_flops())
+        res.update(flops=fc.total, flops_counter_mode=ref.get_total_flops(),
+                   attention_pairs=pairs)
     else:
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
@@ -3717,7 +3766,7 @@ def _seq_run(fn, counted: bool, device) -> dict:
     out = got.pop()
     res.update(cache=_upcast(out[0]), logits=out[1].float())
     if len(out) > 2:
-        res["split"] = out[2].name
+        res["split"], res["layout"] = out[2].name, out[2].layout
     return res
 
 
@@ -3770,14 +3819,15 @@ def _seq_split_prefill(arch: str, mesh, device, full=None) -> dict:
         specs.replicated(mesh))
     # the rule's split at this mesh; where it is Megatron's (the query
     # heads of qwen2 and granite divide over 2 ranks, not over the pod's
-    # 16), the rule is made to give the sequence split for these steps
+    # 16), the rule is made to give the sequence split for these steps,
+    # in the layout it gives them there
     rule_fn = specs.model_split
     rule = rule_fn(cfg, b, mesh, seq=s)
     split = {}
     try:
         if not rule.sequence:
-            specs.model_split = lambda *a, **k: specs.ModelSplit(
-                rule.n, sequence=True)
+            specs.model_split = lambda *a, **k: specs.sequence_split(
+                cfg, rule.n, s)
         for k in ("bf16", "f32"):
             if k == "f32":
                 pd = _upcast(pd)
@@ -3794,8 +3844,11 @@ def _seq_split_prefill(arch: str, mesh, device, full=None) -> dict:
         return r["logits"] if name == "logits" else r["cache"][name]
 
     out = {"split": split["bf16"]["split"], "f32_split": split["f32"]["split"],
+           "layout": split["bf16"]["layout"],
+           "f32_layout": split["f32"]["layout"],
            "rule_split": rule.name, "moe_least_capacity": least_capacity,
            "flops": split["f32"]["flops"],
+           "attention_pairs": split["f32"]["attention_pairs"],
            "flops_counter_mode": split["f32"]["flops_counter_mode"],
            "step_ms": split["bf16"]["ms"],
            "peak_over_args_bytes": split["bf16"]["peak_over_args_bytes"],
@@ -3819,6 +3872,7 @@ def _seq_split_prefill(arch: str, mesh, device, full=None) -> dict:
                 for n in names if n != "logits"}
                 for k in ("unsharded_bf16", "bf16_to_unsharded_bf16")},
             unsharded_flops=full["f32"]["flops"],
+            unsharded_attention_pairs=full["f32"]["attention_pairs"],
             unsharded_step_ms=full["bf16"]["ms"],
             unsharded_peak_over_args_bytes=full["bf16"][
                 "peak_over_args_bytes"])
@@ -3964,8 +4018,11 @@ def _seq_split_rank(rank: int, world: int, tmp: str, device: str) -> None:
 def phase_seq_split() -> dict:
     """Phase 19: :func:`_seq_split_rank` in two spawned processes sharing
     the card over gloo. 19a per family: on every rank the sequence
-    split, the FLOPs at most SPLIT_FLOP_SHARE of the unsharded step's
-    and the logits and cache of the last rank (their digests equal); on
+    split in the rule's layout (zigzag for SEQ_SPLIT_ZIGZAG, whose ranks'
+    FLOPs are within SEQ_SPLIT_FLOP_LEVEL of each other, else
+    contiguous), the FLOPs at most SPLIT_FLOP_SHARE of the unsharded
+    step's and the logits and cache of the last rank (their digests
+    equal); on
     the last rank, in f32 the logits and every cache leaf within
     SEQ_SPLIT_TOL (mamba2 and hymba SEQ_SPLIT_SCAN_TOL) of the unsharded
     step's, relative to its largest value, and in bf16 each at most
@@ -3991,6 +4048,10 @@ def phase_seq_split() -> dict:
             h = held[arch]
             check(a["split"] == a["f32_split"] == "sequence",
                   f"{where} took split {a['split']}, not sequence")
+            layout = "zigzag" if arch in SEQ_SPLIT_ZIGZAG else "contiguous"
+            check(a["layout"] == a["f32_layout"] == layout,
+                  f"{where} laid out its positions {a['layout']}, not "
+                  f"{layout}")
             check(a["digest"] == h["digest"],
                   f"{where}'s logits and cache differ from rank "
                   f"{res['ranks'][-1]['rank']}'s: {a['digest']} vs "
@@ -4014,6 +4075,11 @@ def phase_seq_split() -> dict:
         check(t["flops"] <= SPLIT_FLOP_SHARE * ref["flops"],
               f"{where} runs {t['flops']:.4g} FLOP, the unsharded step "
               f"{ref['flops']:.4g}")
+    for arch in SEQ_SPLIT_ZIGZAG:
+        flops = [r["archs"][arch]["flops"] for r in res["ranks"]]
+        check(max(flops) <= (1 + SEQ_SPLIT_FLOP_LEVEL) * min(flops),
+              f"19a {arch}: the zigzag ranks' FLOPs {flops} differ by more "
+              f"than {SEQ_SPLIT_FLOP_LEVEL:.0%}")
     for arch, a in held.items():
         for name, e in a["rel_err"]["f32"].items():
             check(e <= a["tol"], f"19a {arch}: f32 {name} off by {e} of its "
@@ -4289,7 +4355,9 @@ def main(argv=None) -> int:
             f"{max(ab['bf16_max_abs_err_dq_dk_dv']):.3g}; forward + backward "
             f"fp32 {ab['fp32_flash_fwd_bwd_ms']:.2f} ms (dense "
             f"{ab['fp32_dense_fwd_bwd_ms']:.2f}), bf16 "
-            f"{ab['bf16_flash_fwd_bwd_ms']:.2f} ms; peak "
+            f"{ab['bf16_flash_fwd_bwd_ms']:.2f} ms (with every KV block "
+            f"visited: fp32 {EVERY_BLOCK_ATTN_MS['fp32']}, bf16 "
+            f"{EVERY_BLOCK_ATTN_MS['bf16']}); peak "
             f"{ab['fp32_flash_peak_bytes']} B (dense "
             f"{ab['fp32_dense_peak_bytes']} B) ({card})")
         log(f"phase 14b: {LM_DENSE} full width bf16 trained "
@@ -4428,8 +4496,12 @@ def main(argv=None) -> int:
             worst = {k: max(held["rel_err"][k].values())
                      for k in ("f32", "bf16", "unsharded_bf16")}
             log(f"phase 19a: {arch} full width, prefill of {b} x {s} split "
-                f"{ranks[0]['split']} over (data, model) = (1, 2) (the "
-                f"rule's there: {ranks[0]['rule_split']}), every rank's "
+                f"{ranks[0]['split']} ({ranks[0]['layout']}) over (data, "
+                f"model) = (1, 2) (the rule's there: "
+                f"{ranks[0]['rule_split']}); attention block pairs visited "
+                f"/ there are, a rank {[a['attention_pairs'] for a in ranks]}"
+                f", unsharded {held['unsharded_attention_pairs']}; every "
+                f"rank's "
                 f"logits and cache the same: largest error of a leaf "
                 f"relative to its largest value, against the unsharded f32 "
                 f"step: split f32 {worst['f32']} (bound {held['tol']}), "
@@ -4439,9 +4511,11 @@ def main(argv=None) -> int:
                 f"unsharded; bf16 step ms a rank (CUDA events, two processes "
                 f"sharing one card: not multi-card times) "
                 f"{[round(a['step_ms'], 1) for a in ranks]} vs "
-                f"{held['unsharded_step_ms']:.1f} unsharded; peak over the "
-                f"arguments a rank {[a['peak_over_args_bytes'] for a in ranks]}"
-                f" B vs {held['unsharded_peak_over_args_bytes']} B ({card})")
+                f"{held['unsharded_step_ms']:.1f} unsharded (with every KV "
+                f"block visited: {EVERY_BLOCK_PREFILL_MS[arch]}); peak over "
+                f"the arguments a rank "
+                f"{[a['peak_over_args_bytes'] for a in ranks]} B vs "
+                f"{held['unsharded_peak_over_args_bytes']} B ({card})")
         ref = qs["unsharded_train"]
         ranks = [r["train"] for r in qs["ranks"]]
         rb, rs, rm = SEQ_SPLIT_TRAIN

@@ -6,17 +6,21 @@ on a fake process group.
     python -m repro_torch.launch.dryrun --arch qwen2_1p5b --shape train_4k \\
         --mesh pod
 
-One process stands for rank 0 of a fake group (``FakeStore``, backend
+One process stands for one rank of a fake group (``FakeStore``, backend
 ``"fake"``) of 256 ranks (``--mesh pod``: 16 x 16, ("data", "model")) or
-512 (``multipod``: 2 x 16 x 16, ("pod", "data", "model")). Params,
+512 (``multipod``: 2 x 16 x 16, ("pod", "data", "model")): rank 0, then
+the last "model" rank of data group 0 (:func:`trace_ranks`). Params,
 optimizer state, batch and cache are meta DTensors placed by
 ``sharding.specs``; the train step (``train.step.make_train_step``),
 prefill or decode step runs on them under a :class:`CollectiveCounter`
 and ``torch.utils.flop_counter.FlopCounterMode``. A cell's record has
 the reference's shape, with these differences:
 
+  * the record is the traced rank's with more FLOPs (under the sequence
+    split ranks skip different attention blocks), its peak the larger
+    rank's, and ``traced_by_rank`` has both ranks' FLOPs and peaks;
   * ``memory.argument_bytes`` / ``output_bytes`` are exact: the bytes of
-    rank 0's local shards of the step's arguments and results;
+    the rank's local shards of the step's arguments and results;
     ``alias_bytes`` are those of the results that replace donated
     arguments (params and state in training, the cache in decode);
   * the reference's ``temp_bytes`` / ``peak_estimate_bytes`` come from
@@ -31,8 +35,8 @@ the reference's shape, with these differences:
     or CUDA workspaces;
   * ``cpu_bf16_upcast_estimate_bytes`` is not subtracted: meta tensors
     keep their dtype;
-  * ``collectives`` are the counted functional collectives of rank 0's
-    program, under the reference's names; ``traced_flops_per_rank`` is
+  * ``collectives`` are the counted functional collectives of the
+    rank's program, under the reference's names; ``traced_flops_per_rank`` is
     ``FlopCounterMode``'s count of that program, beside
     ``analytic_flops_per_rank``, the roofline's ``flops_exec`` over the
     chips (what a rank would run were the work split evenly), and
@@ -46,7 +50,8 @@ the reference's shape, with these differences:
     step on a "model" dim of more than one rank: each weight used where
     its shard lives, the cache placed by ``specs.decode_cache_spec``
     and each rank handed its local slice), or "none" (every rank the
-    group's whole work).
+    group's whole work); ``position_layout`` how "sequence" lays out
+    a rank's positions ("zigzag" or "contiguous").
 
 A cell that raises is recorded with its error and the run goes on (the
 reference's ``run_cell``); the run exits 1 if any cell errors. Results go
@@ -85,16 +90,17 @@ def make_optimizer(cfg):
     return adamw(lr=3e-4, state_dtype="bfloat16")
 
 
-def init_fake_group(world: int) -> None:
-    """Make this process rank 0 of a fake group of ``world`` ranks (a
-    group of another size is replaced)."""
+def init_fake_group(world: int, rank: int = 0) -> None:
+    """Make this process rank ``rank`` of a fake group of ``world`` ranks
+    (a group of another size, or where this process is another rank, is
+    replaced)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
-        if dist.get_world_size() == world:
+        if dist.get_world_size() == world and dist.get_rank() == rank:
             return
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
 
 
@@ -175,8 +181,8 @@ def _reshard(local, like):
 
 def trace_cell(cfg, shape, mesh) -> dict:
     """The step of ``cfg`` x ``shape`` on meta DTensors over ``mesh``:
-    what rank 0 holds, moves and computes. Returns the record's
-    ``memory``, ``collectives`` and ``traced_flops_per_rank``. A decode
+    what this rank of the group holds, moves and computes. Returns the
+    record's ``memory``, ``collectives`` and ``traced_flops_per_rank``. A decode
     step under a split without ``columns`` (a "model" dim of one rank)
     reads the cache placed by the reference's ``specs.cache_spec``,
     gathered to its data shard."""
@@ -218,10 +224,12 @@ def trace_cell(cfg, shape, mesh) -> dict:
             new_p, new_s, metrics = step(pd, sd, bd)
             outs, alias = (new_p, new_s, metrics), (new_p, new_s)
             split_name = metrics["model_split"]
+            layout = metrics.get("position_layout", "")
         elif shape.kind == "prefill":
             cache, logits, split = shards.sharded_prefill(model.prefill, pd,
                                                           bd, cfg)
             outs, alias, split_name = (cache, logits), (), split.name
+            layout = split.layout
         else:
             local = (shards.local_shards(cd)[0] if split.columns
                      else tree_map(_batch_local, cd))
@@ -236,7 +244,7 @@ def trace_cell(cfg, shape, mesh) -> dict:
             else:
                 new_cache = tree_map(_reshard, cache, cd)
             outs, alias = (logits, new_cache), new_cache
-            split_name = split.name
+            split_name, layout = split.name, split.layout
     arg_b, out_b, alias_b = (_local_bytes(args), _local_bytes(outs),
                              _local_bytes(alias))
     peak = arg_b + mem.peak
@@ -263,7 +271,35 @@ def trace_cell(cfg, shape, mesh) -> dict:
         "analytic_flops_per_rank":
             rl.analytic_costs(cfg, shape)["flops_exec"] / mesh.size(),
         "model_split": split_name,
+        "position_layout": layout,
     }
+
+
+def trace_ranks(cfg, shape, make_mesh, world: int) -> dict:
+    """:func:`trace_cell` as rank 0 and as the last "model" rank of data
+    group 0 of a fake group of ``world`` ranks (``make_mesh()`` builds
+    the mesh on the group): under the sequence split the ranks' queries
+    skip different attention blocks, so rank 0 alone need not speak for
+    every rank. The record is the rank's with more traced FLOPs, its
+    ``memory`` peak the larger of the two, and ``traced_by_rank`` has
+    both ranks' FLOPs and peaks."""
+    init_fake_group(world)
+    mesh = make_mesh()
+    n = mesh.size(mesh.mesh_dim_names.index("model"))
+    recs = {0: trace_cell(cfg, shape, mesh)}
+    last = int(mesh.mesh.flatten()[n - 1])
+    if last:
+        init_fake_group(world, last)
+        recs[last] = trace_cell(cfg, shape, make_mesh())
+    rec = max(recs.values(), key=lambda r: r["traced_flops_per_rank"])
+    peak = max(r["memory"]["peak_traced_bytes"] for r in recs.values())
+    rec["memory"].update(peak_traced_bytes=peak,
+                         fits_80g_hbm=bool(peak <= rl.HW["hbm_bytes"]))
+    rec["traced_by_rank"] = {
+        str(r): {"traced_flops": x["traced_flops_per_rank"],
+                 "peak_traced_bytes": x["memory"]["peak_traced_bytes"]}
+        for r, x in recs.items()}
+    return rec
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool):
@@ -272,12 +308,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool):
     ok, reason = supports(cfg, shape)
     if not ok:
         return {"status": "skipped", "reason": reason}
-    init_fake_group(WORLD[multi_pod])
-    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-    chips = mesh.size()
+    def make_mesh():
+        return make_production_mesh(multi_pod=multi_pod, device_type="cpu")
     t0 = time.time()
-    rec = trace_cell(cfg, shape, mesh)
+    rec = trace_ranks(cfg, shape, make_mesh, WORLD[multi_pod])
     t_trace = time.time() - t0
+    mesh = make_mesh()
+    chips = mesh.size()
     return {
         "status": "ok",
         "arch": arch, "shape": shape_name,

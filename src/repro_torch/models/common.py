@@ -27,6 +27,7 @@ Conventions (the reference's, ``src/repro/models/common.py``):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import threading
 from typing import Optional
@@ -214,42 +215,92 @@ class _ScatterRows(torch.autograd.Function):
 
 # ---------------------------------------------------------------------------
 # the sequence split of a train or prefill step (``specs.ModelSplit.
-# sequence``): each "model" rank its contiguous share of the positions
+# sequence``): each "model" rank its share of the positions, a zigzag of
+# two spans or one contiguous span (``shards.position_spans``)
 # ---------------------------------------------------------------------------
 
-def step_positions(length: int) -> tuple:
-    """(its first global position, all positions) of a step whose rows
-    hold ``length`` positions here: under the sequence split, this
-    "model" rank's contiguous share of n x ``length`` positions
-    (``shards.split_positions``); else (0, ``length``)."""
+def step_spans(length: int) -> tuple:
+    """(this rank's spans [(first global position, count)], all
+    positions) of a step whose rows hold ``length`` positions here:
+    under the sequence split, this "model" rank's share of n x
+    ``length`` positions (``shards.position_spans``, as the split's
+    layout says); else ([(0, ``length``)], ``length``)."""
     sp = model_split()
     if not sp.sequence:
-        return 0, length
-    return _context_mesh().get_local_rank("model") * length, sp.n * length
+        return [(0, length)], length
+    total = sp.n * length
+    return shards.position_spans(total, sp.n, _context_mesh().get_local_rank(
+        "model"), sp.zigzag), total
 
 
 def position_share(length: int) -> tuple:
     """(its first position, its count, every rank's positions) of this
-    "model" rank's share of ``length`` positions under the sequence split
-    (``shards.position_share``: padded at the end to divide); else (0,
-    ``length``, ``length``)."""
+    "model" rank's contiguous share of ``length`` positions under the
+    sequence split (``shards.position_spans``: padded at the end to
+    divide; whisper's encoder frames, whatever the split's layout);
+    else (0, ``length``, ``length``)."""
     sp = model_split()
     if not sp.sequence:
         return 0, length, length
-    return shards.position_share(length, sp.n,
-                                 _context_mesh().get_local_rank("model"))
+    (lo, per), = shards.position_spans(
+        length, sp.n, _context_mesh().get_local_rank("model"))
+    return lo, per, sp.n * per
+
+
+@contextlib.contextmanager
+def contiguous_positions():
+    """Run the block with the sequence split's positions contiguous
+    (one span a rank; whisper's encoder frames, whatever the decoder's
+    layout): :func:`step_spans` and :func:`gather_positions` read it,
+    and ``remat``'s recompute runs in it too."""
+    mesh, dims, sp = _context()
+    if sp is not None and sp.zigzag:
+        sp = dataclasses.replace(sp, zigzag=False)
+    with _in_context((mesh, dims, sp)):
+        yield
+
+
+def _zigzag_chunks(n: int, to_global: bool) -> list:
+    """The chunk order that takes the model group's positions gathered
+    in rank order (rank r's chunks r and 2n-1-r) to global order
+    (``to_global``), or back."""
+    held = [c for r in range(n) for c in (r, 2 * n - 1 - r)]
+    return [held.index(c) for c in range(2 * n)] if to_global else held
+
+
+def _reorder(t, order: list):
+    """(B, S, ...) ``t`` with its S positions' len(``order``) equal
+    chunks taken in ``order``."""
+    return t.unflatten(1, (len(order), -1))[:, order].flatten(1, 2)
 
 
 def gather_positions(t, total: Optional[int] = None):
     """``t`` (B, S, ...) at every position of the step under the
-    sequence split: every "model" rank's positions concatenated in rank
-    order (an all-gather; its backward reduce-scatters the gradient to
-    each position's owner), cut to the first ``total`` where they were
-    padded to divide; ``t`` itself under any other split."""
-    if not model_split().sequence:
+    sequence split, in global position order: every "model" rank's
+    positions gathered (an all-gather; its backward reduce-scatters the
+    gradient to each position's owner) and, under the zigzag layout,
+    each rank's two spans put in their places; cut to the first
+    ``total`` where they were padded to divide. ``t`` itself under any
+    other split."""
+    sp = model_split()
+    if not sp.sequence:
         return t
     out = _GatherRows.apply(t, _context_mesh(), 1)
+    if sp.zigzag:
+        out = _reorder(out, _zigzag_chunks(sp.n, True))
     return out if total is None else out[:, :total]
+
+
+def scatter_positions(y):
+    """This rank's positions of ``y`` (B, S, ...), every position of the
+    step in global order, each rank's ``y`` a partial sum: the
+    transpose of :func:`gather_positions` (a reduce-scatter over
+    "model", after putting the positions in rank order under the zigzag
+    layout)."""
+    sp = model_split()
+    if sp.zigzag:
+        y = _reorder(y, _zigzag_chunks(sp.n, False))
+    return _ScatterRows.apply(y, _context_mesh(), 1)
 
 
 def gather_model(t):
@@ -261,14 +312,21 @@ def gather_model(t):
 
 def from_last_rank(t):
     """Under the sequence split, the last "model" rank's ``t`` (what is
-    taken at the step's last position) on every rank; else ``t``."""
+    taken at its last position: the step's under the contiguous layout,
+    the recurrences' final states) on every rank; else ``t``."""
     return gather_model(t)[-1] if model_split().sequence else t
 
 
 def last_position(x):
     """(B, 1, D): the step's last position of ``x`` (B, S, D), from the
-    "model" rank that holds it under the sequence split."""
-    return from_last_rank(x[:, -1:])
+    "model" rank that holds it under the sequence split: the last rank
+    (contiguous), or rank 0, whose second span ends the step (zigzag).
+    Every rank takes part in the gather, so that every rank's backward
+    runs its reduce-scatter."""
+    sp = model_split()
+    if not sp.sequence:
+        return x[:, -1:]
+    return gather_model(x[:, -1:])[0 if sp.zigzag else -1]
 
 
 def _is_dtensor(x) -> bool:
@@ -450,9 +508,13 @@ def blockwise_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     rank's positions against every key under the sequence split).
     Online softmax over KV blocks, in f32: the reference's
     ``_flash_fwd_impl`` (-inf masking with its ``m_safe`` / ``alpha``
-    guards). Every KV block is visited, also those the queries cannot
-    see, which leave ``m``, ``l`` and ``o`` as they are. Returns q's
-    dtype.
+    guards). A KV block is visited only by the query blocks that see at
+    least one of its keys (:func:`_visible_q_blocks`, from the shapes,
+    ``causal``, ``window`` and ``q_offset`` alone): a block none of a
+    query block's rows sees would leave its ``m``, ``l`` and ``o`` as
+    they are, so the forward equals the visit of every block bit for
+    bit, and the backward within f32 reassociation (each ``dk`` / ``dv``
+    block sums over fewer query blocks). Returns q's dtype.
 
     Differentiable through :class:`_Flash`, the reference's flash
     ``custom_vjp``: the forward saves only (q, k, v, out, lse) and the
@@ -468,11 +530,33 @@ def blockwise_attention(q, k, v, *, causal=True, window: Optional[int] = None,
     return _Flash.apply(q, k, v, causal, window, q_block, kv_block, q_offset)
 
 
+def _visible_q_blocks(causal, window, q_offset, q_block, kv_block, sq,
+                      skv) -> list:
+    """Per KV block, the range ``(qa, qz)`` of the query blocks that see
+    at least one of its keys (``qa == qz``: none does), by
+    :func:`_block_mask`'s inequalities on the blocks' extreme
+    positions: a query block of global positions g0..g1 sees a key block
+    k0..k1 where ``g1 >= k0`` (causal) and ``g0 - k1 < window``; both
+    hold on a contiguous run of query blocks. Python ints only, so that
+    a meta trace and ``FlopCounterMode`` count what runs."""
+    nq, nk = -(-sq // q_block), -(-skv // kv_block)
+    out = []
+    for kj in range(nk):
+        k0, k1 = kj * kv_block, min((kj + 1) * kv_block, skv) - 1
+        seen = [i for i in range(nq)
+                if (not causal
+                    or q_offset + min((i + 1) * q_block, sq) - 1 >= k0)
+                and (window is None or q_offset + i * q_block - k1 < window)]
+        out.append((seen[0], seen[-1] + 1) if seen else (0, 0))
+    return out
+
+
 def _flash_fwd_impl(q, k, v, causal, window, q_block, kv_block, q_offset=0):
     """Every q block runs the same recurrence over the KV blocks, so the
     q blocks go through it side by side: one (nq, B, H, q_block,
-    kv_block) panel stack is live at a time. Returns (out in q's dtype,
-    lse of shape (nq, B, H, q_block))."""
+    kv_block) panel stack is live at a time, cut to the q blocks that
+    see the KV block (:func:`_visible_q_blocks`). Returns (out in q's
+    dtype, lse of shape (nq, B, H, q_block))."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     scale = 1.0 / np.sqrt(hd)
@@ -487,19 +571,25 @@ def _flash_fwd_impl(q, k, v, causal, window, q_block, kv_block, q_offset=0):
     m = torch.full((nq, b, h, q_block), float("-inf"), device=dev)
     l = torch.zeros((nq, b, h, q_block), device=dev)
     o = torch.zeros((nq, b, h, q_block, hd), device=dev)
-    for kj in range(nk):
-        s = torch.einsum("nbhqd,bhkd->nbhqk", qb, kb[kj].float()) * scale
-        mask = _block_mask(q_ids[:, :, None], k_ids[kj][None, None, :],
+    for kj, (qa, qz) in enumerate(_visible_q_blocks(
+            causal, window, q_offset, q_block, kv_block, sq, skv)):
+        if qa == qz:
+            continue
+        s = torch.einsum("nbhqd,bhkd->nbhqk", qb[qa:qz],
+                         kb[kj].float()) * scale
+        mask = _block_mask(q_ids[qa:qz, :, None], k_ids[kj][None, None, :],
                            causal, window, sq, skv, q_offset)[:, None, None]
         s = torch.where(mask, s, float("-inf"))
-        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_old = m[qa:qz]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
-        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = l * alpha + p.sum(dim=-1)
-        o = o * alpha[..., None] + torch.einsum("nbhqk,bhkd->nbhqd", p,
-                                                vb[kj].float())
-        m = m_new
+        alpha = torch.where(torch.isfinite(m_old), torch.exp(m_old - m_safe),
+                            0.0)
+        l[qa:qz] = l[qa:qz] * alpha + p.sum(dim=-1)
+        o[qa:qz] = o[qa:qz] * alpha[..., None] + torch.einsum(
+            "nbhqk,bhkd->nbhqd", p, vb[kj].float())
+        m[qa:qz] = m_new
     o = o / torch.clamp(l[..., None], min=1e-20)
     lse = torch.where(l > 0, torch.where(torch.isfinite(m), m, 0.0)
                       + torch.log(torch.clamp(l, min=1e-20)), float("-inf"))
@@ -519,7 +609,9 @@ def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_block,
     panel recomputed from lse; ``p`` is rounded to q's dtype for dv and
     ``ds`` for dq / dk, every product exact with an f32 sum. The q
     blocks go side by side, as in the forward: one (nq, B, H, q_block,
-    kv_block) panel stack is live per KV block, never the S x S one."""
+    kv_block) panel stack is live per KV block, never the S x S one, cut
+    to the q blocks that see it; a KV block none sees has zero dk and
+    dv."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     scale = 1.0 / np.sqrt(hd)
@@ -535,21 +627,24 @@ def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_block,
     Db = (dob.to(f32) * ob.to(f32)).sum(dim=-1)    # (nq, B, H, qb)
     qf, dof = qb.to(f32), dob.to(f32)
     dq = torch.zeros((nq, b, h, q_block, hd), dtype=f32, device=dev)
-    dks, dvs = [], []
-    for kj in range(nk):
+    dk = torch.zeros((nk, b, h, kv_block, hd), dtype=f32, device=dev)
+    dv = torch.zeros((nk, b, h, kv_block, hd), dtype=f32, device=dev)
+    for kj, (qa, qz) in enumerate(_visible_q_blocks(
+            causal, window, q_offset, q_block, kv_block, sq, skv)):
+        if qa == qz:
+            continue
         kf, vf = kb[kj].to(f32), vb[kj].to(f32)
-        s = torch.einsum("nbhqd,bhkd->nbhqk", qf, kf) * scale
-        mask = _block_mask(q_ids[:, :, None], k_ids[kj][None, None, :],
+        s = torch.einsum("nbhqd,bhkd->nbhqk", qf[qa:qz], kf) * scale
+        mask = _block_mask(q_ids[qa:qz, :, None], k_ids[kj][None, None, :],
                            causal, window, sq, skv, q_offset)[:, None, None]
-        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        p = torch.where(mask, torch.exp(s - lse[qa:qz, ..., None]), 0.0)
         pb = p.to(q.dtype).to(f32)
-        dvs.append(torch.einsum("nbhqk,nbhqd->bhkd", pb, dof))
-        dp = torch.einsum("nbhqd,bhkd->nbhqk", dof, vf)
-        ds = p * (dp - Db[..., None]) * scale
+        dv[kj] = torch.einsum("nbhqk,nbhqd->bhkd", pb, dof[qa:qz])
+        dp = torch.einsum("nbhqd,bhkd->nbhqk", dof[qa:qz], vf)
+        ds = p * (dp - Db[qa:qz, ..., None]) * scale
         dsb = ds.to(q.dtype).to(f32)
-        dq = dq + torch.einsum("nbhqk,bhkd->nbhqd", dsb, kf)
-        dks.append(torch.einsum("nbhqk,nbhqd->bhkd", dsb, qf))
-    dk, dv = torch.stack(dks), torch.stack(dvs)
+        dq[qa:qz] = dq[qa:qz] + torch.einsum("nbhqk,bhkd->nbhqd", dsb, kf)
+        dk[kj] = torch.einsum("nbhqk,nbhqd->bhkd", dsb, qf[qa:qz])
     return (_unblock(dq, sq).to(q.dtype), _unblock(dk, skv).to(k.dtype),
             _unblock(dv, skv).to(v.dtype))
 

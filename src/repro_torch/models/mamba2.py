@@ -140,6 +140,16 @@ def ssd_chunked(cfg, x, Bm, Cm, dt, A, D, h0=None):
     return y, h
 
 
+def _one_span():
+    """Refuse the zigzag layout: the conv's rows and the SSD's state are
+    carried in position order, from each rank's one span to the next
+    rank's (``specs.sequence_split`` keeps these families
+    contiguous)."""
+    if c.model_split().zigzag:
+        raise ValueError("a recurrence split over \"model\" needs each "
+                         "rank's positions in one contiguous span")
+
+
 def rows_before(t, k: int):
     """Under the sequence split, the ``k`` rows of (B, S, C) ``t`` that
     come before this "model" rank's: the previous rank's last ``k``
@@ -147,6 +157,7 @@ def rows_before(t, k: int):
     else None (the sequence starts here)."""
     if not c.model_split().sequence:
         return None
+    _one_span()
     if t.shape[1] < CONV_K:
         raise ValueError(f"the sequence split gives this rank {t.shape[1]} "
                          f"positions: the conv's state needs {CONV_K}")
@@ -190,6 +201,7 @@ def ssd_span(cfg, x, Bm, Cm, dt, A, D):
     y, h = ssd_chunked(cfg, x, Bm, Cm, dt, A, D)
     if not c.model_split().sequence:
         return y, h
+    _one_span()
     a_cum = torch.cumsum(dt * A, dim=1)
     return carry_in(y, h, Cm, a_cum, c.gather_model(h),
                     c.gather_model(torch.exp(a_cum[:, -1])),

@@ -232,9 +232,10 @@ def _moe_ffn_sharded(cfg, lp, h, mesh, capacity_factor):
     ``h`` (B, S, D) is the rank's data shard, the same on every model
     rank, or, where the batch or the positions are split over "model"
     too (the context's data dims name it), the rank's rows or positions
-    of it: the model group's are then gathered first (on the rows' or
-    the positions' dim, so that the tokens come in the reference's
-    order, which the capacities' drops depend on), so that the dispatch
+    of it: the model group's are then gathered first (on the rows' dim,
+    or the positions' in global order, ``common.gather_positions``, so
+    that the tokens come in the reference's order, which the
+    capacities' drops depend on), so that the dispatch
     and its capacities are the data shard's, and each rank gets its own
     rows or positions of the sum back (a reduce-scatter). There nothing
     enters the region: every gradient is partial over "model", as the
@@ -245,9 +246,10 @@ def _moe_ffn_sharded(cfg, lp, h, mesh, capacity_factor):
     F = cfg.moe_d_ff or cfg.d_ff
     r = mesh.get_local_rank("model")
     rows = "model" in c._data_dims()
-    dim = 1 if c.model_split().sequence else 0
+    seq = c.model_split().sequence
     if rows:
-        h, router = c._GatherRows.apply(h, mesh, dim), lp["router"]
+        h = c.gather_positions(h) if seq else c._GatherRows.apply(h, mesh, 0)
+        router = lp["router"]
     else:
         h, router = (c.enter_model(t) for t in (h, lp["router"]))
     B, S, D = h.shape
@@ -264,8 +266,11 @@ def _moe_ffn_sharded(cfg, lp, h, mesh, capacity_factor):
         out, aux = _moe_ffn_tokens(cfg, router, wg, wu, wd, x, 0, E, 1,
                                    capacity_factor)
     out = out.reshape(B, S, D)
-    out = (c._ScatterRows.apply(out, mesh, dim) if rows
-           else c.model_sum(out))
+    if not rows:
+        out = c.model_sum(out)
+    else:
+        out = c.scatter_positions(out) if seq else c._ScatterRows.apply(
+            out, mesh, 0)
     aux = c._ReduceOver.apply(aux, mesh, ("model",), 1 / n_model,
                               1 / n_model)
     dp = tuple(a for a in c._data_dims() if a != "model")

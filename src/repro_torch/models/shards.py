@@ -215,32 +215,51 @@ def positions(batch) -> int:
     return next(batch[k] for k in POSITIONAL if k in batch).shape[1]
 
 
-def position_share(length: int, n: int, rank: int) -> tuple:
-    """(its first position, its count, every rank's positions) of
-    ``rank``'s contiguous share of ``length`` positions split ``n`` ways:
-    each rank holds ceil(``length`` / n), so the total is ``length``
-    padded at the end to divide by n."""
+def position_spans(length: int, n: int, rank: int,
+                   zigzag: bool = False) -> list:
+    """``rank``'s share of ``length`` positions split ``n`` ways, as the
+    spans ``[(first position, count)]`` it holds, in order:
+
+      * ``zigzag``: chunks ``rank`` and 2n-1-``rank`` of 2n equal chunks
+        (``length`` must divide by 2n), one from each end, so that
+        under a causal mask every rank's queries see as many keys;
+      * else its contiguous ceil(``length`` / n) positions: the total
+        is ``length`` padded at the end to divide by n."""
+    if zigzag:
+        if length % (2 * n):
+            raise ValueError(f"{length} positions do not divide into "
+                             f"{2 * n} chunks")
+        c = length // (2 * n)
+        return [(rank * c, c), ((2 * n - 1 - rank) * c, c)]
     per = -(-length // n)
-    return rank * per, per, n * per
+    return [(rank * per, per)]
+
+
+def take_spans(t, spans, dim: int = 1):
+    """``t``'s entries on ``dim`` at ``spans`` (:func:`position_spans`),
+    concatenated in order (one span: a view)."""
+    parts = [t.narrow(dim, lo, count) for lo, count in spans]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def split_positions(local_batch, mesh, data_dims, split):
     """(this rank's batch, the mesh dims the batch is split on) under
     ``split`` (a ``specs.ModelSplit``): where it splits the positions
-    over "model", the rank's contiguous 1/n of each of its data shard's
-    rows' positions (``POSITIONAL`` inputs, which must divide by n;
-    whisper's encoder frames stay whole, ``whisper.encode`` takes its
-    own :func:`position_share` of them, padded) and "model" added to
+    over "model", the rank's share (:func:`position_spans`, zigzag or
+    contiguous as ``split`` says) of each of its data shard's rows'
+    positions (``POSITIONAL`` inputs, which must divide by n; whisper's
+    encoder frames stay whole, ``whisper.encode`` takes its own
+    contiguous share of them, padded) and "model" added to
     ``data_dims``; else both as they are."""
     if not split.sequence:
         return local_batch, data_dims
     s = positions(local_batch)
-    lo, per, total = position_share(s, split.n,
-                                    mesh.get_local_rank("model"))
-    if total != s:
+    if s % split.n:
         raise ValueError(f"{s} positions do not divide over {split.n} "
                          f"model ranks")
-    return ({k: b[:, lo:lo + per] if k in POSITIONAL else b
+    spans = position_spans(s, split.n, mesh.get_local_rank("model"),
+                           split.zigzag)
+    return ({k: take_spans(b, spans) if k in POSITIONAL else b
              for k, b in local_batch.items()}, data_dims + ("model",))
 
 

@@ -151,14 +151,20 @@ def self_attention(q, k, v, window=None, causal=True, total=None):
     """Self-attention of the step's queries ``q`` over its keys and
     values: (output, k, v at every position). Under the sequence split
     ``q``, ``k`` and ``v`` are this rank's positions: the keys and
-    values of every position are gathered over "model"
+    values of every position are gathered over "model" in global order
     (``common.gather_positions``; cut to the first ``total`` where the
-    positions were padded to divide) and the queries numbered from the
-    rank's first position."""
+    positions were padded to divide), and each of the rank's spans
+    (``common.step_spans``) attends to them with its queries numbered
+    from the span's first position; autograd sums the spans' dk and
+    dv."""
     k, v = c.gather_positions(k, total), c.gather_positions(v, total)
-    return c.blockwise_attention(q, k, v, causal=causal, window=window,
-                                 q_offset=c.step_positions(q.shape[1])[0]
-                                 ), k, v
+    outs, at = [], 0
+    for lo, n in c.step_spans(q.shape[1])[0]:
+        outs.append(c.blockwise_attention(q[:, at:at + n], k, v,
+                                          causal=causal, window=window,
+                                          q_offset=lo))
+        at += n
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, 1)), k, v
 
 
 def _attention(cfg, lp, h, positions, inv_freq):
@@ -226,13 +232,13 @@ def embed_input(cfg, params, batch):
 
 
 def _positions(x):
-    """(B, S) global positions of ``x``'s (B, S, ...) rows: from the
-    rank's first position under the sequence split
-    (``common.step_positions``), else from 0."""
+    """(B, S) global positions of ``x``'s (B, S, ...) rows: those of
+    this rank's spans under the sequence split (``common.step_spans``),
+    else 0 to S."""
     B, S = x.shape[:2]
-    lo, _ = c.step_positions(S)
-    return torch.arange(lo, lo + S, dtype=torch.int32,
-                        device=x.device).expand(B, S)
+    return torch.cat([torch.arange(lo, lo + n, dtype=torch.int32,
+                                   device=x.device)
+                      for lo, n in c.step_spans(S)[0]]).expand(B, S)
 
 
 def forward(cfg, params, batch):

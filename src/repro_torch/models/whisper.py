@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import common as c
+from . import shards
 from . import transformer as tfm
 
 
@@ -102,22 +103,24 @@ def _enc_layer(cfg, x, lp, frames=None):
 def encode(cfg, params, enc_embeds):
     """The encoder's output (B, S_enc, D) for every frame. Under the
     sequence split each "model" rank encodes its contiguous share of the
-    frames, padded with zero frames to a multiple of n (the padded
+    frames (:func:`common.contiguous_positions`, whatever the decoder's
+    layout), padded with zero frames to a multiple of n (the padded
     frames are masked as keys, and cut from the output, which is
     gathered over "model"); the encoder is not repeated on every
     rank."""
-    dt = c.dtype_of(cfg)
-    B, S, D = enc_embeds.shape
-    lo, per, total = c.position_share(S)
-    x = enc_embeds if total == S else F.pad(enc_embeds,
-                                              (0, 0, 0, total - S))
-    x = x[:, lo:lo + per].to(dt) \
-        + sinusoid_pos(total, D, dt, enc_embeds.device)[lo:lo + per]
-    for lp in tfm.layers(params, "enc_layers"):
-        x = c.remat(cfg, _enc_layer, cfg, x, lp, S)
-    return c.gather_positions(
-        c.layernorm(x, params["ln_enc_g"], params["ln_enc_b"],
-                    cfg.norm_eps), S)
+    with c.contiguous_positions():
+        dt = c.dtype_of(cfg)
+        B, S, D = enc_embeds.shape
+        lo, per, total = c.position_share(S)
+        x = enc_embeds if total == S else F.pad(enc_embeds,
+                                                  (0, 0, 0, total - S))
+        x = x[:, lo:lo + per].to(dt) \
+            + sinusoid_pos(total, D, dt, enc_embeds.device)[lo:lo + per]
+        for lp in tfm.layers(params, "enc_layers"):
+            x = c.remat(cfg, _enc_layer, cfg, x, lp, S)
+        return c.gather_positions(
+            c.layernorm(x, params["ln_enc_g"], params["ln_enc_b"],
+                        cfg.norm_eps), S)
 
 
 def _cross_kv(cfg, lp, enc_out):
@@ -144,13 +147,12 @@ def decode_stack(cfg, params, tokens, enc_out, collect_kv=False):
     """The decoder layers and the final norm; with ``collect_kv`` also
     the per-layer (k, v, cross_k, cross_v), stacked on a leading L
     axis. Under the sequence split ``tokens`` are this rank's positions
-    and ``enc_out`` every frame: a rank's queries cross-attend to the
-    whole encoder output."""
+    (their sinusoid rows its spans') and ``enc_out`` every frame: a
+    rank's queries cross-attend to the whole encoder output."""
     dt = c.dtype_of(cfg)
-    S = tokens.shape[1]
-    lo, total = c.step_positions(S)
-    x = params["embed"][tokens] + sinusoid_pos(total, cfg.d_model, dt,
-                                               tokens.device)[lo:lo + S]
+    spans, total = c.step_spans(tokens.shape[1])
+    x = params["embed"][tokens] + shards.take_spans(
+        sinusoid_pos(total, cfg.d_model, dt, tokens.device), spans, 0)
     kvs = []
     for lp in tfm.layers(params):
         x, kv = c.remat(cfg, _dec_layer, cfg, x, lp, enc_out)

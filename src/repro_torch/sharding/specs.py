@@ -96,6 +96,7 @@ def leaf_spec(path, shape, mesh) -> tuple:
 
 EXPERT_LEAVES = {"we_gate": 2, "we_up": 2, "we_down": 1}   # F's dim
 MEGATRON_FAMILIES = ("dense", "vlm", "moe")   # heads (and FFN) split
+ZIGZAG_FAMILIES = ("dense", "vlm", "moe", "audio")   # zigzag positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,10 +112,13 @@ class ModelSplit:
         ``bv``), or "pick", the one KV head its query heads read (the
         KV weights whole); ``ffn``, its 1/n of the FFN dim (``w_gate``,
         ``w_up``, ``b_up`` by columns, ``w_down`` by rows);
-      * ``sequence``: its contiguous 1/n of the step's positions of each
-        of its data shard's rows, with whole weights (FSDP over "model",
-        as under ``batch``); only the attention's keys and values and
-        the recurrences' carried state cross "model";
+      * ``sequence``: its 1/n of the step's positions of each of its
+        data shard's rows, with whole weights (FSDP over "model", as
+        under ``batch``); only the attention's keys and values and the
+        recurrences' carried state cross "model". Its ``layout``: with
+        ``zigzag``, chunks r and 2n-1-r of 2n (causal attention's work
+        the same on every rank, each skipping the key blocks its
+        queries cannot see); else one contiguous span;
       * ``columns`` (a decode step): every weight where the rules
         placed it on "model", each product this rank's output columns
         (all-gathered) or, where "model" is the weight's input dim, its
@@ -132,6 +136,7 @@ class ModelSplit:
     ffn: bool = False
     columns: bool = False
     sequence: bool = False
+    zigzag: bool = False
 
     @property
     def name(self) -> str:
@@ -146,6 +151,25 @@ class ModelSplit:
         return "+".join(p for p, on in (("heads", self.heads),
                                         ("ffn", self.ffn)) if on) or "none"
 
+    @property
+    def layout(self) -> str:
+        """How the sequence split lays out a rank's positions: "zigzag"
+        or "contiguous"; "" under any other split."""
+        if not self.sequence:
+            return ""
+        return "zigzag" if self.zigzag else "contiguous"
+
+
+def sequence_split(cfg, n: int, seq: int) -> ModelSplit:
+    """The sequence split of ``seq`` positions over n "model" ranks:
+    zigzag for the families whose positions mix only through attention
+    (``ZIGZAG_FAMILIES``; whisper's decoder, its encoder frames staying
+    contiguous) where ``seq`` divides by 2n; else contiguous (mamba2's
+    and hymba's scans carry their state in position order, and hymba's
+    windowed attention is balanced over contiguous spans already)."""
+    return ModelSplit(n, sequence=True, zigzag=cfg.family in ZIGZAG_FAMILIES
+                      and seq % (2 * n) == 0)
+
 
 def model_split(cfg, rows: int, mesh, micro_batches: int = 1,
                 seq: int = None) -> ModelSplit:
@@ -156,7 +180,10 @@ def model_split(cfg, rows: int, mesh, micro_batches: int = 1,
     dense, vlm and MoE families, the query heads where they divide (with
     the KV heads where they divide, or divide n), and the FFN dim where
     it divides (not the MoE's: its experts split on their own); else,
-    for every family, the positions, where ``seq`` divides by n; else,
+    for every family, the positions, where ``seq`` divides by n (a
+    zigzag of two spans a rank where the family allows it and ``seq``
+    divides by 2n, else one contiguous span: :func:`sequence_split`,
+    which never raises for the layout); else,
     for those three families, the FFN dim alone where it divides; else
     nothing. A part whose dims do not divide stays whole, as the rules
     replicate a dim that does not divide."""
@@ -173,7 +200,7 @@ def model_split(cfg, rows: int, mesh, micro_batches: int = 1,
         if kv and H % n == 0:
             return ModelSplit(n, heads=True, kv=kv, ffn=ffn)
     if seq is not None and seq % n == 0:
-        return ModelSplit(n, sequence=True)
+        return sequence_split(cfg, n, seq)
     return ModelSplit(n, ffn=megatron and ffn)
 
 

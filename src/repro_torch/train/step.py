@@ -21,7 +21,8 @@ on what the specs place in the ZeRO-3 manner (``models/shards.py``):
     again; the attention gathers every position's keys and values, the
     recurrences carry their state across ranks); a part that divides by
     none of these is computed by every rank of the group. The metrics
-    name the split (``model_split``);
+    name the split (``model_split``), and under "sequence" its layout of
+    the positions (``position_layout``);
   * the loss is the global batch's mean (``common.cross_entropy`` sums
     the NLL and the labelled tokens over the data dims), and each
     gradient is summed over the data dims and cut back to its weight's
@@ -106,6 +107,8 @@ def make_train_step(model, optimizer, micro_batches: int = 1,
                        "grad_norm": _whole(global_norm(grads))}
         if split is not None:
             metrics["model_split"] = split.name
+            if split.sequence:
+                metrics["position_layout"] = split.layout
         return new_params, new_opt, metrics
 
     return train_step

@@ -923,10 +923,15 @@ decode = {"columns": dryrun.trace_cell(reduced(get_config("qwen2_1p5b")),
 specs.model_split_decode = lambda mesh: specs.ModelSplit(4)
 decode["none"] = dryrun.trace_cell(reduced(get_config("qwen2_1p5b")), dsh, m14)
 # a prefill of reduced hymba (1 row of 2,048) on (1, 4): each rank its
-# positions; and the same cell with no split
+# positions, traced as rank 0 and as rank 3; and the same cell with no
+# split
 psh = ShapeSpec("prefill_small", "prefill", 2048, 1)
-prefill = {"sequence": dryrun.trace_cell(reduced(get_config("hymba_1p5b")),
-                                         psh, m14)}
+prefill = {"sequence": dryrun.trace_ranks(
+    reduced(get_config("hymba_1p5b")), psh,
+    lambda: init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model")),
+    4)}
+dryrun.init_fake_group(4)
+m14 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
 specs.model_split = lambda *a, **k: specs.ModelSplit(4)
 prefill["none"] = dryrun.trace_cell(reduced(get_config("hymba_1p5b")), psh,
                                     m14)
@@ -1043,13 +1048,19 @@ def test_dryrun_decode_split_over_model(dryrun_out):
 def test_dryrun_prefill_sequence_split(dryrun_out):
     """Reduced hymba's prefill of 1 row of 2,048 positions on a fake (1,
     4) mesh: the row does not divide over 4 model ranks and hymba splits
-    no heads, so each rank takes 512 positions ("sequence", one query
-    block of the attention) and traces at most 0.3 of the FLOPs of the
-    same cell with no split (ideal: a quarter; the SSD's carried state
-    and the last position's logits add a little); what it all-gathers
-    beside the weights (the keys and values, the states) is counted."""
+    no heads, so each rank takes 512 contiguous positions ("sequence",
+    one query block of the attention) and the heavier of ranks 0 and 3
+    (rank 0's windowed queries skip one more key block) traces at most
+    0.3 of the FLOPs of the same cell with no split (ideal: a quarter;
+    the SSD's carried state and the last position's logits add a
+    little); what it all-gathers beside the weights (the keys and
+    values, the states) is counted."""
     seq, none = (dryrun_out["prefill"][k] for k in ("sequence", "none"))
     assert seq["model_split"] == "sequence" and none["model_split"] == "none"
+    assert seq["position_layout"] == "contiguous"
+    by = {r: x["traced_flops"] for r, x in seq["traced_by_rank"].items()}
+    assert set(by) == {"0", "3"} and by["0"] < by["3"]
+    assert seq["traced_flops_per_rank"] == by["3"]
     ratio = seq["traced_flops_per_rank"] / none["traced_flops_per_rank"]
     assert 0.25 <= ratio <= 0.3, ratio
     assert seq["collectives"]["all-gather"] > 0

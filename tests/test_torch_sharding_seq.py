@@ -1,7 +1,9 @@
 """The sequence split over "model" (``specs.ModelSplit.sequence``): the
-port's train and prefill steps with each "model" rank on its contiguous
-share of the positions, against the unsharded port step and the JAX
-package's single-device functions on the same weights.
+port's train and prefill steps with each "model" rank on its share of
+the positions (a zigzag of two chunks for qwen2, granite and whisper's
+decoder, one contiguous span for mamba2, hymba and whisper's encoder),
+against the unsharded port step and the JAX package's single-device
+functions on the same weights.
 
 * Distributed: one spawn of 4 CPU ranks over gloo on a ("data",
   "model") = (2, 2) mesh, run in a subprocess, for reduced qwen2,
@@ -12,7 +14,10 @@ package's single-device functions on the same weights.
   row a data shard, which does not divide over "model": every family
   takes "sequence", 16 positions a rank (shorter than an SSD chunk, so
   the spans' chunks end where the whole scan's do not: the harder case
-  for the scan's rounding). Per family the prefill's
+  for the scan's rounding; under zigzag chunks 0 + 3 and 1 + 2 of 8,
+  the step's last position on rank 0). The attention runs in blocks of
+  4 positions in the spawn (``common.blockwise_attention`` wrapped), so
+  that ranks skip whole key blocks. Per family the prefill's
   logits and cache (``shards.sharded_prefill``) and the gradients of
   the loss (``sharded_grads``), on each rank, against the unsharded
   port step and the JAX package at rtol 1e-4 / atol 1e-5 (prefill) and
@@ -137,8 +142,24 @@ def run(rank, world, d):
     from repro_torch.train.step import (make_train_step, sharded_grads,
                                         value_and_grad)
     from repro_torch.tree import flatten, tree_map, unflatten
+    import functools
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models import common
     inp = pickle.load(open(f"{d}/in.pkl", "rb"))
     mesh = make_host_mesh(model=2)                    # (2, 2)
+    # blocks of 4 positions, so that a rank's spans of 8 positions skip
+    # whole key blocks (the package's 512 would be one block of 32)
+    common.blockwise_attention = functools.partial(
+        common.blockwise_attention, q_block=4, kv_block=4)
+    visible = common._visible_q_blocks
+    pairs = []
+
+    def counted(causal, window, q_offset, q_block, kv_block, sq, skv):
+        """The (q block, KV block) pairs visited and there are."""
+        got = visible(causal, window, q_offset, q_block, kv_block, sq, skv)
+        pairs.append((sum(z - a for a, z in got),
+                      -(-sq // q_block) * len(got)))
+        return got
     out = {"coords": (mesh.get_local_rank("data"),
                       mesh.get_local_rank("model"))}
 
@@ -180,9 +201,19 @@ def run(rank, world, d):
                 "logits": logits.numpy(), "loss": float(loss),
                 "grads": tree_map(lambda t: t.numpy(), grads)}
         pd = placed(params, specs.tree_placements)
-        cache, logits, split = shards.sharded_prefill(
-            model.prefill, pd, placed(batch, specs.batch_placements), cfg)
-        res.update(split=split.name, logits=logits.numpy(),
+        bd = placed(batch, specs.batch_placements)
+        pairs.clear()
+        common._visible_q_blocks = counted
+        try:
+            with FlopCounterMode(display=False) as fc:
+                cache, logits, split = shards.sharded_prefill(
+                    model.prefill, pd, bd, cfg)
+        finally:
+            common._visible_q_blocks = visible
+        res.update(split=split.name, layout=split.layout,
+                   flops=fc.get_total_flops(),
+                   pairs=[sum(p[0] for p in pairs), sum(p[1] for p in pairs)],
+                   logits=logits.numpy(),
                    cache={k: v.numpy() for k, v in cache.items()})
         grad_fns = {"grads": value_and_grad}
         if arch == "qwen2_1p5b":
@@ -209,15 +240,23 @@ def run(rank, world, d):
                     generator=torch.Generator().manual_seed(2))
     mine = slice(8 * mesh.get_local_rank("model"),
                  8 * mesh.get_local_rank("model") + 8)
+    # and under the zigzag layout: the rank's chunks r and 3 - r of 4
+    zig = shards.position_spans(16, 2, mesh.get_local_rank("model"), True)
     with torch.no_grad():
         with common.use_mesh(mesh, ("data", "model"),
                              specs.ModelSplit(2, sequence=True)):
             got = moe.moe_ffn(mcfg, lp, x[:, mine], capacity_factor=0.5)[0]
+        with common.use_mesh(mesh, ("data", "model"),
+                             specs.ModelSplit(2, sequence=True, zigzag=True)):
+            got_zig = moe.moe_ffn(mcfg, lp, shards.take_spans(x, zig),
+                                  capacity_factor=0.5)[0]
         with common.use_mesh(mesh, ("data",)):
             shard = moe.moe_ffn(mcfg, lp, x, capacity_factor=0.5)[0]
         undropped = moe.moe_ffn(mcfg, lp, x, capacity_factor=50.0)[0]
     out["moe_order"] = {"equal": bool(torch.equal(got, shard[:, mine])),
                         "dropped": not torch.allclose(shard, undropped)}
+    out["moe_order_zigzag"] = bool(torch.equal(
+        got_zig, shards.take_spans(shard, zig)))
 
     # hymba's AdamW step, 2 microbatches of this rank's rows
     cfg = inp["configs"]["hymba_1p5b"]
@@ -374,6 +413,41 @@ def test_sequence_train_step_with_microbatches(ranks, reference):
         assert n_small <= 1e-3 * n_all
 
 
+ZIGZAG = ("qwen2_1p5b", "granite_moe_3b_a800m", "whisper_tiny")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sequence_layout_and_balanced_ranks(ranks, arch):
+    """32 positions over 2 model ranks divide into 4 chunks: qwen2,
+    granite and whisper's decoder take the zigzag layout (chunks r and
+    3 - r), mamba2 and hymba stay contiguous. Every rank's prefill (but
+    mamba2's, which attends nowhere) skips key blocks (blocks of 4
+    positions: fewer (q block, KV block) pairs visited than there are);
+    under zigzag every rank visits as many pairs and counts as many
+    FLOPs (``FlopCounterMode``), 18 causal pairs of 32 a layer's
+    self-attention: chunks 0 + 3 against 1 + 2."""
+    layouts = {r[arch]["layout"] for r in ranks}
+    assert layouts == {"zigzag" if arch in ZIGZAG else "contiguous"}
+    for r in ranks:
+        visited, there = r[arch]["pairs"]
+        if arch == "mamba2_2p7b":                 # no attention
+            assert visited == there == 0
+        else:
+            assert 0 < visited < there, r[arch]["pairs"]
+    if arch in ZIGZAG:
+        assert len({r[arch]["flops"] for r in ranks}) == 1
+        assert len({tuple(r[arch]["pairs"]) for r in ranks}) == 1
+
+
+def test_sequence_moe_dispatch_keeps_token_order_zigzag(ranks):
+    """As below, each "model" rank holding its zigzag chunks (r and 3 -
+    r of 4 of 4 positions) of both rows: the group's positions are put
+    back in global order before the dispatch, and each rank's rows of
+    the sum are its own, bit-equal to the whole data shard's dispatch."""
+    for r in ranks:
+        assert r["moe_order_zigzag"]
+
+
 def test_sequence_moe_dispatch_keeps_token_order(ranks):
     """granite's MoE layer on 2 rows of 16 positions, each "model" rank
     its 8 positions of both rows, at a capacity that drops assignments:
@@ -417,8 +491,8 @@ def test_split_positions_shares_and_refuses_what_does_not_divide():
         assert torch.equal(b["labels"], tok[:, 8 * r:8 * (r + 1)] + 1)
         assert b["enc_embeds"] is frames
     assert torch.equal(torch.cat([b["tokens"] for b, _ in got], 1), tok)
-    assert [shards.position_share(23, 4, r) for r in range(4)] == [
-        (0, 6, 24), (6, 6, 24), (12, 6, 24), (18, 6, 24)]
+    assert [shards.position_spans(23, 4, r) for r in range(4)] == [
+        [(0, 6)], [(6, 6)], [(12, 6)], [(18, 6)]]
     with pytest.raises(ValueError, match="do not divide"):
         shards.split_positions({"tokens": tok[:, :30]}, _Rank(0), (), split)
 
