@@ -3548,6 +3548,95 @@ def _decode_split_arch(arch: str, mesh, device) -> dict:
             "unsharded_f32_step_ms": float(np.median(full["f32"][2]))}
 
 
+# 18b: each family's f32 prefill of DECODE_SPLIT_PROMPT (2 rows, which
+# divide over 2 model ranks: the rule's "batch") handed off to the split
+# decode (``shards.sharded_prefill(..., cache_len=DECODE_SPLIT_CACHE)``)
+# on the weights placed replicated, as 19a places them; granite at
+# SEQ_SPLIT_MOE_CAPACITY, where neither one device nor two model ranks
+# drop a token (F11); then HANDOFF_STEPS split decode steps from the
+# handed-off slice
+HANDOFF_STEPS = 2
+
+
+def _handoff_arch(arch: str, mesh, device) -> dict:
+    """Phase 18b for one family on this rank: the unsharded f32 prefill
+    of phase 18's prompt on phase 18's weights upcast, grown to
+    DECODE_SPLIT_CACHE positions (:func:`_grown`) and placed by
+    ``specs.decode_cache_placements`` (this rank's slice of it), and
+    HANDOFF_STEPS unsharded f32 decode steps on it; then the same
+    prefill through ``sharded_prefill`` with the cache's length, and the
+    split decode steps ("columns") from the slice it hands off, with
+    nothing in between. Returns the splits, each leaf's distance from
+    the placed slice relative to its largest value, both slices' bytes,
+    each step's logits' distance from the unsharded step's (this rank's
+    vocabulary slice) and the split prefill's seconds."""
+    import contextlib
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, shards
+    from repro_torch.models.api import build_model
+    from repro_torch.sharding import specs
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=SEQ_SPLIT_MOE_CAPACITY)
+    model = build_model(cfg)
+    b, s = DECODE_SPLIT_PROMPT
+    rng = np.random.default_rng(LM_SEED)
+    tok = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s + HANDOFF_STEPS)).astype(np.int32)).to(
+            device)
+    batch = {"tokens": tok[:, :s]}
+    if cfg.frontend == "audio":
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(device)
+    params = _upcast(build_model(get_config(arch)).init(
+        torch.Generator(device).manual_seed(LM_SEED)))
+    dsplit = specs.model_split_decode(mesh)
+
+    def steps(p, c, ctx):
+        out = []
+        with ctx:
+            for t in range(HANDOFF_STEPS):
+                out.append(model.decode_step(p, c, tok[:, s + t:s + t + 1],
+                                             s + t)[0].float())
+        return out
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree.values())
+
+    with torch.no_grad():
+        cache, _ = model.prefill(params, batch)
+        cache = _grown(cfg, cache, DECODE_SPLIT_CACHE - s)
+        want = {k: t.to_local().clone() for k, t in specs.distribute_tree(
+            cache, specs.decode_cache_placements(cache, mesh,
+                                                 cfg.family)).items()}
+        full = steps(params, cache, contextlib.nullcontext())
+        del cache
+        pd = specs.distribute_tree(params, specs.replicated(mesh))
+        del params
+        bd = specs.distribute_tree(batch, specs.batch_placements(batch, mesh))
+        t0 = time.perf_counter()
+        got, _, split = shards.sharded_prefill(model.prefill, pd, bd, cfg,
+                                               cache_len=DECODE_SPLIT_CACHE)
+        prefill_s = time.perf_counter() - t0
+        leaf_err = {k: _rel_err(got[k], w) for k, w in want.items()}
+        out = {"split": split.name, "decode_split": dsplit.name,
+               "tol": SEQ_SPLIT_SCAN_TOL if cfg.family in ("ssm", "hybrid")
+               else SEQ_SPLIT_TOL, "rel_err": leaf_err,
+               "slice_bytes": nbytes(got), "placed_bytes": nbytes(want),
+               "prefill_s": prefill_s}
+        del want
+        view = shards.model_view(*shards.local_shards(pd), mesh, (), dsplit)
+        split_steps = steps(view, got, common.use_mesh(mesh, (), dsplit))
+    v = split_steps[0].shape[-1]
+    r = mesh.get_local_rank("model")
+    out["step_rel_err"] = _rel_errs(split_steps, full,
+                                    slice(r * v, (r + 1) * v))
+    return out
+
+
 def _decode_split_rank(rank: int, world: int, tmp: str, device: str) -> None:
     """Phase 18, one of two processes on the one card: each of
     DECODE_SPLIT_ARCHS through :func:`_decode_split_arch` on a ("data",
@@ -3585,6 +3674,12 @@ def _decode_split_rank(rank: int, world: int, tmp: str, device: str) -> None:
                 a["max_memory_allocated"] = torch.cuda.max_memory_allocated(
                     device)
                 _free()
+            dist.barrier()
+            t0 = time.perf_counter()
+            h = a["handoff"] = _handoff_arch(arch, mesh, device)
+            h["s"] = time.perf_counter() - t0
+            if device.type == "cuda":
+                _free()
         res["staged_collectives"] = dict(staged)
         every = [None] * world
         dist.all_gather_object(every, res)
@@ -3608,7 +3703,12 @@ def phase_decode_split() -> dict:
     unsharded bf16 step's, over the steps (the split adds no more
     rounding than it has); the bf16 FLOPs at most SPLIT_FLOP_SHARE of
     the unsharded step's and the decode state half the unsharded
-    cache's."""
+    cache's. 18b (:func:`_handoff_arch`): the prefill takes "batch" and
+    the decode "columns"; each leaf of the handed-off slice within
+    SEQ_SPLIT_TOL (mamba2 and hymba SEQ_SPLIT_SCAN_TOL) of the placed
+    unsharded f32 cache, relative to its largest value, and as many
+    bytes; the split decode steps from it within DECODE_SPLIT_TOL of the
+    unsharded f32 steps."""
     import tempfile
     import torch.multiprocessing as mp
     _free()
@@ -3637,6 +3737,21 @@ def phase_decode_split() -> dict:
             check(2 * a["state_bytes"] == a["unsharded_state_bytes"],
                   f"{where} holds {a['state_bytes']} B of decode state, "
                   f"the unsharded cache {a['unsharded_state_bytes']} B")
+            h, where = a["handoff"], f"18b {where}"
+            check(h["split"] == "batch" and h["decode_split"] == "columns",
+                  f"{where}: prefill split {h['split']}, decode split "
+                  f"{h['decode_split']}, not batch and columns")
+            for name, e in h["rel_err"].items():
+                check(e <= h["tol"], f"{where}: the handed-off {name} off "
+                      f"the placed unsharded f32 cache by {e} of its "
+                      f"largest, beyond {h['tol']}")
+            check(h["slice_bytes"] == h["placed_bytes"],
+                  f"{where}: the handed-off slice holds {h['slice_bytes']} "
+                  f"B, the placed cache {h['placed_bytes']} B")
+            check(max(h["step_rel_err"]) <= DECODE_SPLIT_TOL,
+                  f"{where}: the split decode steps from the handed-off "
+                  f"slice off the unsharded f32 steps by "
+                  f"{h['step_rel_err']}")
     return res
 
 
@@ -3674,6 +3789,11 @@ SEQ_SPLIT_MOE_CAPACITY = 5.0
 # within SEQ_SPLIT_FLOP_LEVEL of each other
 SEQ_SPLIT_ZIGZAG = (LM_DENSE, LM_MOE, LM_AUDIO)
 SEQ_SPLIT_FLOP_LEVEL = 0.03
+# 19a's f32 prefill also hands its cache off to the split decode: a
+# cache of 4,096 + 8 positions, 2,052 a rank (the zigzag's positions, or
+# the contiguous span's, are not the decode slice), then one split
+# decode step from the slice
+SEQ_HANDOFF_CACHE = SEQ_SPLIT_PREFILL[1] + 8
 # observations printed beside this run's, not checked: the unsharded
 # bf16 prefill's ms (phase 19a) and phase 14a's flash forward + backward
 # ms with every KV block visited, on an H100 80GB HBM3 at 700 W
@@ -3741,16 +3861,18 @@ def _upcast(tree):
 
 
 def _seq_run(fn, counted: bool, device) -> dict:
-    """``fn()``'s (cache, logits[, split]) as f32 copies, with its FLOPs
+    """``fn()``'s (cache, logits[, split]) as f32 copies, with its peak
+    over what was allocated before it and its FLOPs
     (:func:`_flop_count`, and ``FlopCounterMode``'s count of the same
     run beside it, and the attention's block pairs visited and there
     are, :func:`_attention_pairs`) where ``counted``, else its ms (CUDA
-    events) and peak over what was allocated before it. Each step of phase 19a runs once:
-    the f32 step is counted, the bf16 one timed (the counts depend on
-    the shapes alone)."""
+    events). Each step of phase 19a runs once: the f32 step is counted,
+    the bf16 one timed (the counts depend on the shapes alone)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     got, res = [], {}
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
     if counted:
         with _flop_count() as fc, FlopCounterMode(display=False) as ref, \
                 _attention_pairs() as pairs:
@@ -3758,11 +3880,9 @@ def _seq_run(fn, counted: bool, device) -> dict:
         res.update(flops=fc.total, flops_counter_mode=ref.get_total_flops(),
                    attention_pairs=pairs)
     else:
-        torch.cuda.reset_peak_memory_stats(device)
-        base = torch.cuda.memory_allocated(device)
         res["ms"] = _event_ms(lambda: got.append(fn()))
-        res["peak_over_args_bytes"] = \
-            torch.cuda.max_memory_allocated(device) - base
+    res["peak_over_args_bytes"] = \
+        torch.cuda.max_memory_allocated(device) - base
     out = got.pop()
     res.update(cache=_upcast(out[0]), logits=out[1].float())
     if len(out) > 2:
@@ -3773,11 +3893,16 @@ def _seq_run(fn, counted: bool, device) -> dict:
 def _seq_unsharded(arch: str, device) -> dict:
     """Phase 19a's unsharded prefills of ``arch`` on this rank: bf16
     (timed after one untimed run), then on the same weights upcast to
-    f32 (counted)."""
+    f32 (counted), and one f32 decode step at position
+    SEQ_SPLIT_PREFILL[1] (the prompt's last token again) on a copy of
+    the f32 cache grown to SEQ_HANDOFF_CACHE positions (its logits
+    ``full["f32"]["decode_logits"]``)."""
     import torch
+    from repro_torch.tree import tree_map
     cfgs, models, batch = _seq_inputs(arch, device)
     params = models["bf16"].init(torch.Generator(device).manual_seed(LM_SEED))
     full = {}
+    s = SEQ_SPLIT_PREFILL[1]
     with torch.no_grad():
         models["bf16"].prefill(params, batch)      # warm-up, not timed
         full["bf16"] = _seq_run(lambda: models["bf16"].prefill(params, batch),
@@ -3785,6 +3910,10 @@ def _seq_unsharded(arch: str, device) -> dict:
         params = _upcast(params)
         full["f32"] = _seq_run(lambda: models["f32"].prefill(
             params, _upcast(batch)), True, device)
+        grown = _grown(cfgs["f32"], tree_map(
+            lambda t: t.clone(), full["f32"]["cache"]), SEQ_HANDOFF_CACHE - s)
+        full["f32"]["decode_logits"] = models["f32"].decode_step(
+            params, grown, batch["tokens"][:, -1:], s)[0].float()
     return full
 
 
@@ -3835,8 +3964,18 @@ def _seq_split_prefill(arch: str, mesh, device, full=None) -> dict:
             bd = specs.distribute_tree(bk, specs.batch_placements(bk, mesh))
             split[k] = _seq_run(lambda: shards.sharded_prefill(
                 models[k].prefill, pd, bd, cfgs[k]), k == "f32", device)
+        # the f32 prefill once more, handing its cache off to the split
+        # decode (timed, for its seconds and peak)
+        t0 = time.perf_counter()
+        handoff = _seq_run(lambda: shards.sharded_prefill(
+            models["f32"].prefill, pd, bd, cfgs["f32"],
+            cache_len=SEQ_HANDOFF_CACHE), False, device)
     finally:
         specs.model_split = rule_fn
+    handoff.update(_seq_handoff_decode(
+        models["f32"], pd, handoff, batch["tokens"][:, -1:], mesh, cfg,
+        None if full is None else full["f32"]))
+    handoff["s"] = time.perf_counter() - t0
     del pd
     names = ["logits"] + sorted(split["f32"]["cache"])
 
@@ -3852,6 +3991,9 @@ def _seq_split_prefill(arch: str, mesh, device, full=None) -> dict:
            "flops_counter_mode": split["f32"]["flops_counter_mode"],
            "step_ms": split["bf16"]["ms"],
            "peak_over_args_bytes": split["bf16"]["peak_over_args_bytes"],
+           "f32_peak_over_args_bytes": split["f32"]["peak_over_args_bytes"],
+           "handoff": {k: v for k, v in handoff.items()
+                       if k not in ("cache", "logits")},
            "digest": {k: {n: [float(leaf(r, n).double().sum()),
                               float(leaf(r, n).abs().max())] for n in names}
                       for k, r in split.items()}}
@@ -3876,6 +4018,46 @@ def _seq_split_prefill(arch: str, mesh, device, full=None) -> dict:
             unsharded_step_ms=full["bf16"]["ms"],
             unsharded_peak_over_args_bytes=full["bf16"][
                 "peak_over_args_bytes"])
+    return out
+
+
+def _seq_handoff_decode(model, pd, handoff: dict, token, mesh, cfg,
+                        full=None) -> dict:
+    """19a's hand-off on this rank: the slice's bytes and, on the rank
+    given the unsharded f32 prefill ``full`` (:func:`_seq_unsharded`),
+    each leaf's distance from that cache grown to SEQ_HANDOFF_CACHE
+    positions and placed by ``specs.decode_cache_placements`` (relative
+    to its largest value) and the placed slice's bytes; then one split
+    decode step ("columns", on the replicated f32 weights ``pd``) from
+    the handed-off slice at position SEQ_SPLIT_PREFILL[1] with
+    ``token``, and its logits' distance from the unsharded step's
+    (this rank's vocabulary slice)."""
+    import torch
+    from repro_torch.models import common, shards
+    from repro_torch.sharding import specs
+    s = SEQ_SPLIT_PREFILL[1]
+    got = handoff["cache"]
+    out = {"slice_bytes": sum(t.numel() * t.element_size()
+                              for t in got.values())}
+    if full is not None:
+        grown = _grown(cfg, full["cache"], SEQ_HANDOFF_CACHE - s)
+        want = {k: t.to_local() for k, t in specs.distribute_tree(
+            grown, specs.decode_cache_placements(grown, mesh,
+                                                 cfg.family)).items()}
+        out["rel_err"] = {k: _rel_err(got[k], w) for k, w in want.items()}
+        out["placed_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in want.values())
+        del grown, want
+    dsplit = specs.model_split_decode(mesh)
+    view = shards.model_view(*shards.local_shards(pd), mesh, (), dsplit)
+    with torch.no_grad(), common.use_mesh(mesh, (), dsplit):
+        lg = model.decode_step(view, got, token, s)[0].float()
+    out["decode_split"] = dsplit.name
+    if full is not None:
+        v = lg.shape[-1]
+        r = mesh.get_local_rank("model")
+        out["decode_rel_err"] = _rel_errs(
+            [lg], [full["decode_logits"]], slice(r * v, (r + 1) * v))[0]
     return out
 
 
@@ -4029,8 +4211,13 @@ def phase_seq_split() -> dict:
     SEQ_SPLIT_BF16_FACTOR times as far from the unsharded f32 step's as
     the unsharded bf16 step's, and each within SEQ_SPLIT_BF16_CEIL of
     the unsharded bf16 step's (every cache leaf's first layer within
-    SEQ_SPLIT_BF16_FIRST_LAYER). 19b: hymba's step takes the sequence
-    split, loss and params held as
+    SEQ_SPLIT_BF16_FIRST_LAYER). The f32 prefill's hand-off to the
+    split decode (cache of SEQ_HANDOFF_CACHE positions): "sequence" in
+    the same layout, then "columns"; on the last rank each leaf within
+    the f32 bound of the placed unsharded f32 cache and the decode step
+    from it within DECODE_SPLIT_TOL of the unsharded f32 step; every
+    rank's slice as many bytes as the placed one. 19b: hymba's step
+    takes the sequence split, loss and params held as
     phase 17's, FLOPs a rank at most SPLIT_FLOP_SHARE of the unsharded
     step's."""
     import tempfile
@@ -4066,6 +4253,15 @@ def phase_seq_split() -> dict:
                   >= SEQ_SPLIT_PREFILL[0] * SEQ_SPLIT_PREFILL[1],
                   f"{where}: an expert's capacity "
                   f"{a['moe_least_capacity']} could drop tokens")
+            ho = a["handoff"]
+            check(ho["split"] == "sequence" and ho["layout"] == layout
+                  and ho["decode_split"] == "columns",
+                  f"{where}: the hand-off's prefill took {ho['split']} "
+                  f"({ho['layout']}), its decode {ho['decode_split']}")
+            check(ho["slice_bytes"] == h["handoff"]["placed_bytes"],
+                  f"{where}: the handed-off slice holds "
+                  f"{ho['slice_bytes']} B, the placed cache "
+                  f"{h['handoff']['placed_bytes']} B")
         t, ref = r["train"], res["unsharded_train"]
         where = f"19b {LM_HYBRID}: rank {r['rank']}"
         check(t["split"] == "sequence",
@@ -4081,6 +4277,14 @@ def phase_seq_split() -> dict:
               f"19a {arch}: the zigzag ranks' FLOPs {flops} differ by more "
               f"than {SEQ_SPLIT_FLOP_LEVEL:.0%}")
     for arch, a in held.items():
+        ho = a["handoff"]
+        for name, e in ho["rel_err"].items():
+            check(e <= a["tol"], f"19a {arch}: the handed-off {name} off the "
+                  f"placed unsharded f32 cache by {e} of its largest, beyond "
+                  f"{a['tol']}")
+        check(ho["decode_rel_err"] <= DECODE_SPLIT_TOL,
+              f"19a {arch}: the split decode step from the handed-off slice "
+              f"off the unsharded f32 step by {ho['decode_rel_err']}")
         for name, e in a["rel_err"]["f32"].items():
             check(e <= a["tol"], f"19a {arch}: f32 {name} off by {e} of its "
                   f"largest, beyond {a['tol']}")
@@ -4484,6 +4688,21 @@ def main(argv=None) -> int:
                 f"{[round(a['unsharded_step_ms'], 2) for a in ranks]} "
                 f"unsharded; peak allocated a rank "
                 f"{[a['max_memory_allocated'] for a in ranks]} B ({card})")
+        for arch in DECODE_SPLIT_ARCHS:
+            hs = [r["archs"][arch]["handoff"] for r in ds["ranks"]]
+            log(f"phase 18b: {arch} full width f32, the prefill of "
+                f"{DECODE_SPLIT_PROMPT[0]} x {DECODE_SPLIT_PROMPT[1]} split "
+                f"{hs[0]['split']} handed off to the split decode "
+                f"(cache_len {DECODE_SPLIT_CACHE}): each leaf's largest "
+                f"error relative to its largest value, against the placed "
+                f"unsharded f32 cache, a rank "
+                f"{[max(h['rel_err'].values()) for h in hs]} (bound "
+                f"{hs[0]['tol']}); slice bytes a rank "
+                f"{[h['slice_bytes'] for h in hs]}; {HANDOFF_STEPS} split "
+                f"decode steps from it against the unsharded f32 steps "
+                f"{[h['step_rel_err'] for h in hs]}; split prefill s a rank "
+                f"{[round(h['prefill_s'], 2) for h in hs]}; 18b s a rank "
+                f"{[round(h['s'], 1) for h in hs]} ({card})")
         log(f"phase 18: decode split over model ok "
             f"({time.perf_counter() - t0:.1f} s; staged calls a rank: "
             f"{json.dumps([r['staged_collectives'] for r in ds['ranks']])})")
@@ -4516,6 +4735,25 @@ def main(argv=None) -> int:
                 f"the arguments a rank "
                 f"{[a['peak_over_args_bytes'] for a in ranks]} B vs "
                 f"{held['unsharded_peak_over_args_bytes']} B ({card})")
+        for arch in SEQ_SPLIT_ARCHS:
+            ranks = [r["archs"][arch] for r in qs["ranks"]]
+            ho = ranks[-1]["handoff"]
+            log(f"phase 19a: {arch} full width f32, the same prefill handed "
+                f"off to the split decode (cache_len {SEQ_HANDOFF_CACHE}, "
+                f"{ho['layout']} prefill): each leaf's largest error "
+                f"relative to its largest value against the placed "
+                f"unsharded f32 cache {max(ho['rel_err'].values())} (bound "
+                f"{ranks[-1]['tol']}); slice bytes a rank "
+                f"{[a['handoff']['slice_bytes'] for a in ranks]}; one split "
+                f"decode step from it against the unsharded f32 step "
+                f"{ho['decode_rel_err']}; f32 peak over the arguments a rank "
+                f"with the hand-off "
+                f"{[a['handoff']['peak_over_args_bytes'] for a in ranks]} B, "
+                f"without {[a['f32_peak_over_args_bytes'] for a in ranks]} "
+                f"B; its prefill ms a rank "
+                f"{[round(a['handoff']['ms'], 1) for a in ranks]}; the "
+                f"sub-phase s a rank "
+                f"{[round(a['handoff']['s'], 1) for a in ranks]} ({card})")
         ref = qs["unsharded_train"]
         ranks = [r["train"] for r in qs["ranks"]]
         rb, rs, rm = SEQ_SPLIT_TRAIN

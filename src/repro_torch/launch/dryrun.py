@@ -51,7 +51,12 @@ the reference's shape, with these differences:
     its shard lives, the cache placed by ``specs.decode_cache_spec``
     and each rank handed its local slice), or "none" (every rank the
     group's whole work); ``position_layout`` how "sequence" lays out
-    a rank's positions ("zigzag" or "contiguous").
+    a rank's positions ("zigzag" or "contiguous");
+  * a prefill cell hands its cache off to the split decode
+    (``shards.sharded_prefill(..., cache_len=seq)``, ``cache_layout``
+    "decode" and ``cache_len`` in the record): its results are the
+    rank's slice of the decode cache of ``seq`` positions that the
+    shape's decode cell reads, and the last position's logits.
 
 A cell that raises is recorded with its error and the run goes on (the
 reference's ``run_cell``); the run exits 1 if any cell errors. Results go
@@ -226,8 +231,8 @@ def trace_cell(cfg, shape, mesh) -> dict:
             split_name = metrics["model_split"]
             layout = metrics.get("position_layout", "")
         elif shape.kind == "prefill":
-            cache, logits, split = shards.sharded_prefill(model.prefill, pd,
-                                                          bd, cfg)
+            cache, logits, split = shards.sharded_prefill(
+                model.prefill, pd, bd, cfg, cache_len=shape.seq)
             outs, alias, split_name = (cache, logits), (), split.name
             layout = split.layout
         else:
@@ -248,6 +253,8 @@ def trace_cell(cfg, shape, mesh) -> dict:
     arg_b, out_b, alias_b = (_local_bytes(args), _local_bytes(outs),
                              _local_bytes(alias))
     peak = arg_b + mem.peak
+    handoff = ({"cache_layout": "decode", "cache_len": shape.seq}
+               if shape.kind == "prefill" else {})
     return {
         "memory": {
             "argument_bytes": arg_b,
@@ -272,6 +279,7 @@ def trace_cell(cfg, shape, mesh) -> dict:
             rl.analytic_costs(cfg, shape)["flops_exec"] / mesh.size(),
         "model_split": split_name,
         "position_layout": layout,
+        **handoff,
     }
 
 

@@ -54,7 +54,7 @@ _MESH = threading.local()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, data_dims=None, split=None):
+def use_mesh(mesh, data_dims=None, split=None, cache_len=None):
     """Run the block on ``mesh`` (a ``DeviceMesh``, or None for none):
     the reference's ``with mesh:``. ``data_dims`` names the mesh dims
     the batch is split on, each rank holding its own shard ("pod" and
@@ -62,14 +62,22 @@ def use_mesh(mesh, data_dims=None, split=None):
     is split there). ``split`` (a ``sharding.specs.ModelSplit``) is what
     this rank computes of its model group's work: the layers read it
     (:func:`model_split`) and split their heads and FFN dim, or their
-    positions, by it."""
+    positions, by it. ``cache_len``: a prefill whose keys and values
+    every layer keeps only at this rank's positions of a decode cache
+    of that many positions (:func:`keep_decode_positions`); None keeps
+    every position."""
     if mesh is not None and data_dims is None:
         data_dims = tuple(a for a in ("pod", "data")
                           if a in mesh.mesh_dim_names)
-    with _in_context((mesh, tuple(
-            a for a in (data_dims or ())
-            if mesh.size(mesh.mesh_dim_names.index(a)) > 1), split)):
-        yield mesh
+    prev = getattr(_MESH, "cache_len", None)
+    _MESH.cache_len = cache_len
+    try:
+        with _in_context((mesh, tuple(
+                a for a in (data_dims or ())
+                if mesh.size(mesh.mesh_dim_names.index(a)) > 1), split)):
+            yield mesh
+    finally:
+        _MESH.cache_len = prev
 
 
 def _context_mesh():
@@ -780,16 +788,49 @@ def split_matmul(x, w, width: int):
     return gather_columns(matmul(x, w), width)
 
 
+def decode_positions(cache_len: int, n: int, rank: int) -> tuple:
+    """(first global position, count) of the positions that "model" rank
+    ``rank`` of n holds of a split decode's self-attention cache of
+    ``cache_len`` positions: its contiguous ``cache_len`` / n
+    (``specs.decode_cache_spec`` puts the positions on "model", which
+    raises where they do not divide)."""
+    per = cache_len // n
+    return rank * per, per
+
+
 def cache_positions(cache_len: int) -> tuple:
     """(its first global position, all positions) of a self-attention
     cache of ``cache_len`` positions: under the columns split, this
-    "model" rank's contiguous share of n x ``cache_len`` positions
-    (``specs.decode_cache_spec``); else (0, ``cache_len``)."""
+    "model" rank's share of n x ``cache_len`` positions
+    (:func:`decode_positions`); else (0, ``cache_len``)."""
     sp = model_split()
     if not sp.columns:
         return 0, cache_len
-    return _context_mesh().get_local_rank("model") * cache_len, \
-        sp.n * cache_len
+    total = sp.n * cache_len
+    return decode_positions(total, sp.n, _context_mesh().get_local_rank(
+        "model"))[0], total
+
+
+def keep_decode_positions(t):
+    """``t`` (B, S, ...), a layer's keys or values at every position of
+    the prefill in global order, as this "model" rank's slice of the
+    decode cache that the context's prefill hands off to
+    (:func:`use_mesh`'s ``cache_len``): its positions
+    (:func:`decode_positions`) below S, zero-padded to its share, in a
+    tensor of its own, so that the layer's whole ``t`` is freed with the
+    layer and no rank holds more than one layer's. ``t`` itself where
+    the context hands off nothing."""
+    cache_len = getattr(_MESH, "cache_len", None)
+    if cache_len is None:
+        return t
+    n = model_split().n
+    lo, per = decode_positions(cache_len, n, _context_mesh().get_local_rank(
+        "model") if n > 1 else 0)
+    out = t.new_zeros((t.shape[0], per) + tuple(t.shape[2:]))
+    m = max(0, min(per, t.shape[1] - lo))
+    if m:
+        out[:, :m] = t[:, lo:lo + m]
+    return out
 
 
 def silu(x):

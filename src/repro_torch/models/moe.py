@@ -340,9 +340,10 @@ def backbone(cfg, params, x, positions, collect_kv=False):
     for lp in tfm.layers(params):
         x, a, k, v = c.remat(cfg, _layer, cfg, x, lp, positions, inv_freq)
         aux = aux + a
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
+        if collect_kv:              # as ``transformer.backbone``'s
+            ks.append(c.keep_decode_positions(k))
+            vs.append(c.keep_decode_positions(v))
+        del k, v
     x = tfm._norm(cfg, x, params, "ln_f")
     return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv
                     else None)

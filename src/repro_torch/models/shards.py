@@ -47,6 +47,7 @@ Megatron region whole was summed over "model" there, by
 """
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
 
 import torch
@@ -287,23 +288,164 @@ def local_step(params, batch, cfg, micro_batches: int = 1):
     return mesh, local, placements, local_batch, data_dims, split
 
 
-def sharded_prefill(prefill, params, batch, cfg):
+def sharded_prefill(prefill, params, batch, cfg, cache_len=None):
     """(cache, last logits, split) of ``prefill(params, batch)`` (a
     ``Model.prefill``) on DTensor ``params`` and ``batch``: each rank's
     share (:func:`local_step`) through ``prefill`` on its weight shards,
     gathered layer by layer (:func:`model_view`), with autograd off. The
-    cache and logits are the rank's data shard's: its rows of them
-    under the batch split, every position's cache and the last
-    position's logits on every "model" rank under the sequence split,
-    the cache's KV heads and the logits' vocabulary slice under
-    Megatron's split."""
+    logits are the rank's data shard's: its rows under the batch split,
+    the last position's on every "model" rank under the sequence split,
+    the vocabulary slice under Megatron's split.
+
+    Without ``cache_len`` the cache is the rank's data shard's in the
+    prefill's own layout: its rows under the batch split, every
+    position on every "model" rank under the sequence split, the KV
+    heads its query heads read under Megatron's split.
+
+    With ``cache_len`` it is this rank's local slice of the decode
+    cache that a split decode step (``specs.model_split_decode``)
+    reads: the prefill's cache with its self-attention ``k`` / ``v``
+    grown to ``cache_len`` positions (zeros past the prompt; the
+    hybrid's window, the recurrent states and whisper's cross cache
+    keep their shapes), each leaf cut as ``specs.decode_cache_spec``
+    places it (:func:`to_decode_layout`). Raises where ``cache_len`` is
+    shorter than the prompt, or where the grown positions do not divide
+    over "model" (``decode_cache_spec``'s error)."""
+    from ..sharding.specs import decode_cache_spec
+    from ..tree import leaves
     from . import common
     mesh, local, placements, local_batch, dims, split = local_step(
         params, batch, cfg)
-    with torch.no_grad(), common.use_mesh(mesh, dims, split):
+    if cache_len is not None:
+        s, rows = positions(batch), leaves(batch)[0].shape[0]
+        if cache_len < s:
+            raise ValueError(f"a decode cache of {cache_len} positions is "
+                             f"shorter than the prompt's {s}")
+        if cfg.family not in GROWS_NOTHING:
+            decode_cache_spec("k", (cfg.num_layers, rows, cache_len,
+                                    cfg.num_kv_heads, cfg.hd), mesh,
+                              cfg.family)
+    # under the batch split a rank holds its rows of the data shard, under
+    # Megatron's its KV heads: the cache moves after the prefill
+    # (:func:`to_decode_layout`). Under any other split every "model"
+    # rank holds every position, row and head of its data shard, so each
+    # layer's keys and values are cut to the rank's decode positions as
+    # the layer ends (``common.keep_decode_positions``)
+    keep = None if split.batch or split.heads else cache_len
+    with torch.no_grad(), common.use_mesh(mesh, dims, split, keep):
         cache, logits = prefill(model_view(local, placements, mesh, dims,
                                            split), local_batch)
+        if cache_len is not None:
+            cache = to_decode_layout(cache, mesh, split, cfg, rows,
+                                     cache_len)
     return cache, logits, split
+
+
+GROWS_NOTHING = ("ssm", "hybrid")   # families whose cache has no growing k / v
+
+
+def to_decode_layout(cache, mesh, split, cfg, rows: int, cache_len: int):
+    """The decode layout of ``cache``, this rank's prefill cache under
+    ``split`` of a batch of ``rows`` rows: each leaf as
+    ``specs.decode_cache_spec`` places it on the whole decode cache
+    (the self-attention ``k`` / ``v`` of the families but the recurrent
+    and hybrid grown to ``cache_len`` positions). The leaves are
+    popped from ``cache`` one at a time, so that each prefill-layout
+    leaf is freed as soon as it has been cut or sent.
+
+      * Where the prefill kept every position, row and head (any split
+        but the batch split and Megatron's), the grown ``k`` / ``v``
+        are cut already, and every other leaf is cut on its "model"
+        dim here, with no communication.
+      * Under the batch split the rank's rows go to every rank, each
+        its share of the leaf's "model" dim (:func:`_exchange`); under
+        Megatron's heads the rank's KV heads, each rank its positions.
+        One ``all_to_all_single`` a leaf on the "model" group, on the
+        device the cache lies on: ``torch.distributed``, unlike the
+        reference, which leaves the resharding to GSPMD (its decode is
+        jitted with the cache's shardings as ``in_shardings``).
+
+    Every rank's data rows stay its data shard's: the rules split the
+    batch and the cache's batch dim over the same data dims."""
+    from ..sharding.specs import decode_cache_spec, mesh_sizes
+    sizes = mesh_sizes(mesh)
+    n = sizes.get("model", 1)
+    r = mesh.get_local_rank("model") if n > 1 else 0
+    out = {}
+    for name in list(cache):
+        grows = name in ("k", "v") and cfg.family not in GROWS_NOTHING
+        full = [*cache[name].shape[:1], rows, *cache[name].shape[2:]]
+        if grows:
+            full[2] = cache_len
+        src = m = None
+        if split.batch:
+            src, m = 1, n
+        elif split.heads and name in ("k", "v"):
+            src, m = 3, (n if split.kv == "split" else cfg.num_kv_heads)
+            full[3] = cfg.num_kv_heads
+        spec = decode_cache_spec(name, tuple(full), mesh, cfg.family)
+        dst = spec.index("model") if n > 1 and "model" in spec else None
+        if src is not None:         # popped into the call: freed once sent
+            t = _exchange(cache.pop(name), src, dst, m, mesh,
+                          cache_len if grows else None)
+        else:
+            t = cache.pop(name)
+            if dst is not None and not grows:
+                per = t.shape[dst] // n
+                t = t.narrow(dst, r * per, per).clone(
+                    memory_format=torch.contiguous_format)
+        want = tuple(d // _spread(ax, sizes) for d, ax in zip(full, spec))
+        if tuple(t.shape) != want:
+            raise RuntimeError(f"decode cache {name}: this rank's slice "
+                               f"{tuple(t.shape)}, {want} placed by "
+                               f"{spec}")
+        out[name] = t
+    return out
+
+
+def _spread(ax, sizes) -> int:
+    """How many ranks a spec entry (None, a mesh dim's name or a tuple
+    of names) splits its dim over."""
+    names = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+    return math.prod(sizes.get(a, 1) for a in names)
+
+
+def _exchange(t, src: int, dst: int, m: int, mesh, grow=None):
+    """The leaf whose ``t`` this rank holds of ``m`` equal chunks of dim
+    ``src`` (rank r the chunk r // (n / m): its rows, its KV heads or,
+    under Megatron's "pick", the one KV head its group of ranks reads)
+    as its share of dim ``dst`` with every chunk of ``src``, in one
+    ``all_to_all_single`` on the "model" group: rank j receives from
+    the first rank of each chunk's group (so a head that several ranks
+    hold comes from one of them) that rank's chunk of ``src`` at j's
+    slice of ``dst``, ``grow`` long in all (zeros past ``t``'s end; the
+    leaf's own length by default) and split n ways. Every decode-state
+    leaf has such a ``dst`` (``specs.cache_spec`` puts "model" on its
+    last dim past the batch that divides, and every config's state has
+    one). ``t`` is dropped as soon as its send buffer is made."""
+    import torch.distributed._functional_collectives as funcol
+    from .common import _model_group, _wait
+    n = mesh.size(mesh.mesh_dim_names.index("model"))
+    r = mesh.get_local_rank("model")
+    g = n // m
+    first = [int(i % g == 0) for i in range(n)]
+    size = grow or t.shape[dst]
+    per = size // n
+    shape = list(t.shape)
+    shape[dst] = per
+    if first[r]:
+        buf = t.new_zeros([n] + shape)
+        for j in range(n):
+            k = max(0, min(per, t.shape[dst] - j * per))
+            if k:
+                buf[j].narrow(dst, 0, k).copy_(t.narrow(dst, j * per, k))
+    else:
+        buf = t.new_empty([0] + shape)
+    del t
+    got = _wait(funcol.all_to_all_single(buf, first, [first[r]] * n,
+                                         _model_group(mesh)))
+    del buf
+    return got.movedim(0, src).flatten(src, src + 1)
 
 
 def batch_dims(batch, mesh) -> tuple:

@@ -213,14 +213,18 @@ def _layer(cfg, x, lp, positions, inv_freq):
 
 def backbone(cfg, params, x, positions, collect_kv=False):
     """The layer loop and the final norm; with ``collect_kv`` also the
-    per-layer (k, v), stacked to (L, B, S, KH, hd)."""
+    per-layer (k, v), stacked to (L, B, S, KH, hd): every position, or,
+    where the context's prefill hands its cache off to the split decode
+    (``common.keep_decode_positions``), this rank's decode positions,
+    cut as each layer ends."""
     inv_freq = _inv_freq(cfg, x.device)
     ks, vs = [], []
     for lp in layers(params):
         x, k, v = c.remat(cfg, _layer, cfg, x, lp, positions, inv_freq)
         if collect_kv:
-            ks.append(k)
-            vs.append(v)
+            ks.append(c.keep_decode_positions(k))
+            vs.append(c.keep_decode_positions(v))
+        del k, v                    # the layer's gathered keys and values
     x = _norm(cfg, x, params, "ln_f")
     return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
 
@@ -254,9 +258,12 @@ def loss_fn(cfg, params, batch):
 
 
 def prefill(cfg, params, batch):
-    """Full-sequence pass collecting the KV cache: every position's, on
-    every rank, under the sequence split too, where the last position's
-    logits come from the rank that holds it."""
+    """Full-sequence pass collecting the KV cache and the last position's
+    logits (under the sequence split from the rank that holds that
+    position). The cache is every position's, on every rank under the
+    sequence split too; or, where ``shards.sharded_prefill`` is given a
+    ``cache_len``, this rank's slice of the decode cache
+    (``common.keep_decode_positions``)."""
     x = embed_input(cfg, params, batch)
     x, (k, v) = backbone(cfg, params, x, _positions(x), collect_kv=True)
     cdt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)

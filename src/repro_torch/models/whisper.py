@@ -146,18 +146,23 @@ def _dec_layer(cfg, x, lp, enc_out):
 def decode_stack(cfg, params, tokens, enc_out, collect_kv=False):
     """The decoder layers and the final norm; with ``collect_kv`` also
     the per-layer (k, v, cross_k, cross_v), stacked on a leading L
-    axis. Under the sequence split ``tokens`` are this rank's positions
-    (their sinusoid rows its spans') and ``enc_out`` every frame: a
-    rank's queries cross-attend to the whole encoder output."""
+    axis (k and v cut to this rank's decode positions as each layer
+    ends where the prefill hands its cache off,
+    ``common.keep_decode_positions``). Under the sequence split
+    ``tokens`` are this rank's positions (their sinusoid rows its
+    spans') and ``enc_out`` every frame: a rank's queries cross-attend
+    to the whole encoder output."""
     dt = c.dtype_of(cfg)
     spans, total = c.step_spans(tokens.shape[1])
     x = params["embed"][tokens] + shards.take_spans(
         sinusoid_pos(total, cfg.d_model, dt, tokens.device), spans, 0)
     kvs = []
     for lp in tfm.layers(params):
-        x, kv = c.remat(cfg, _dec_layer, cfg, x, lp, enc_out)
+        x, (k, v, xk, xv) = c.remat(cfg, _dec_layer, cfg, x, lp, enc_out)
         if collect_kv:
-            kvs.append(kv)
+            kvs.append((c.keep_decode_positions(k),
+                        c.keep_decode_positions(v), xk, xv))
+        del k, v
     x = c.layernorm(x, params["ln_f_g"], params["ln_f_b"], cfg.norm_eps)
     return x, (tuple(torch.stack(t) for t in zip(*kvs)) if collect_kv
                else None)

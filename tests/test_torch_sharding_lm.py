@@ -32,14 +32,25 @@ MoE, elastic restore) and one dry-run cell.
   the JAX package's single-device ``decode_step`` (logits and each
   rank's slice of the updated cache at rtol 1e-4 / atol 1e-5); the
   column product bit-equal to the unsharded one.
+* The hand-off, in the same spawn: the port's prefill through
+  ``shards.sharded_prefill(..., cache_len=16)`` under the batch split
+  (each family, 4 rows), Megatron's heads with the KV heads split
+  (qwen2, 2 rows) and with each rank's one KV head picked (qwen2 with 1
+  KV head, 2 rows): each rank's slice against the JAX package's grown
+  prefill cache cut by ``decode_cache_spec``, then the split decode
+  steps from it against the JAX package's; under the batch split
+  qwen2's slice bit-equal to the port's own unsharded prefill of the
+  same rows, grown and placed by ``specs.distribute_tree``.
 * Dry run: one cell of reduced qwen2 (train, 8 x 64) on a fake group of
   8 ranks, mesh (2, 4), in a subprocess: ok, and its argument bytes are
   those of the reference's shard shapes; the traced peak of a train
   step at 2 and 6 layers, which grows per layer by less than a whole
   layer (the weights are gathered layer by layer); a decode cell of
   reduced qwen2 on (1, 4) under the columns split against the same cell
-  traced with no split; and a prefill cell of reduced hymba on (1, 4)
-  under the sequence split against the same cell with no split.
+  traced with no split; a prefill cell of reduced hymba on (1, 4)
+  under the sequence split against the same cell with no split; and
+  the traced peak of a 16-layer reduced qwen2's sequence-split prefill
+  with the hand-off and without it.
 """
 import dataclasses
 import json
@@ -446,6 +457,57 @@ def run(rank, world, d):
                                "cache": {k: v.numpy()
                                          for k, v in local.items()}}
 
+    # the hand-off: each case's prefill through ``sharded_prefill`` with
+    # the decode cache's length, then the split decode steps from this
+    # rank's slice; under the batch split qwen2's slice against the
+    # port's own unsharded prefill of each rank's rows, grown and placed
+    def grown(cache, length):
+        return {k: torch.cat([v, v.new_zeros(v.shape[:2] + (
+            length - v.shape[2],) + v.shape[3:])], 2)
+            if k in ("k", "v") and v.shape[2] < length else v
+            for k, v in cache.items()}
+
+    out["handoff"] = {}
+    for (arch, kind, rows), ref in inp["handoff"].items():
+        hcfg = dataclasses.replace(reduced(get_config(arch)),
+                                   dtype="float32")
+        if kind == "pick":
+            hcfg = dataclasses.replace(hcfg, num_kv_heads=1)
+        hmodel = build_model(hcfg)
+        hp = convert.lm_params_from_numpy(ref["params"], "cpu")
+        hpd = specs.distribute_tree(hp, specs.tree_placements(hp, mesh))
+        hb = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+        hbd = specs.distribute_tree(hb, specs.batch_placements(hb, mesh))
+        cache, _, hsplit = shards.sharded_prefill(
+            hmodel.prefill, hpd, hbd, hcfg, cache_len=inp["cache_len"])
+        got = {"split": hsplit.name, "kv": hsplit.kv,
+               "cache": {k: v.clone().numpy() for k, v in cache.items()}}
+        if (arch, kind) == ("qwen2_1p5b", "batch"):
+            per = rows // world
+            with torch.no_grad():
+                own = [hmodel.prefill(hp, {k: v[i:i + per]
+                                           for k, v in hb.items()})[0]
+                       for i in range(0, rows, per)]
+            own = grown({k: torch.cat([c[k] for c in own], 1)
+                         for k in own[0]}, inp["cache_len"])
+            placed = specs.distribute_tree(own, specs.decode_cache_placements(
+                own, mesh, hcfg.family))
+            got["bit_equal"] = {k: torch.equal(cache[k], v.to_local())
+                                for k, v in placed.items()}
+        view = shards.model_view(*shards.local_shards(hpd), mesh, ("data",),
+                                 split)
+        per = rows // mesh.size(0)
+        lo = per * mesh.get_local_rank("data")
+        htok = torch.from_numpy(ref["tokens"])[lo:lo + per]
+        got["logits"] = []
+        with torch.no_grad(), common.use_mesh(mesh, ("data",), split):
+            for t in range(htok.shape[1]):
+                lg, cache = hmodel.decode_step(view, cache,
+                                               htok[:, t:t + 1],
+                                               ref["prompt"] + t)
+                got["logits"].append(lg.numpy())
+        out["handoff"][(arch, kind, rows)] = got
+
     # the column product against the unsharded one, and the row product
     g = torch.Generator().manual_seed(3)
     xs = torch.randn((4, 1, 64), generator=g)
@@ -551,7 +613,8 @@ def run(rank, world, d):
                                                   logits.full_tensor()))}
     every = [None] * world
     dist.all_gather_object(every, {k: out[k] for k in
-                                   ("coords", "decode", "columns")})
+                                   ("coords", "decode", "columns",
+                                    "handoff")})
     out["ranks"] = every
     if rank == 0:
         pickle.dump(out, open(f"{d}/out.pkl", "wb"))
@@ -646,12 +709,60 @@ def decode_reference():
         out[arch] = {"params": jax.tree.map(np.asarray, params),
                      "cache": first, "tokens": tok[:, P:], "prompt": P,
                      "logits": logits,
-                     "final": jax.tree.map(np.asarray, cache)}
+                     "final": jax.tree.map(np.asarray, cache),
+                     "batch": jax.tree.map(np.asarray, batch)}
     return out
 
 
 @pytest.fixture(scope="module")
-def distributed(tmp_path_factory, reference_step, decode_reference):
+def pick_reference():
+    """As :func:`decode_reference` for reduced qwen2 with one KV head (4
+    query heads) on 2 rows: one row a data shard on (2, 2), where
+    Megatron's split gives each model rank 2 query heads and the one KV
+    head they read ("pick")."""
+    B, P, T, S = DECODE
+    cfg = dataclasses.replace(jcfg.reduced(jcfg.get_config("qwen2_1p5b")),
+                              dtype="float32", num_kv_heads=1)
+    model = jbuild(cfg)
+    params = model.init(jax.random.key(0))
+    tok = np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (2, P + T)).astype(np.int32)
+    cache, _ = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(
+        tok[:, :P])})
+    cache = {k: jnp.pad(v, [(0, 0), (0, 0), (0, S - P), (0, 0), (0, 0)])
+             for k, v in cache.items()}
+    first = jax.tree.map(np.asarray, cache)
+    step = jax.jit(model.decode_step)
+    logits = []
+    for t in range(T):
+        lg, cache = step(params, cache, jnp.asarray(tok[:, P + t:P + t + 1]),
+                         jnp.int32(P + t))
+        logits.append(np.asarray(lg))
+    return {"params": jax.tree.map(np.asarray, params), "cache": first,
+            "tokens": tok[:, P:], "prompt": P, "logits": logits,
+            "batch": {"tokens": tok[:, :P]}}
+
+
+# the hand-off's cases: (arch, the prefill's split, its rows of the
+# reference's batch); "pick" reads :func:`pick_reference`
+HANDOFF = ([(a, "batch", 4) for a in DECODE_ARCHS]
+           + [("qwen2_1p5b", "heads", 2), ("qwen2_1p5b", "pick", 2)])
+
+
+def _handoff_reference(decode_reference, pick_reference, case):
+    """The reference of a :data:`HANDOFF` case, cut to its rows."""
+    arch, kind, rows = case
+    ref = pick_reference if kind == "pick" else decode_reference[arch]
+    return {"params": ref["params"], "prompt": ref["prompt"],
+            "batch": {k: v[:rows] for k, v in ref["batch"].items()},
+            "tokens": ref["tokens"][:rows],
+            "cache": {k: v[:, :rows] for k, v in ref["cache"].items()},
+            "logits": [lg[:rows] for lg in ref["logits"]]}
+
+
+@pytest.fixture(scope="module")
+def distributed(tmp_path_factory, reference_step, decode_reference,
+                pick_reference):
     d = tmp_path_factory.mktemp("dist")
     params, tok = reference_step[:2]
     with open(d / "in.pkl", "wb") as f:
@@ -659,7 +770,12 @@ def distributed(tmp_path_factory, reference_step, decode_reference):
                      "masked": reference_step[5],
                      "decode": {a: {k: r[k] for k in ("params", "cache",
                                                       "tokens", "prompt")}
-                                for a, r in decode_reference.items()}}, f)
+                                for a, r in decode_reference.items()},
+                     "handoff": {case: {k: v for k, v in _handoff_reference(
+                         decode_reference, pick_reference, case).items()
+                         if k in ("params", "batch", "tokens", "prompt")}
+                         for case in HANDOFF},
+                     "cache_len": DECODE[3]}, f)
     (d / "worker.py").write_text(WORKER)
     r = subprocess.run([sys.executable, str(d / "worker.py"), str(d)],
                        env=_env(), capture_output=True, text=True,
@@ -867,6 +983,55 @@ def test_split_decode_matches_reference(distributed, decode_reference, arch):
                                        atol=1e-5, err_msg=f"{name} {coords}")
 
 
+@pytest.mark.parametrize("case", HANDOFF, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_prefill_hands_off_to_split_decode(distributed, decode_reference,
+                                           pick_reference, case):
+    """``sharded_prefill(..., cache_len=16)`` on ("data", "model") = (2,
+    2), in the prefill's split: "batch" (4 rows, each model rank its
+    row of its data shard's 2; its rows sent to every rank, each its 8
+    positions), Megatron's "heads" with the KV heads split (qwen2's 2
+    over 2 ranks) or picked (1 KV head, read by both ranks' query
+    heads, sent by one of them); each rank's cache is its slice of the
+    JAX package's prefill cache grown to 16 positions, cut by
+    ``decode_cache_spec``, at rtol 1e-4 / atol 1e-5, and the split
+    decode steps from it give the JAX package's ``decode_step`` logits
+    at :func:`test_split_decode_matches_reference`'s bounds."""
+    arch, kind, rows = case
+    ref = _handoff_reference(decode_reference, pick_reference, case)
+    mesh = specs.MeshShape(("data", "model"), (2, 2))
+    family = tcfg.get_config(arch).family
+    sizes = {"data": 2, "model": 2}
+    for r in distributed["ranks"]:
+        coords = dict(zip(("data", "model"), r["coords"]))
+        got = r["handoff"][case]
+        assert got["split"] == {"batch": "batch"}.get(kind, "heads+ffn")
+        assert got["kv"] == {"batch": ""}.get(kind, kind.replace(
+            "heads", "split"))
+        assert sorted(got["cache"]) == sorted(ref["cache"])
+        for name, want in ref["cache"].items():
+            spec = specs.decode_cache_spec(name, want.shape, mesh, family)
+            block = _block(want, spec, coords, sizes)
+            assert got["cache"][name].shape == block.shape, name
+            np.testing.assert_allclose(got["cache"][name], block, rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{name} {coords}")
+        assert len(got["logits"]) == DECODE[2]
+        for t, (g, w) in enumerate(zip(got["logits"], ref["logits"])):
+            np.testing.assert_allclose(
+                g, _block(w, ("data", None, "model"), coords, sizes),
+                rtol=1e-4, atol=1e-5, err_msg=f"step {t} at {coords}")
+
+
+def test_batch_handoff_is_bit_equal_to_distributed_cache(distributed):
+    """Under the batch split each rank computes its own row as the
+    unsharded prefill of that row does, so the hand-off only moves
+    values: qwen2's slice on every rank equals, bit for bit,
+    ``specs.distribute_tree`` of the port's unsharded prefill caches of
+    the ranks' rows (grown to 16 positions) by the decode placements."""
+    for r in distributed["ranks"]:
+        got = r["handoff"][("qwen2_1p5b", "batch", 4)]["bit_equal"]
+        assert got == {"k": True, "v": True}, r["coords"]
+
+
 def test_column_product_is_bit_equal(distributed):
     """Under the columns split a product with this rank's columns of a
     (64, 148) weight, all-gathered, equals the unsharded ``matmul`` bit
@@ -885,11 +1050,13 @@ def test_column_product_is_bit_equal(distributed):
 
 DRYRUN = r'''
 import dataclasses, json, sys
+import torch
 from torch.distributed.device_mesh import init_device_mesh
-from repro_torch.configs import ShapeSpec, get_config, reduced
+from repro_torch.configs import ShapeSpec, get_config, input_specs, reduced
 from repro_torch.launch import dryrun, mesh as tmesh
 from repro_torch.models.api import build_model
 from repro_torch.sharding import specs
+model_split = specs.model_split
 dryrun.init_fake_group(8)
 mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
 rec = dryrun.trace_cell(reduced(get_config("qwen2_1p5b")),
@@ -935,12 +1102,40 @@ m14 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
 specs.model_split = lambda *a, **k: specs.ModelSplit(4)
 prefill["none"] = dryrun.trace_cell(reduced(get_config("hymba_1p5b")), psh,
                                     m14)
+# a 16-layer reduced qwen2's prefill of 1 row of 1,024 positions on
+# (1, 4), 3 query heads over 1 KV head ("sequence"): the traced peak
+# with the hand-off to the split decode and without it
+from repro_torch.models import shards
+from repro_torch.tree import leaves
+specs.model_split = model_split
+dryrun.init_fake_group(4)
+m14 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+hcfg = dataclasses.replace(reduced(get_config("qwen2_1p5b"), 16),
+                           num_heads=3, num_kv_heads=1)
+hmodel = build_model(hcfg)
+hp = hmodel.param_specs()
+hpd = specs.distribute_tree(hp, specs.tree_placements(hp, m14))
+hb = input_specs(hcfg, ShapeSpec("p", "prefill", 1024, 1))["batch"]
+hbd = specs.distribute_tree(hb, specs.batch_placements(hb, m14))
+handoff = {}
+for cache_len in (None, 1024):
+    mem = dryrun.MemoryTracker([t for t in leaves(shards.local_shards(
+        (hpd, hbd))[0]) if isinstance(t, torch.Tensor)])
+    with mem:
+        cache, _, hsplit = shards.sharded_prefill(hmodel.prefill, hpd, hbd,
+                                                  hcfg, cache_len=cache_len)
+    handoff[str(cache_len)] = {
+        "peak": mem.peak, "split": hsplit.name,
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for t in cache.values())}
+    del cache
 for world, multi in ((256, False), (512, True)):
     dryrun.init_fake_group(world)
     m = tmesh.make_production_mesh(multi_pod=multi, device_type="cpu")
     meshes[str(world)] = [list(m.mesh_dim_names), list(m.mesh.shape)]
 print(json.dumps({"rec": rec, "rec81": rec81, "meshes": meshes,
-                  "peaks": peaks, "decode": decode, "prefill": prefill}))
+                  "peaks": peaks, "decode": decode, "prefill": prefill,
+                  "handoff": handoff}))
 '''
 
 
@@ -1064,6 +1259,21 @@ def test_dryrun_prefill_sequence_split(dryrun_out):
     ratio = seq["traced_flops_per_rank"] / none["traced_flops_per_rank"]
     assert 0.25 <= ratio <= 0.3, ratio
     assert seq["collectives"]["all-gather"] > 0
+
+
+def test_dryrun_prefill_handoff_peak(dryrun_out):
+    """A sequence-split prefill that hands its cache off to the split
+    decode keeps only each layer's slice of the keys and values: its
+    traced peak (``dryrun.MemoryTracker``, meta tensors, 16 layers of
+    reduced qwen2 on a fake (1, 4) mesh) sits below the same prefill's
+    without the hand-off by at least half the whole cache's bytes (the
+    whole cache there is every rank's result; the slice a quarter of
+    it, with the positions on "model")."""
+    whole, cut = (dryrun_out["handoff"][k] for k in ("None", "1024"))
+    assert whole["split"] == cut["split"] == "sequence"
+    assert 4 * cut["cache_bytes"] == whole["cache_bytes"] > 0
+    assert whole["peak"] - cut["peak"] >= whole["cache_bytes"] / 2, (
+        whole, cut)
 
 
 def test_meshes_on_fake_groups(dryrun_out):

@@ -29,6 +29,12 @@ functions on the same weights.
   capacity that drops, against the dispatch of the whole data shard.
   hymba's AdamW step with 2 microbatches on 4 rows (2 a data shard,
   which do not divide over 2 x 2) against the JAX package's step.
+  The hand-off to the split decode: per family the prefill with
+  ``cache_len=40`` (``shards.sharded_prefill``), each rank's slice
+  against the JAX package's prefill cache zero-padded to 40 positions
+  and cut by ``specs.decode_cache_spec``, then 3 split decode steps
+  ("columns") from that slice against the JAX package's
+  ``decode_step`` on the padded cache.
 * One process: the SSD scanned span by span, each span from a zero
   state with the earlier spans' states folded in (``mamba2.carry_in``),
   equals ``ssd_chunked`` over the whole sequence in f32; blockwise
@@ -61,6 +67,7 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 ARCHS = ["qwen2_1p5b", "granite_moe_3b_a800m", "mamba2_2p7b", "hymba_1p5b",
          "whisper_tiny"]
 B, S, FRAMES = 2, 32, 23
+CACHE_LEN, STEPS = 40, 3        # the hand-off's decode cache, decode steps
 LR = 1e-2                      # the AdamW step's, as the reference test's
 ADAM_EPS = 1e-8                # its eps
 TRAIN_ROWS, MICRO = 4, 2
@@ -107,6 +114,7 @@ def reference():
         out[arch] = {"params": _np(params), "batch": batch,
                      "cache": _np(cache), "logits": np.asarray(logits),
                      "loss": float(loss), "grads": _np(grads)}
+        out[arch].update(_decode_reference(model, params, cache, rows, rs))
     cfg = config(jcfg, "hymba_1p5b")
     model = jbuild(cfg)
     params = model.init(jax.random.key(0))
@@ -120,6 +128,27 @@ def reference():
                     "params": _np(p1),
                     "grads": _np(jax.jit(jax.grad(model.loss))(params, tb))}
     return out
+
+
+def _decode_reference(model, params, cache, rows, rs):
+    """The JAX package's prefill ``cache`` with its self-attention k / v
+    zero-padded to CACHE_LEN positions (the recurrent states, hymba's
+    window and whisper's cross cache as they are), and STEPS decode
+    steps on it from position S: {"padded": that cache, "decode_tokens",
+    "decode_logits"}."""
+    if model.cfg.family != "hybrid":
+        cache = {k: (jnp.pad(v, [(0, 0), (0, 0), (0, CACHE_LEN - S)]
+                             + [(0, 0)] * (v.ndim - 3))
+                     if k in ("k", "v") else v) for k, v in cache.items()}
+    padded = _np(cache)
+    tok = rs.randint(0, model.cfg.vocab_size, (rows, STEPS)).astype(np.int32)
+    step = jax.jit(model.decode_step)
+    logits = []
+    for t in range(STEPS):
+        lg, cache = step(params, cache, jnp.asarray(tok[:, t:t + 1]),
+                         jnp.int32(S + t))
+        logits.append(np.asarray(lg))
+    return {"padded": padded, "decode_tokens": tok, "decode_logits": logits}
 
 
 WORKER = r'''
@@ -215,6 +244,27 @@ def run(rank, world, d):
                    pairs=[sum(p[0] for p in pairs), sum(p[1] for p in pairs)],
                    logits=logits.numpy(),
                    cache={k: v.numpy() for k, v in cache.items()})
+        # the hand-off: this rank's slice of the decode cache of
+        # CACHE_LEN positions, then STEPS split decode steps from it
+        dims = shards.batch_dims(bd, mesh)
+        cache, _, split = shards.sharded_prefill(model.prefill, pd, bd, cfg,
+                                                 cache_len=inp["cache_len"])
+        first = {k: v.clone().numpy() for k, v in cache.items()}
+        dsplit = specs.model_split_decode(mesh)
+        view = shards.model_view(*shards.local_shards(pd), mesh, dims,
+                                 dsplit)
+        tok = torch.from_numpy(ref["decode_tokens"])
+        if "data" in dims:
+            row = mesh.get_local_rank("data")
+            tok = tok[row:row + 1]
+        steps = []
+        with torch.no_grad(), common.use_mesh(mesh, dims, dsplit):
+            for t in range(tok.shape[1]):
+                lg, cache = model.decode_step(view, cache, tok[:, t:t + 1],
+                                              batch["tokens"].shape[1] + t)
+                steps.append(lg.numpy())
+        res["handoff"] = {"split": split.name, "cache": first,
+                          "decode_split": dsplit.name, "logits": steps}
         grad_fns = {"grads": value_and_grad}
         if arch == "qwen2_1p5b":
             grad_fns["grads_thread"] = off_thread
@@ -288,9 +338,11 @@ def ranks(tmp_path_factory, reference):
     """Every rank's results of the 4-rank spawn."""
     d = tmp_path_factory.mktemp("seq")
     with open(d / "in.pkl", "wb") as f:
-        pickle.dump({**{a: {k: reference[a][k] for k in ("params", "batch")}
+        pickle.dump({**{a: {k: reference[a][k] for k in ("params", "batch",
+                                                          "decode_tokens")}
                         for a in ARCHS},
                      "configs": {a: config(tcfg, a) for a in ARCHS},
+                     "cache_len": CACHE_LEN,
                      "train_tokens": reference["train"]["tokens"],
                      "lr": LR, "micro": MICRO}, f)
     (d / "worker.py").write_text(WORKER)
@@ -334,6 +386,57 @@ def test_sequence_prefill_matches_unsharded_and_reference(ranks, reference,
                 np.testing.assert_allclose(got["cache"][name], w, rtol=1e-4,
                                            atol=1e-5,
                                            err_msg=f"{name} {r['coords']}")
+
+
+def _block(a, spec, coords, sizes):
+    """The block of ``a`` that the mesh rank at ``coords`` ({dim name:
+    index}) holds under ``spec``."""
+    idx = []
+    for d, ax in enumerate(spec):
+        if ax is None:
+            idx.append(slice(None))
+            continue
+        per = a.shape[d] // sizes[ax]
+        idx.append(slice(coords[ax] * per, (coords[ax] + 1) * per))
+    return a[tuple(idx)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sequence_prefill_hands_off_to_split_decode(ranks, reference, arch):
+    """``sharded_prefill(..., cache_len=40)`` under the sequence split:
+    every rank's cache is its slice of the JAX package's prefill cache
+    with the self-attention k / v zero-padded to 40 positions, as
+    ``specs.decode_cache_spec`` places it on ("data", "model") = (2, 2)
+    (its 20 positions of every row, 12 of them past the prompt on rank
+    1, whatever the prefill's zigzag; the states and the cross cache by
+    their "model" dim), at rtol 1e-4 / atol 1e-5; then 3 split decode
+    steps from it, with nothing in between, give the JAX package's
+    ``decode_step`` logits on the padded cache (the rank's data rows and
+    vocabulary slice) at rtol 1e-4 / atol 1e-5."""
+    ref = reference[arch]
+    mesh = specs.MeshShape(("data", "model"), (2, 2))
+    family = config(tcfg, arch).family
+    sizes = {"data": 2, "model": 2}
+    for r in ranks:
+        coords = dict(zip(("data", "model"), r["coords"]))
+        got = r[arch]["handoff"]
+        assert got["split"] == "sequence"
+        assert got["decode_split"] == "columns"
+        assert sorted(got["cache"]) == sorted(ref["padded"])
+        for name, want in ref["padded"].items():
+            spec = specs.decode_cache_spec(name, want.shape, mesh, family)
+            assert "model" in spec, name
+            block = _block(want, spec, coords, sizes)
+            assert got["cache"][name].shape == block.shape, name
+            np.testing.assert_allclose(got["cache"][name], block, rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{name} {coords}")
+        assert len(got["logits"]) == STEPS
+        rows = ref["decode_tokens"].shape[0]
+        for t, (g, w) in enumerate(zip(got["logits"], ref["decode_logits"])):
+            w = _block(w, ("data" if rows > 1 else None, None, "model"),
+                       coords, sizes)
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"step {t} at {coords}")
 
 
 DENSE_BOUND = ("qwen2_1p5b", "whisper_tiny")
