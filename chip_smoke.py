@@ -112,8 +112,8 @@ Phases (any failed check exits non-zero before the last line):
    unchanged plan's results are held to phase 3's. Then a
    ``GraphService(autotune=tuner)``: a PageRank request,
    ``ControlPlane.retune_job``, and a PageRank request equal to the
-   first (rtol 1e-5). The plane's lane-detail tracer makes each served
-   run feed the calibrator too; the sample counts and every measured
+   first (rtol 1e-5). The plane, given a lane-detail tracer, makes each
+   served run feed the calibrator too; the sample counts and every measured
    lane time the second fit saw are printed.
 11. ``DistributedEngine`` on a one-rank NCCL group (``FileStore`` in a
    temp dir): PageRank and BFS held to phase 3's (allclose, bit-equal),
@@ -1764,15 +1764,15 @@ def phase_autotune(main_res: dict, device) -> dict:
         # -- the service and the control plane ----------------------------
         svc = api.GraphService(cache=_seeded_cache(store), device=device,
                                autotune=tuner)
-        plane = api.ControlPlane(svc)
+        plane = api.ControlPlane(svc, tracer=api.Tracer(lane_detail=True))
         try:
             def request():
                 return svc.submit(fingerprint=fp, app="pagerank",
                                   config=api.PlanConfig(n_lanes=N_LANES)
                                   ).result(timeout=600)
-            # the plane installs a lane-detail tracer on the service, so
-            # each served run feeds the calibrator one sample per lane per
-            # iteration, beside the retune's sweeps: count them
+            # the plane's lane-detail tracer makes each served run feed
+            # the calibrator one sample per lane per iteration, beside
+            # the retune's sweeps: count them
             n_samples = {}
             (pr0, m0), n = _counted(request)
             out["launches"] += n

@@ -56,8 +56,8 @@ from .core.planner import PlanBundle, PlanConfig, Planner
 from .core.store import GraphStore
 from .core.types import Geometry, SchedulePlan
 from .graphs.formats import Graph, fingerprint as graph_fingerprint
-from .obs import (DriftAccumulator, LaneFootprint, PerfLedger, Span,
-                  SpanContext, Tracer, UtilizationAccumulator)
+from .obs import (DriftAccumulator, LaneFootprint, Span, SpanContext,
+                  Tracer, UtilizationAccumulator)
 from .serve_graph import (GraphService, GraphStoreCache, RequestHandle,
                           ServiceMetrics, UpdateResult)
 from .sharding import (LanePlacement, ShardedExecutor, ShardedLanes,
@@ -74,7 +74,7 @@ __all__ = [
     "DriftAccumulator", "Executor", "GASApp",
     "Geometry", "Graph", "GraphDelta", "GraphService", "GraphStore",
     "GraphStoreCache", "HW", "JobRecord", "JobScheduler", "JobStore",
-    "LaneFootprint", "LanePlacement", "PerfLedger", "PlanBundle",
+    "LaneFootprint", "LanePlacement", "PlanBundle",
     "PlanConfig", "Planner", "QueueFull", "QuotaExceeded",
     "RegroupPolicy", "RejectedJob", "RequestHandle", "RetunePolicy",
     "SCATTER_OPS", "SchedulePlan", "ServiceMetrics", "ShardedExecutor",

@@ -49,8 +49,9 @@ class ControlPlane:
     jobs: a :class:`JobStore` (e.g. with ``persist_path`` set); None
         builds a default one.
     tracer: the :class:`~repro_torch.obs.Tracer` for end-to-end job traces.
-        None reuses the service's tracer, or installs a fresh one on a
-        service that has none — the plane always traces, so
+        None reuses the service's tracer, or installs a fresh one without
+        lane detail on a service that has none (the fused run, with no
+        added synchronization) — the plane always traces, so
         ``GET /jobs/{id}/trace`` works out of the box.
     """
 
@@ -62,7 +63,7 @@ class ControlPlane:
             service_kwargs.setdefault("tracer", tracer)
         self.service = service or GraphService(**service_kwargs)
         if self.service.tracer is None:
-            self.service.tracer = tracer or obs.Tracer()
+            self.service.tracer = tracer or obs.Tracer(lane_detail=False)
         self.tracer = self.service.tracer
         self.jobs = jobs or JobStore()
         self._lock = threading.Lock()

@@ -8,8 +8,9 @@ is shared across every Executor on the same store and device.
 ``time_lanes`` samples feed the perf-model drift report, the
 utilization profiler (``utilization()``) and an attached autotune
 calibrator, and so does a ``run`` under a tracer with lane detail (one
-span and one device synchronization per lane); the multi-device
-counterpart is
+span and one device synchronization per lane); a ``run`` under a tracer
+without it keeps the fused launches and adds spans only. The
+multi-device counterpart is
 :class:`repro_torch.sharding.executor.ShardedExecutor`.
 
 Execution is FUSED by default: each lane is one packed payload run as a
@@ -211,35 +212,35 @@ class Executor:
         return init_props(self.store, self.app, self.device)
 
     def _iteration_traced(self, vprops, it: int):
-        """One iteration under an active tracer with lane detail: the
-        lanes one at a time, each under an ``executor.lane`` span that
-        carries its perf-model estimate and, once the device has
-        finished it, its bytes and achieved rate; then the merge and
-        Apply under ``executor.merge_apply``. The same payloads launch
-        in the same order into the same single merge as :meth:`gather`,
-        so the result equals the fused iteration's bit for bit."""
+        """One iteration's launches, merge and Apply under an active
+        tracer with lane detail: the lanes one at a time, each under an
+        ``executor.lane`` span that carries its perf-model estimate and,
+        once the device has finished it, its bytes and achieved rate;
+        then the merge and Apply under ``executor.merge_apply``. The
+        same payloads launch in the same order into the same single
+        merge as :meth:`gather`, so the result equals the fused
+        iteration's bit for bit."""
         est = self._lane_est
-        with obs.span("executor.iteration", "executor", it=it):
-            outs = []
-            for li, lane in enumerate(self.lanes):
-                if not lane:
-                    continue
-                e_i, kind_i = est[li] if li < len(est) else (0.0, "mixed")
-                n_entries = (len(self.plan.lanes[li])
-                             if li < len(self.plan.lanes) else 0)
-                t0 = time.perf_counter()
-                with obs.span("executor.lane", "executor", lane=li,
-                              kind=kind_i, est_time=e_i,
-                              n_entries=n_entries) as sp:
-                    outs.extend(self._run_payload(p, vprops) for p in lane)
-                    _synchronize(self.device)
-                    measured = time.perf_counter() - t0
-                    self._util_add(li, measured, span=sp)
-                self.drift.add(kind_i, e_i, measured)
-                self._calib_add(li, kind_i, measured)
-            with obs.span("executor.merge_apply", "executor", it=it):
-                new = self.app.apply(self._merge(outs), vprops, self.aux, it)
+        outs = []
+        for li, lane in enumerate(self.lanes):
+            if not lane:
+                continue
+            e_i, kind_i = est[li] if li < len(est) else (0.0, "mixed")
+            n_entries = (len(self.plan.lanes[li])
+                         if li < len(self.plan.lanes) else 0)
+            t0 = time.perf_counter()
+            with obs.span("executor.lane", "executor", lane=li,
+                          kind=kind_i, est_time=e_i,
+                          n_entries=n_entries) as sp:
+                outs.extend(self._run_payload(p, vprops) for p in lane)
                 _synchronize(self.device)
+                measured = time.perf_counter() - t0
+                self._util_add(li, measured, span=sp)
+            self.drift.add(kind_i, e_i, measured)
+            self._calib_add(li, kind_i, measured)
+        with obs.span("executor.merge_apply", "executor", it=it):
+            new = self.app.apply(self._merge(outs), vprops, self.aux, it)
+            _synchronize(self.device)
         return new
 
     def run(self, max_iters: Optional[int] = None, collect_history=False):
@@ -247,12 +248,18 @@ class Executor:
         (numpy), {"iterations", "history"})``. The convergence test runs
         on the host after every iteration, as in the reference.
 
-        When a tracer with ``lane_detail`` is active on this thread, each
-        iteration runs its lanes one at a time with a span and a device
+        Under an active tracer each iteration is an
+        ``executor.iteration`` span and ends with an
+        ``executor.converge`` span (``app.converged``: the host's
+        convergence read), and the reorder to original ids is an
+        ``executor.reorder`` span. With ``lane_detail`` the iteration
+        runs its lanes one at a time with a span and a device
         synchronization per lane (:meth:`_iteration_traced`: more host
-        waits, bit-identical results); otherwise the lanes launch back
-        to back and only the per-iteration makespan drift sample is
-        taken."""
+        waits, bit-identical results). Otherwise, traced or not, the
+        lanes launch back to back (``executor.issue``: the host's issue
+        of every launch, the merge and Apply) and the one
+        synchronization of the iteration follows (``executor.wait``);
+        only the per-iteration makespan drift sample is taken."""
         tracer = obs.current_tracer()
         lane_detail = (tracer is not None and tracer.lane_detail
                        and obs.current_ctx() is not None)
@@ -261,22 +268,30 @@ class Executor:
         history = []
         it_done = 0
         for it in range(iters):
-            t_it = time.perf_counter()
-            new = (self._iteration_traced(vprops, it) if lane_detail
-                   else self.iteration(vprops, it))
-            # the sample ends with the new properties on the device and
-            # before the convergence test, as the reference's
-            _synchronize(self.device)
-            self.drift.add("makespan", self._est_iteration,
-                           time.perf_counter() - t_it)
-            done = self.app.converged(vprops, new, it)
+            with obs.span("executor.iteration", "executor", it=it):
+                t_it = time.perf_counter()
+                if lane_detail:
+                    new = self._iteration_traced(vprops, it)
+                    _synchronize(self.device)
+                else:
+                    with obs.span("executor.issue", "executor", it=it):
+                        new = self.iteration(vprops, it)
+                    with obs.span("executor.wait", "executor", it=it):
+                        _synchronize(self.device)
+                # the sample ends with the new properties on the device
+                # and before the convergence test, as the reference's
+                self.drift.add("makespan", self._est_iteration,
+                               time.perf_counter() - t_it)
+                with obs.span("executor.converge", "executor", it=it):
+                    done = self.app.converged(vprops, new, it)
             it_done = it + 1
             if collect_history:
                 history.append(new.cpu().numpy())
             vprops = new
             if done:
                 break
-        out = vprops.cpu().numpy()[self.store.perm]  # back to original ids
+        with obs.span("executor.reorder", "executor"):
+            out = vprops.cpu().numpy()[self.store.perm]  # original ids
         return out, {"iterations": it_done, "history": history}
 
     # ------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Structured observability: tracing spans, perf-model drift, pipeline
-utilization and the perf ledger.
+"""Structured observability: tracing spans, perf-model drift and
+pipeline utilization.
 
 * :mod:`~repro_torch.obs.trace` — a lock-guarded :class:`Tracer`
   producing nested :class:`Span` records with thread-local context
@@ -14,14 +14,12 @@ utilization and the perf ledger.
   and do on the card (:func:`lane_traffic`), and measured lane times
   combined into achieved GB/s, operations per byte and %-of-peak
   (:class:`UtilizationAccumulator`).
-* :mod:`~repro_torch.obs.ledger` — :class:`PerfLedger`, the append-only
-  JSONL perf-regression ledger.
 
-Ports of the reference package's modules of the same names; trace,
-drift and ledger are framework-free copies.
+Ports of the reference package's modules of the same names; drift is a
+framework-free copy, and trace one that also records each span's thread
+CPU time and OS thread id.
 """
 from .drift import DriftAccumulator
-from .ledger import PerfLedger, flatten_metrics, git_sha
 from .profile import (LaneFootprint, UtilizationAccumulator,
                       lane_footprint, lane_footprints, lane_traffic,
                       launch_traffic, tensor_lane_bytes)
@@ -29,9 +27,8 @@ from .trace import (NOOP_SPAN, Span, SpanContext, Tracer, current,
                     current_ctx, current_tracer, span)
 
 __all__ = [
-    "DriftAccumulator", "LaneFootprint", "NOOP_SPAN", "PerfLedger",
-    "Span", "SpanContext", "Tracer", "UtilizationAccumulator",
-    "current", "current_ctx", "current_tracer", "flatten_metrics",
-    "git_sha", "lane_footprint", "lane_footprints", "lane_traffic",
-    "launch_traffic", "span", "tensor_lane_bytes",
+    "DriftAccumulator", "LaneFootprint", "NOOP_SPAN", "Span",
+    "SpanContext", "Tracer", "UtilizationAccumulator", "current",
+    "current_ctx", "current_tracer", "lane_footprint", "lane_footprints",
+    "lane_traffic", "launch_traffic", "span", "tensor_lane_bytes",
 ]

@@ -26,8 +26,17 @@ carriers instead:
   can't collide; starts are ``time.time()`` epoch so clocks line up
   to NTP accuracy).
 
-Timing: ``t_start`` is ``time.time()`` (comparable across processes),
-``dur`` is measured with ``perf_counter`` (monotonic, ns resolution).
+Timing: ``t_start`` is ``time.time()`` (comparable across processes,
+and the clock a ``torch.profiler`` trace maps to as ``ts +
+baseTimeNanoseconds / 1e3``), ``dur`` is measured with ``perf_counter``
+(monotonic, ns resolution). A span started and ended on one thread also
+carries ``cpu_ms``, that thread's CPU time over the span
+(``time.thread_time``): its wall time less ``cpu_ms`` is the time the
+thread was off the CPU (a device wait, I/O, or the interpreter lock).
+``tid`` is the OS thread id (``threading.get_native_id``), the id
+``torch.profiler`` gives the events of the thread that started it (the
+CUDA runtime calls of other threads carry an id derived from
+``pthread_self()`` instead).
 
 Export is the Chrome trace-event JSON format (``ph: "X"`` complete
 events, microsecond units), loadable in Perfetto / chrome://tracing.
@@ -78,7 +87,8 @@ class Span:
     """One timed interval. Created by a Tracer; recorded when ended."""
 
     __slots__ = ("name", "category", "trace_id", "span_id", "parent_id",
-                 "t_start", "dur", "attrs", "tid", "_tracer", "_pc0")
+                 "t_start", "dur", "attrs", "tid", "cpu_ms", "_tracer",
+                 "_pc0", "_tc0")
 
     def __init__(self, tracer: "Tracer", name: str, category: str,
                  trace_id: str, parent_id: Optional[str],
@@ -92,11 +102,15 @@ class Span:
         self.t_start = time.time() if t_start is None else t_start
         self.dur: Optional[float] = None          # seconds; None = open
         self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
-        self.tid = threading.get_ident() & 0xFFFFFFFF
+        self.tid = threading.get_native_id()
+        self.cpu_ms: Optional[float] = None
         self._tracer = tracer
         # perf_counter anchor for precise durations when t_start was
-        # not backdated by the caller
+        # not backdated by the caller; the thread-time anchor is read
+        # after it (and read first at the end), so cpu_ms <= wall where
+        # the thread clock and perf_counter agree
         self._pc0 = time.perf_counter() if t_start is None else None
+        self._tc0 = time.thread_time() if t_start is None else None
 
     @property
     def context(self) -> SpanContext:
@@ -118,6 +132,9 @@ class Span:
             return self
         if attrs:
             self.attrs.update(attrs)
+        if (self._tc0 is not None and t_end is None
+                and threading.get_native_id() == self.tid):
+            self.cpu_ms = (time.thread_time() - self._tc0) * 1e3
         if t_end is not None:
             self.dur = max(0.0, t_end - self.t_start)
         elif self._pc0 is not None:
@@ -132,7 +149,8 @@ class Span:
             "name": self.name, "cat": self.category,
             "trace_id": self.trace_id, "span_id": self.span_id,
             "parent_id": self.parent_id, "t_start": self.t_start,
-            "dur": self.dur, "tid": self.tid, "attrs": dict(self.attrs),
+            "dur": self.dur, "tid": self.tid, "cpu_ms": self.cpu_ms,
+            "attrs": dict(self.attrs),
         }
 
 
@@ -241,12 +259,15 @@ class Tracer:
     Ended spans are kept per trace id in an LRU of ``max_traces``
     traces, each capped at ``max_spans_per_trace`` (overflow increments
     a drop counter instead of growing without bound — a tracer wired
-    into a long-lived service must never be a leak).
+    into a long-lived service must never be a leak); ``stats()`` counts
+    the spans dropped and the traces evicted with their spans.
 
     ``lane_detail`` controls whether the executor switches to the
     per-lane traced execution path (a span and a device synchronization
     per lane, bit-identical results) when this tracer is active;
-    ``False`` keeps coarse spans only.
+    ``False`` keeps the fused run and its synchronizations, with one
+    span per iteration and per phase of it (issue, wait, convergence
+    read).
     """
 
     def __init__(self, max_traces: int = 256,
@@ -259,6 +280,8 @@ class Tracer:
         self._traces: "OrderedDict[str, List[Dict[str, Any]]]" = OrderedDict()
         self._dropped = 0
         self._recorded = 0
+        self._traces_evicted = 0
+        self._spans_evicted = 0
 
     # -- span creation -------------------------------------------------
     def start_trace(self, name: str, category: str = "",
@@ -271,8 +294,7 @@ class Tracer:
         with self._lock:
             self._traces[trace_id] = []
             self._traces.move_to_end(trace_id)
-            while len(self._traces) > self.max_traces:
-                self._traces.popitem(last=False)
+            self._evict()
         return sp
 
     def start_span(self, name: str, category: str = "",
@@ -295,6 +317,14 @@ class Tracer:
         return _Activation(self, ctx)
 
     # -- recording -----------------------------------------------------
+    def _evict(self) -> None:
+        """Drop the least recently started traces past ``max_traces``,
+        counting them and their spans (caller holds the lock)."""
+        while len(self._traces) > self.max_traces:
+            _, bucket = self._traces.popitem(last=False)
+            self._traces_evicted += 1
+            self._spans_evicted += len(bucket)
+
     def _record(self, sp: Span) -> None:
         d = sp.to_dict()
         with self._lock:
@@ -302,8 +332,7 @@ class Tracer:
             if bucket is None:
                 bucket = []
                 self._traces[sp.trace_id] = bucket
-                while len(self._traces) > self.max_traces:
-                    self._traces.popitem(last=False)
+                self._evict()
             if len(bucket) >= self.max_spans_per_trace:
                 self._dropped += 1
                 return
@@ -322,8 +351,7 @@ class Tracer:
             if bucket is None:
                 bucket = []
                 self._traces[parent.trace_id] = bucket
-                while len(self._traces) > self.max_traces:
-                    self._traces.popitem(last=False)
+                self._evict()
             for d in span_dicts:
                 if len(bucket) >= self.max_spans_per_trace:
                     self._dropped += 1
@@ -365,6 +393,8 @@ class Tracer:
             pid = pids.setdefault(d["trace_id"], len(pids))
             args = {k: v for k, v in d["attrs"].items()}
             args["span_id"] = d["span_id"]
+            if d.get("cpu_ms") is not None:
+                args["cpu_ms"] = d["cpu_ms"]
             if d["parent_id"] is not None:
                 args["parent_id"] = d["parent_id"]
             events.append({
@@ -389,4 +419,6 @@ class Tracer:
                 "traces": len(self._traces),
                 "spans_recorded": self._recorded,
                 "spans_dropped": self._dropped,
+                "traces_evicted": self._traces_evicted,
+                "spans_evicted": self._spans_evicted,
             }

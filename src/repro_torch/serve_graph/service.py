@@ -1384,10 +1384,14 @@ class GraphService:
         self.metrics.record_execution(store_hit, plan_hit)
         self._record_cost(job,
                           (t_store_ms + t_plan_ms + t_execute_ms) / 1e3)
-        self._finish(job, result=result, store_hit=store_hit,
-                     plan_hit=plan_hit, t_queue_ms=t_queue_ms,
-                     t_store_ms=t_store_ms, t_plan_ms=t_plan_ms,
-                     t_execute_ms=t_execute_ms)
+        # the result's fan-out to the handles, record_done and their
+        # wake-up: with service.store, .plan and .execute, the worker's
+        # time from pickup to hand-off is covered by spans
+        with obs.span("service.finish", "service"):
+            self._finish(job, result=result, store_hit=store_hit,
+                         plan_hit=plan_hit, t_queue_ms=t_queue_ms,
+                         t_store_ms=t_store_ms, t_plan_ms=t_plan_ms,
+                         t_execute_ms=t_execute_ms)
         # drift policy check AFTER the handles resolve: a retune sweeps
         # time_lanes + rebuilds plans, and must not delay the request
         # that happened to trip it. Sharded executors have no time_lanes

@@ -600,11 +600,16 @@ def _families(text):
 
 def test_control_plane_prometheus_matches_reference(graphs):
     """The same job through both control planes: the same metric
-    families, HELP/TYPE lines and label sets."""
+    families, HELP/TYPE lines and label sets. The port's plane gets a
+    lane-detail tracer, which the reference's plane installs by default
+    (the port's default tracer keeps the fused run and so records no
+    lane bandwidth)."""
     gj, gt = graphs
     out = []
     for plane, g in ((ControlPlane(device="cpu", workers=1,
-                                   default_geom=GEOM), gt),
+                                   default_geom=GEOM,
+                                   tracer=tapi.Tracer(lane_detail=True)),
+                      gt),
                      (JControlPlane(workers=1, default_geom=GEOM_J,
                                     default_path="ref"), gj)):
         with plane as cp:

@@ -117,7 +117,7 @@ def test_port_imports_no_jax_and_no_reference():
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for name in ('streaming', 'streaming.apply', 'streaming.delta', "
         "'streaming.regroup', 'sharding', 'sharding.executor', "
-        "'sharding.placement', 'obs', 'obs.profile', 'obs.ledger', "
+        "'sharding.placement', 'obs', 'obs.profile', 'obs.trace', "
         "'serve_graph', 'serve_graph.service', 'serve_graph.store_cache', "
         "'serve_graph.metrics', 'serve_graph.fingerprint', 'control', "
         "'control.scheduler', 'control.pool', 'control.jobs', "

@@ -1,5 +1,4 @@
-"""The port's utilization profiler and perf ledger against the JAX
-reference.
+"""The port's utilization profiler against the JAX reference.
 
 Per-lane footprints equal the reference's field by field, except
 ``index_bytes``: the port's payloads carry two more index arrays
@@ -9,8 +8,8 @@ int32 each), so its index bytes exceed the reference's by exactly
 count over the tensors a lane's launches take) stays within 10 % of the
 analytic ``total_bytes``. Utilization samples count what a lane must
 move on the card (``lane_traffic``), not the reference's TPU traffic
-model. ``UtilizationAccumulator`` and ``PerfLedger``
-give the reference's results on the inputs of ``tests/test_profile.py``.
+model. ``UtilizationAccumulator`` gives the reference's results on the
+inputs of ``tests/test_profile.py``.
 On the CPU no peak is known: utilization is None.
 """
 import dataclasses
@@ -20,14 +19,11 @@ import torch
 
 from repro import api as japi
 from repro.graphs.rmat import rmat as jrmat
-from repro.obs.ledger import (PerfLedger as JLedger,
-                              flatten_metrics as jflatten)
 from repro.obs.profile import UtilizationAccumulator as JAcc
 
 from repro_torch import api as tapi, convert, obs
 from repro_torch.core import perf_model
 from repro_torch.core.executor import Executor
-from repro_torch.obs.ledger import PerfLedger, flatten_metrics, git_sha
 from repro_torch.obs.profile import UtilizationAccumulator
 
 GEOM_J = japi.Geometry(U=512, W=512, T=512, E_BLK=128, big_batch=2)
@@ -218,51 +214,6 @@ def test_accumulator_chaining_retention_and_clear():
     assert len(acc.report()["lanes"]) == UtilizationAccumulator._MAX_LANES
     acc.clear()
     assert acc.report()["kinds"] == {} and acc.report()["lanes"] == {}
-
-
-# -- PerfLedger (the reference's inputs) --------------------------------
-
-def test_flatten_metrics_equal_reference():
-    doc = {"a": 1, "b": {"c": 2.5, "flag": True, "s": "txt"},
-           "xs": [3, {"d": 4}]}
-    assert flatten_metrics(doc) == jflatten(doc) == \
-        {"a": 1.0, "b.c": 2.5, "xs.0": 3.0, "xs.1.d": 4.0}
-    big = {str(i): i for i in range(500)}
-    assert flatten_metrics(big, max_keys=16) == jflatten(big, max_keys=16)
-
-
-def _ledger_run(cls, path):
-    led = cls(str(path))
-    for sha in ("a", "b", "c"):
-        led.append("x", {"p50_run_s": 1.0, "teps": 10.0}, sha=sha)
-    led.append("x", {"p50_run_s": 2.0, "teps": 20.0}, sha="d",
-               geom_key="g", spec_version=2)
-    led.append("y", {"lane_gbps": 10.0}, sha="a")
-    led.append("y", {"lane_gbps": 1.0}, sha="b")
-    with open(path, "a") as f:
-        f.write("{truncated\n\nnot json at all\n")
-    led.append("z", {"v": 1.0}, sha="a", meta={"card": "none"})
-    return led
-
-
-def test_ledger_equals_reference(tmp_path):
-    a = _ledger_run(JLedger, tmp_path / "ref.jsonl")
-    b = _ledger_run(PerfLedger, tmp_path / "port.jsonl")
-
-    def strip(recs):
-        return [{k: v for k, v in r.items() if k != "created_at"}
-                for r in recs]
-    assert strip(b.records()) == strip(a.records())
-    assert len(b.records()) == 7
-    rep_a, rep_b = a.compare(), b.compare()
-    assert rep_b == rep_a
-    assert rep_b["regressions"] == 2 and rep_b["flagged"] == 3
-    assert b.render_report(rep_b).replace(b.path, a.path) == \
-        a.render_report(rep_a)
-    empty = PerfLedger(str(tmp_path / "absent.jsonl"))
-    assert empty.records() == [] and empty.compare() == {
-        "benches": {}, "flagged": 0, "regressions": 0, "tolerance": 0.25}
-    assert isinstance(git_sha(), str) and git_sha()
 
 
 def test_footprint_dataclass_matches_reference_fields():

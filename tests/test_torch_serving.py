@@ -246,14 +246,17 @@ def test_traced_lane_run_is_bit_identical(services, fuse_lanes):
         assert a["kind"] in ("little", "big", "mixed")
         assert a["bytes"] > 0 and a["gbps"] >= 0
     assert ex.utilization()["kinds"]           # the lanes were measured
-    # a tracer without lane detail keeps the fused run: no lane spans
+    # a tracer without lane detail keeps the fused run: no lane or
+    # merge spans, one iteration span per iteration
     coarse = tapi.Tracer(lane_detail=False)
     root = coarse.start_trace("job")
     with coarse.activate(root.context):
-        again, _ = ex.run()
+        again, ameta = ex.run()
     root.end()
     assert torch.equal(torch.from_numpy(again), torch.from_numpy(want))
-    assert _lane_spans(coarse, root.trace_id) == ([], [], [])
+    lanes, merges, iters = _lane_spans(coarse, root.trace_id)
+    assert lanes == [] and merges == []
+    assert len(iters) == ameta["iterations"] == wmeta["iterations"]
 
 
 def test_traced_lane_spans_match_reference(services):
