@@ -7,15 +7,16 @@ and check it; the quickest proof that the port still starts on the card.
 Phases (any failed check exits non-zero before the last line):
 
 1. Device and build: the card's name and power limit, then the GAS
-   kernel built from ``src/repro_torch/kernels/csrc/gas_kernel.cu``, once
-   for each chunk size of the sweep that chose ``CHUNK_BLOCKS`` (one
-   ``nvcc`` each, all started together).
+   kernel built from ``src/repro_torch/kernels/csrc/gas_kernel.cu`` (the
+   named ops' library and phase 15's generated variants, one ``nvcc``
+   each, all started together).
 2. Kernel vs plain version on the card, on inputs made from a numpy seed:
    every gather mode (sum, min, max, or) and scatter op, both input forms
    (Little, Big), both launch forms (per entry, packed lane), at the
    geometries (E_BLK, W, T) of the reference's kernel sweep, and a heavy
-   tile of 10 * CHUNK_BLOCKS + 7 blocks, half of its edges to one hub
-   slot, with scattered pads. min, max and or must match exactly; sum
+   tile of about 10.5 chunks of ``CHUNK_EDGES`` live edges, half of its
+   edges to one hub slot, with scattered pads, beside a tile with no live
+   edge. min, max and or must match exactly; sum
    within the worst-case in-order fp32 summation error of the exact
    (fp64) sum, and on the graph payloads also within rtol 1e-5 / atol
    1e-5 of the plain version (whose ``scatter_reduce`` adds in another
@@ -44,7 +45,13 @@ Phases (any failed check exits non-zero before the last line):
    JSON line: per kernel its launches on the main path, error against
    the plain version, its time, the plain version's time, one
    ``scatter_reduce`` over pre-gathered values (``library_ms``) and the
-   least time the card could take (``bound_ms``).
+   least time the card could take (``bound_ms``). Then the shapes of
+   urand20's Big lanes (``phase_urand_big``): a uniform graph of 2**20
+   vertices and in-degree 32 (as GAP urand at scale 20 stored both
+   ways), the Big blocking of a quarter of its partitions packed two
+   batches a payload as the plan packs them, its live share, and the
+   kernel's time (PageRank sum/copy, SSSP min/add_weight) beside the
+   bound of the live-edge stream.
 5. Sharded path on the main path's store: ``api.compile(..., shard=1)``
    and two owners on the one card (``shard=[cuda:0, cuda:0]``: a test of
    the two-owner path, not a multi-card number), and every card when
@@ -317,7 +324,7 @@ GEOMETRIES = [(128, 512, 512), (256, 512, 512), (128, 1024, 512),
 MODE_OPS = [("sum", "copy"), ("sum", "add_weight"), ("min", "copy"),
             ("min", "add_weight"), ("max", "copy"), ("max", "add_weight"),
             ("or", "copy")]
-CHUNK_SWEEP = (16, 32, 64)        # the chunk sizes CHUNK_BLOCKS is chosen from
+CHUNK_SWEEP = (2048, 4096, 8192)  # the chunk sizes CHUNK_EDGES is chosen from
 
 
 class CheckFailed(Exception):
@@ -422,16 +429,18 @@ def _host_payloads(geom, seed: int):
 
 
 def _heavy_tile(geom, device, rng):
-    """Kernel arguments of three tiles, the first of 10 * CHUNK_BLOCKS + 7
-    blocks: half of its edges go to one hub slot, and a quarter of all
-    slots are pads scattered through the blocks (not a prefix)."""
+    """Padded blocks of four tiles, the first of about 10.5 chunks of
+    live edges: half of its edges go to one hub slot, a quarter of all
+    slots are pads scattered through the blocks (not a prefix), and the
+    last tile has no live edge."""
     import numpy as np
     import torch
     from repro_torch.kernels import gas_kernel
 
-    c, n_win = gas_kernel.CHUNK_BLOCKS, 4
-    sizes = [10 * c + 7, 3, c + 1]
-    tile_id = np.repeat(np.arange(3), sizes).astype(np.int32)
+    n_win = 4
+    c = -(-gas_kernel.CHUNK_EDGES * 4 // (3 * geom.E_BLK))  # blocks a chunk
+    sizes = [10 * c + c // 2, 3, c + 1, 2]
+    tile_id = np.repeat(np.arange(4), sizes).astype(np.int32)
     shape = (tile_id.shape[0], geom.E_BLK)
     dst = rng.integers(0, geom.T, shape)
     dst[(rng.random(shape) < 0.5) & (tile_id[:, None] == 0)] = 17
@@ -439,7 +448,7 @@ def _heavy_tile(geom, device, rng):
         "src_local": rng.integers(0, geom.W, shape),
         "dst_local": dst,
         "weights": rng.random(shape, dtype=np.float32),
-        "valid": rng.random(shape) >= 0.25,
+        "valid": (rng.random(shape) >= 0.25) & (tile_id[:, None] != 3),
         "window_id": rng.integers(0, n_win, shape[0]),
         "tile_id": tile_id,
     }
@@ -449,19 +458,21 @@ def _heavy_tile(geom, device, rng):
 
 
 def _launch_blocks(a, vwin, geom, mode, op, lo=0, hi=None):
-    """The kernel on blocks [lo, hi) of ``a`` (whole tiles)."""
+    """The kernel on blocks [lo, hi) of ``a`` (whole tiles), over the
+    live-edge stream derived from them."""
     import torch
     from repro_torch.kernels import gas_kernel, ops
+    from repro_torch.kernels.little_pipeline import _blocked
 
     tid = a["tile_id"][lo:hi].cpu().numpy()
     tid = tid - tid[0]
-    tbs = ops.tile_block_start(tid, int(tid[-1]) + 1)
-    index = [torch.from_numpy(x).to(vwin.device)
-             for x in (tbs, ops.tile_chunk_start(tbs))]
-    return gas_kernel.gas_tiles(
-        vwin, *(a[k][lo:hi] for k in ("src_local", "dst_local", "weights",
-                                      "valid", "window_id")),
-        *index, scatter_op=op, mode=mode, t=geom.T)
+    blocks = {k: a[k][lo:hi] for k in ("src_local", "dst_local", "weights",
+                                       "valid", "window_id")}
+    blocks["tile_block_start"] = torch.from_numpy(ops.tile_block_start(
+        tid, int(tid[-1]) + 1)).to(vwin.device)
+    blocks["geom"] = geom
+    return gas_kernel.gas_tiles(vwin, *_blocked(ops.edge_stream(blocks)),
+                                scatter_op=op, mode=mode, t=geom.T)
 
 
 def phase_heavy_tile(device, seed: int) -> dict:
@@ -699,10 +710,10 @@ def phase_main_path(device, scale=SCALE, edge_factor=EDGE_FACTOR, seed=SEED,
 def _bound_ms(calls) -> tuple:
     """(bound ms, what bounds it, bytes) of the sum/copy launches: the
     bytes and operations each launch must at least move and do on this
-    run's data (``obs.launch_traffic``: ``valid`` for every padded slot;
-    src and dst of every real edge; the per-block window ids and the
-    tile index pair; each distinct source value the real edges read,
-    once; the output tiles; one combine per real edge)."""
+    run's data (``obs.launch_traffic``: src and dst of every live edge
+    of the payload's stream; the tile edge and chunk indices; each
+    distinct source value the edges read, once; the output tiles; one
+    combine per live edge)."""
     from repro_torch.obs import launch_traffic
     nbytes = n_ops = 0
     for _, p in calls:
@@ -741,7 +752,7 @@ def _library_ms(calls, geom, v_pad: int, device, reps: int) -> float:
         0, idx, vals, reduce="sum", include_self=True), reps)
 
 
-def _pagerank_launch(vwin, p, geom, tcs=None, chunk_blocks=None):
+def _pagerank_launch(vwin, p, geom, tcs=None, chunk_edges=None):
     from repro_torch.kernels import gas_kernel
     from repro_torch.kernels.little_pipeline import _blocked
 
@@ -750,7 +761,7 @@ def _pagerank_launch(vwin, p, geom, tcs=None, chunk_blocks=None):
         arrays = arrays[:-1] + (tcs,)
     return gas_kernel.gas_tiles(
         vwin, *arrays, scatter_op="copy", mode="sum", t=geom.T,
-        chunk_blocks=chunk_blocks or gas_kernel.CHUNK_BLOCKS)
+        chunk_edges=chunk_edges or gas_kernel.CHUNK_EDGES)
 
 
 def _pagerank_plain(vwin, p, geom, f=lambda x: x):
@@ -804,20 +815,19 @@ def phase_kernel_line(main_res: dict, device, reps: int = REPS):
 
     # each chunk size of the sweep, in turns (forward, then backward),
     # every launch within fp32 summation error of the exact sum
-    tbs_host = [p["tile_block_start"].cpu().numpy() for _, p in calls]
     exact = [(lambda f, v=vwin, q=p: plain(v.double(), q, f))
              for vwin, p in calls]
     sweep, kernel_out, share = {}, None, 0.0
     for c in CHUNK_SWEEP:
-        tcs = [torch.from_numpy(gas_kernel.tile_chunk_start(t, c)).to(device)
-               for t in tbs_host]
+        tcs = [gas_kernel.tile_chunk_start(p["tile_edge_start"], c)
+               for _, p in calls]
         run = (lambda c=c, tcs=tcs: [
             _pagerank_launch(vwin, p, geom, tc, c)
             for (vwin, p), tc in zip(calls, tcs)])
         out = run()
         for k, plain64 in zip(out, exact):
             share = max(share, fp32_sum_share(k, plain64))
-        if c == gas_kernel.CHUNK_BLOCKS:
+        if c == gas_kernel.CHUNK_EDGES:
             kernel_out = out
         sweep[c] = {"run": run, "ms": [],
                     "ctas": sum(int(tc[-1]) for tc in tcs)}
@@ -825,7 +835,7 @@ def phase_kernel_line(main_res: dict, device, reps: int = REPS):
         sweep[c]["ms"].append(cuda_ms(sweep[c]["run"], reps))
     chunk_sweep = {c: {"ms": sum(v["ms"]) / len(v["ms"]), "ctas": v["ctas"]}
                    for c, v in sweep.items()}
-    kernel_ms = chunk_sweep[gas_kernel.CHUNK_BLOCKS]["ms"]
+    kernel_ms = chunk_sweep[gas_kernel.CHUNK_EDGES]["ms"]
     plain_out = run_plain()
     err = max(float((k - r).abs().max())
               for k, r in zip(kernel_out, plain_out))
@@ -836,13 +846,14 @@ def phase_kernel_line(main_res: dict, device, reps: int = REPS):
     # each launch alone: its time beside its CTAs and real edges
     per_payload = []
     for vwin, p in calls:
-        blocks = torch.diff(p["tile_block_start"]).cpu()
+        edges = torch.diff(p["tile_edge_start"]).cpu()
         per_payload.append({
             "kind": p["kind"], "n_blocks": p["n_blocks"],
             "n_out_tiles": p["n_out_tiles"],
-            "max_tile_blocks": int(blocks.max()),
+            "max_tile_edges": int(edges.max()),
             "ctas": int(p["tile_chunk_start"][-1]),
-            "grid": gas_kernel.max_chunks(p["n_blocks"], p["n_out_tiles"]),
+            "grid": gas_kernel.max_chunks(int(p["edge_src"].numel()),
+                                          p["n_out_tiles"]),
             "real_edges": int(p["num_real_edges"]),
             "ms": cuda_ms(lambda: _pagerank_launch(vwin, p, geom), reps)})
 
@@ -866,8 +877,8 @@ def phase_kernel_line(main_res: dict, device, reps: int = REPS):
         "bound_by": bound_by,
         "library_ms": library_ms,
         "bound_bytes": nbytes,
-        "chunk_blocks": gas_kernel.CHUNK_BLOCKS,
-        "ctas": chunk_sweep[gas_kernel.CHUNK_BLOCKS]["ctas"],
+        "chunk_edges": gas_kernel.CHUNK_EDGES,
+        "ctas": chunk_sweep[gas_kernel.CHUNK_EDGES]["ctas"],
         "chunk_sweep": chunk_sweep,
         "shapes": "PageRank sum/copy, one iteration's launches "
                   f"({len(payloads)} payloads)",
@@ -976,6 +987,94 @@ def phase_breakdown(main_res: dict, device, reps: int = REPS) -> dict:
     return {"device_ms": dev_ms, "host_ms": host_ms,
             "big_gather_bytes": gather_bytes,
             "big_gather_bound_ms": gather_bytes / H100_BYTES_PER_S * 1e3}
+
+
+# the shapes of urand20's Big lanes: GAP urand at scale 20 (2**20
+# vertices, 33.55 M edges stored both ways) as uniform sources over 2**20
+# vertices, in-degree 32, and the batches of its Big blocking that phase 4
+# times (4 of 16, 2 a payload as the port's plan packs them on 8 lanes);
+# only those batches' destinations get edges, which is what their blocks
+# hold in the whole graph, at a quarter of the host's preparation
+URAND_SCALE, URAND_DEGREE, URAND_BATCHES = 20, 32, 4
+
+
+def phase_urand_big(device, reps: int = REPS, scale: int = URAND_SCALE,
+                    batches: int = URAND_BATCHES) -> dict:
+    """The GAS kernel at the shapes of urand20's Big lanes: the live
+    share of the padded blocks, and per launch form (PageRank sum/copy,
+    SSSP min/add_weight) the kernel's time beside the bound of the
+    stream it reads (``obs.launch_traffic``), each launch held to the
+    plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.core import partition as part
+    from repro_torch.core.gas import SCATTER_OPS
+    from repro_torch.core.types import Geometry
+    from repro_torch.graphs.formats import from_edges
+    from repro_torch.kernels import gas_kernel, ops
+    from repro_torch.kernels.little_pipeline import _blocked
+    from repro_torch.obs import launch_traffic
+
+    geom = Geometry()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    n, n_dst = 1 << scale, batches * geom.big_batch * geom.U
+    m = n_dst * URAND_DEGREE
+    src, dst = rng.integers(0, n, m), rng.integers(0, n_dst, m)
+    keep = src != dst
+    g = from_edges(src[keep], dst[keep], num_vertices=n,
+                   weights=rng.integers(1, 256, int(keep.sum())))
+    infos, edges = part.partition_graph(g, geom)
+    size = geom.big_batch
+    works = [part.block_big(edges, infos[b * size:(b + 1) * size], geom)
+             for b in range(batches)]
+    payloads = [ops._upload_payload(ops._pack_group(
+        [ops._entry_np(w, 0, w.n_blocks) for w in works[i:i + 2]]), device)
+        for i in range(0, batches, 2)]
+    v_pad = part.padded_num_vertices(g.num_vertices, geom)
+    res = {"V": g.num_vertices, "E": g.num_edges, "batches": batches,
+           "payloads": len(payloads), "t_prep_s": time.perf_counter() - t0,
+           "padded_slots": sum(p["n_blocks"] * geom.E_BLK for p in payloads),
+           "live_edges": sum(int(p["edge_src"].numel()) for p in payloads),
+           "padded_bytes": sum(sum(p[k].numel() * p[k].element_size()
+                                   for k in ("src_local", "dst_local",
+                                             "weights", "valid"))
+                               for p in payloads),
+           "stream_bytes": sum(sum(p[k].numel() * p[k].element_size()
+                                   for k in ops._STREAM_KEYS)
+                               for p in payloads)}
+    res["live_share"] = res["live_edges"] / res["padded_slots"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    vprops = torch.rand(v_pad, generator=gen, device=device)
+    calls = _calls(payloads, vprops, geom)
+    res["forms"] = {}
+    for mode, op in (("sum", "copy"), ("min", "add_weight")):
+        fn = SCATTER_OPS[op]
+
+        def run(mode=mode, op=op):
+            return [ops.run_lane(p, vprops, SCATTER_OPS[op], mode, "cuda",
+                                 op)[0] for p in payloads]
+        for got, p in zip(run(), payloads):
+            want = ops.run_lane(p, vprops, fn, mode, "ref", op)[0]
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+                  if mode == "sum" else torch.equal(got, want),
+                  f"urand Big lanes {mode}/{op}: kernel != plain")
+        nbytes = n_ops = 0
+        for _, p in calls:
+            b, o = launch_traffic(p, op)
+            nbytes, n_ops = nbytes + b, n_ops + o
+        bound_ms = max(nbytes / H100_BYTES_PER_S,
+                       n_ops / H100_FP32_OPS_PER_S) * 1e3
+        # the launches alone: the Big gathers done beforehand
+        kernel_ms = cuda_ms(lambda mode=mode, op=op: [
+            gas_kernel.gas_tiles(vwin, *_blocked(p), scatter_op=op,
+                                 mode=mode, t=geom.T) for vwin, p in calls],
+            reps)
+        res["forms"][f"{mode}/{op}"] = {
+            "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+            "bound_bytes": nbytes, "roofline_pct": 100 * bound_ms / kernel_ms,
+            "ctas": sum(int(p["tile_chunk_start"][-1]) for p in payloads)}
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2715,6 +2814,15 @@ def custom_apps() -> dict:
     }
 
 
+def _with_weights(p: dict, weights) -> dict:
+    """Payload ``p`` with other edge weights, its live-edge stream
+    derived anew from them."""
+    from repro_torch.kernels import ops
+    q = dict(p, weights=weights)
+    q.update(ops.edge_stream(q))
+    return q
+
+
 def _udf_launch(vwin, p, geom, app):
     from repro_torch.kernels import gas_kernel
     from repro_torch.kernels.little_pipeline import _blocked
@@ -2852,7 +2960,7 @@ def phase_custom_udf(main_res: dict, kernel: dict, build_s: dict, device,
                              dtype=torch.int32, generator=gen)
                if app.gather == "or" else
                torch.rand(vp.shape, device=device, generator=gen) * 4 - 1)
-        rcalls = [(v, dict(p, weights=torch.rand(
+        rcalls = [(v, _with_weights(p, torch.rand(
             p["weights"].shape, device=device, generator=gen)))
             for v, p in _calls(payloads, rnd, geom)]
         held = _udf_held_to_plain(rcalls, geom, app)
@@ -4345,29 +4453,27 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         udf_apps = custom_apps()
 
-        def timed_build(prelude="", chunk=gas_kernel.CHUNK_BLOCKS):
+        def timed_build(prelude=""):
             t = time.perf_counter()
-            lib = _build.build("gas_kernel", prelude, GAS_CHUNK_BLOCKS=chunk)
+            lib = _build.build("gas_kernel", prelude)
             return lib, time.perf_counter() - t
-        # every library at once: the chunk sweep's named-op builds and
-        # phase 15's generated variants, one nvcc each
-        with ThreadPoolExecutor(len(CHUNK_SWEEP) + len(udf_apps)) as pool:
-            sweep = [pool.submit(timed_build, "", c) for c in CHUNK_SWEEP]
+        # every library at once: the named ops' and phase 15's generated
+        # variants, one nvcc each
+        with ThreadPoolExecutor(1 + len(udf_apps)) as pool:
+            named = pool.submit(timed_build)
             udf_builds = {n: pool.submit(timed_build, gas_kernel.udf_prelude(
                 a.scatter, a.gather)) for n, a in udf_apps.items()}
-            libs = [f.result()[0] for f in sweep]
+            main_lib = named.result()[0].name
             result["udf_build_s"] = {n: f.result()[1]
                                      for n, f in udf_builds.items()}
-        for c in CHUNK_SWEEP:
-            gas_kernel.build(c)
+        gas_kernel.build()
         for a in udf_apps.values():
             gas_kernel.build(scatter_fn=a.scatter, mode=a.gather)
         result["build_s"] = time.perf_counter() - t0
-        log(f"phase 1: built gas_kernel for chunks of {CHUNK_SWEEP} blocks "
-            f"and the variants generated for {len(udf_apps)} custom scatter "
-            f"UDFs in {result['build_s']:.1f} s, all at once (nvcc s per "
-            f"variant: {json.dumps(result['udf_build_s'])})")
-        main_lib = libs[CHUNK_SWEEP.index(gas_kernel.CHUNK_BLOCKS)].name
+        log(f"phase 1: built gas_kernel and the variants generated for "
+            f"{len(udf_apps)} custom scatter UDFs in "
+            f"{result['build_s']:.1f} s, all at once (nvcc s per variant: "
+            f"{json.dumps(result['udf_build_s'])})")
         ptxas = sorted({line.split(":", 1)[-1].strip() for line in
                         _build.build_log.get(main_lib, "").splitlines()
                         if "registers" in line or "spill" in line})
@@ -4390,20 +4496,24 @@ def main(argv=None) -> int:
                           if not k.startswith("_")}))
         kernel, per_payload = phase_kernel_line(main_res, device)
         result["per_payload"] = per_payload
-        log("phase 4: chunk sweep (chunk blocks: ms of the 8 launches, "
+        log("phase 4: chunk sweep (chunk edges: ms of the 8 launches, "
             "CTAs): " + "; ".join(
                 f"{c}: {v['ms']:.4f} ms, {v['ctas']}"
                 for c, v in kernel["chunk_sweep"].items()))
         log("phase 4: per launch (kind, blocks, tiles, heaviest tile's "
-            "blocks, CTAs, real edges, ms): " + "; ".join(
+            "edges, CTAs, real edges, ms): " + "; ".join(
                 f"{q['kind']} {q['n_blocks']} {q['n_out_tiles']} "
-                f"{q['max_tile_blocks']} {q['ctas']} {q['real_edges']} "
+                f"{q['max_tile_edges']} {q['ctas']} {q['real_edges']} "
                 f"{q['ms']:.4f}" for q in per_payload))
         result["per_entry"] = phase_per_entry(main_res, device)
         log("phase 4: per-entry form: " + json.dumps(result["per_entry"]))
         result["breakdown"] = phase_breakdown(main_res, device)
         result["main_path"] = {k: v for k, v in main_res.items()
                                if not k.startswith("_")}
+        t0 = time.perf_counter()
+        result["urand_big"] = phase_urand_big(device)
+        log(f"phase 4: urand20's Big lanes ({time.perf_counter() - t0:.1f} "
+            "s): " + json.dumps(result["urand_big"]))
 
         t0 = time.perf_counter()
         result["sharded"] = phase_sharded(main_res, device)

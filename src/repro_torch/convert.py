@@ -38,12 +38,12 @@ def geometry_from(geom) -> Geometry:
 def payload_from_numpy(p: dict, device) -> dict:
     """A port device payload from a reference host payload dict (numpy
     arrays, as ``_entry_np``/``_pack_group`` build them). Adds the
-    kernel's ``tile_block_start`` and ``tile_chunk_start``."""
+    kernel's ``tile_block_start``; the upload derives the live-edge
+    stream."""
     p = dict(p)
     p["geom"] = geometry_from(p["geom"])
     p["tile_block_start"] = ops.tile_block_start(
         np.asarray(p["tile_id"]), int(p["n_out_tiles"]))
-    p["tile_chunk_start"] = ops.tile_chunk_start(p["tile_block_start"])
     return ops._upload_payload(p, ops.resolve_device(device))
 
 

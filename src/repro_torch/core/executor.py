@@ -377,12 +377,17 @@ class Executor:
 
     def dispatch_stats(self) -> dict:
         """What one iteration launches: one kernel per payload and ONE
-        merge; the per-entry count is reported alongside."""
+        merge; the per-entry count is reported alongside, and
+        ``kernel_edges``, the live edges the launches stream (against
+        ``stats()["num_padded_edges"]``, the slots of the padded
+        blocks)."""
         num_entries = sum(p["n_entries"] for p in self._payloads)
         return {
             "fuse_lanes": self.fuse_lanes,
             "num_entries": num_entries,
             "kernel_dispatches": len(self._payloads),
+            "kernel_edges": sum(int(p["edge_src"].numel())
+                                for p in self._payloads),
             "merge_dispatches": 1 if self._payloads else 0,
             "payload_bytes": self.memory_footprint(),
         }

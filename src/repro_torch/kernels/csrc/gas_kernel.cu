@@ -5,24 +5,32 @@
 // gas_pallas_call / gas_pallas_call_segmented). The design note and the
 // bound are in repro_torch/kernels/gas_kernel.py.
 //
-// Pass 1 (gas_chunk_kernel): one CTA per chunk of at most kChunkBlocks
-// blocks of one output tile; chunks are counted from the tile's first
-// block (tile_chunk_start), so every boundary depends on the tile alone.
-// The CTA streams its chunk's edge slots in rounds of kEdgesPerRound per
-// thread: valid first, then src/dst/weight and the gather for live slots
-// only.
-// Each warp combines its 32 slots of a round at once (fold_warp): a slot
-// no other lane shares is folded by its lane; lanes that share a slot
-// reduce over a fixed lane-order tree of shuffles, and the group's lowest
-// lane folds the total into the warp's own accumulator in shared memory.
-// A warp whose slots are all pads skips the step after its ballot. One
-// barrier per chunk, then the warps' accumulators merge in warp order
-// into the tile (one chunk) or into the chunk's scratch row (several).
+// The kernel reads a payload's live-edge stream (kernels/ops.py derives
+// it from the padded blocks' `valid` when the payload is uploaded): per
+// live edge its source, an index into vwin, its slot in the output tile
+// and its weight, in slot order; tile k owns edges
+// tile_edge_start[k] .. tile_edge_start[k + 1]. No pad is read.
+//
+// Pass 1 (gas_chunk_kernel): one CTA per chunk of at most chunk_edges
+// live edges of one output tile; chunks are counted from the tile's first
+// live edge (tile_chunk_start; a tile with no live edge has one empty
+// chunk), so every boundary depends on the tile alone. The CTA streams
+// its chunk in rounds of kEdgesPerRound consecutive edges per thread
+// (16-byte loads where the chunk's start allows them), gathers vwin at
+// each source and applies the scatter op.
+// Each warp combines its 32 edges of a step at once (fold_warp): an edge
+// whose slot no other lane shares is folded by its lane; lanes that share
+// a slot reduce over a fixed lane-order tree of shuffles, and the group's
+// lowest lane folds the total into the warp's own accumulator in shared
+// memory. One barrier per chunk, then the warps' accumulators merge in
+// warp order into the tile (one chunk) or into the chunk's scratch row
+// (several).
 // Pass 2 (gas_combine_kernel): for tiles of several chunks, each slot
 // combines its scratch rows in chunk order.
 // No atomics anywhere: the order of every fp32 combine depends only on
-// the tile's blocks and their tile-relative positions, so results are
-// bit-stable and the fused and per-entry launch forms agree bit for bit.
+// the tile's live edges and their tile-relative positions, so results are
+// bit-stable and the fused, per-entry and sharded launch forms agree bit
+// for bit.
 //
 // Scatter ops: the named ops copy and add_weight, and kCustom, a user's
 // scatter UDF that kernels/udf_codegen.py traced into the expression
@@ -34,21 +42,15 @@
 
 #include "gas_udf.cuh"
 
-#ifndef GAS_CHUNK_BLOCKS
-#define GAS_CHUNK_BLOCKS 16
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kEdgesPerRound = 4;         // edge slots of a thread per round
+constexpr int kEdgesPerRound = 4;         // consecutive edges of a thread
 // 8 CTAs of 256 threads fill an SM's 2048 threads: pass 1 is held to 32
 // registers so that they fit (more warps hide more load latency; faster
 // on the card than 40 registers and 6 CTAs)
 constexpr int kChunkCtasPerSm = 8;
-constexpr int kChunkBlocks = GAS_CHUNK_BLOCKS;
-constexpr int kMaxEBlk = 1024;
 constexpr size_t kMaxSmem = 232448;       // a CTA's dynamic shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -138,10 +140,10 @@ __device__ __forceinline__ V group_reduce(unsigned grp, bool live, V v,
   return v;
 }
 
-// Folds this warp's 32 edge slots into its accumulator. Each live lane
+// Folds this warp's 32 edges of one step into its accumulator. Each live lane
 // writes its lane id to tag[d]; one write per slot lands, so a lane that
 // reads back another id shares its slot. With no shared slot (most Big
-// blocks), every live lane folds its own value. Otherwise lanes are
+// steps), every live lane folds its own value. Otherwise lanes are
 // grouped by slot (__match_any_sync), each group combines over the fixed
 // tree of group_reduce, and the group's lowest lane folds the total.
 // Every lane of the warp must call it.
@@ -151,7 +153,7 @@ __device__ __forceinline__ void fold_warp(V* acc, unsigned char* tag,
   if (live) tag[d] = static_cast<unsigned char>(lane);
   __syncwarp();
   if (__any_sync(kFull, live && tag[d] != lane)) {
-    // pads get keys no slot has, so they form groups of their own
+    // lanes without an edge get keys no slot has: groups of their own
     const unsigned grp = __match_any_sync(kFull, live ? d : -1 - lane);
     v = group_reduce<MODE, V>(grp, live, v, lane);
     live = live && (grp & ((1u << lane) - 1u)) == 0;
@@ -160,18 +162,22 @@ __device__ __forceinline__ void fold_warp(V* acc, unsigned char* tag,
   __syncwarp();
 }
 
+// Whether 16-byte loads of p[i .. i + 4) are aligned.
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* p, int64_t i) {
+  return (reinterpret_cast<uintptr_t>(p + i) & 15u) == 0;
+}
+
 template <int MODE, int OP, typename V>
 __global__ void __launch_bounds__(kThreads, kChunkCtasPerSm)
 gas_chunk_kernel(const V* __restrict__ vwin,
-                 const int* __restrict__ src_local,
-                 const int* __restrict__ dst_local,
-                 const float* __restrict__ weights,
-                 const int* __restrict__ valid,
-                 const int* __restrict__ window_id,
-                 const int* __restrict__ tile_block_start,
+                 const int* __restrict__ edge_src,
+                 const int* __restrict__ edge_dst,
+                 const float* __restrict__ edge_w,
+                 const int* __restrict__ tile_edge_start,
                  const int* __restrict__ tile_chunk_start,
                  V* __restrict__ out, V* __restrict__ scratch,
-                 int n_out_tiles, int e_blk, int w, int t) {
+                 int n_out_tiles, int chunk_edges, int t) {
   using C = Combine<MODE, V>;
   extern __shared__ __align__(16) unsigned char smem[];
   V* accs = reinterpret_cast<V*>(smem);                         // [kWarps][t]
@@ -190,42 +196,61 @@ gas_chunk_kernel(const V* __restrict__ vwin,
   }
   const int tile = lo;
   const int c0 = tile_chunk_start[tile];
-  const int b0 = tile_block_start[tile] + (chunk - c0) * kChunkBlocks;
-  const int b1 = min(b0 + kChunkBlocks, tile_block_start[tile + 1]);
+  const int64_t e0 = tile_edge_start[tile] +
+                     static_cast<int64_t>(chunk - c0) * chunk_edges;
+  const int64_t left = tile_edge_start[tile + 1] - e0;   // >= 0
+  const int n = left < chunk_edges ? static_cast<int>(left) : chunk_edges;
 
   for (int s = lane; s < t; s += 32) acc[s] = C::identity();
   __syncwarp();
 
-  const int64_t e0 = static_cast<int64_t>(b0) * e_blk;
-  const int n_slots = (b1 - b0) * e_blk;
-  for (int r = 0; r < n_slots; r += kThreads * kEdgesPerRound) {
-    // a round: kEdgesPerRound slots per thread, kThreads apart, so a
-    // warp holds 32 neighbouring slots for each k
+  // the same edges go to the same thread either way; only the width of
+  // the loads depends on where the chunk lies in memory
+  const bool wide = aligned16(edge_src, e0) && aligned16(edge_dst, e0) &&
+                    (!kReadsWeight<OP> || aligned16(edge_w, e0));
+  for (int r = 0; r < n; r += kThreads * kEdgesPerRound) {
+    // a round: kEdgesPerRound consecutive edges per thread, threads in
+    // order, so a warp's step k holds every kEdgesPerRound-th edge of
+    // its 128
+    const int base = r + threadIdx.x * kEdgesPerRound;
+    const int64_t e = e0 + base;
+    int src[kEdgesPerRound], dst[kEdgesPerRound];
+    float wt[kEdgesPerRound];
     bool live[kEdgesPerRound];
+    if (wide && base + kEdgesPerRound <= n) {
+      const int4 s4 = __ldcs(reinterpret_cast<const int4*>(edge_src + e));
+      const int4 d4 = __ldcs(reinterpret_cast<const int4*>(edge_dst + e));
+      src[0] = s4.x; src[1] = s4.y; src[2] = s4.z; src[3] = s4.w;
+      dst[0] = d4.x; dst[1] = d4.y; dst[2] = d4.z; dst[3] = d4.w;
+      if constexpr (kReadsWeight<OP>) {
+        const float4 w4 =
+            __ldcs(reinterpret_cast<const float4*>(edge_w + e));
+        wt[0] = w4.x; wt[1] = w4.y; wt[2] = w4.z; wt[3] = w4.w;
+      }
 #pragma unroll
-    for (int k = 0; k < kEdgesPerRound; ++k) {
-      const int slot = r + k * kThreads + threadIdx.x;
-      live[k] = slot < n_slots && valid[e0 + slot] != 0;
+      for (int k = 0; k < kEdgesPerRound; ++k) live[k] = true;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kEdgesPerRound; ++k) {
+        live[k] = base + k < n;
+        src[k] = live[k] ? __ldcs(edge_src + e + k) : 0;
+        dst[k] = live[k] ? __ldcs(edge_dst + e + k) : 0;
+        if constexpr (kReadsWeight<OP>) {
+          wt[k] = live[k] ? __ldcs(edge_w + e + k) : 0.0f;
+        }
+      }
     }
-    int dst[kEdgesPerRound];
     V val[kEdgesPerRound];
 #pragma unroll
     for (int k = 0; k < kEdgesPerRound; ++k) {
-      dst[k] = 0;
-      val[k] = C::identity();
-      if (live[k]) {                          // pads load nothing more
-        const int slot = r + k * kThreads + threadIdx.x;
-        const V* win = vwin + static_cast<int64_t>(
-            window_id[b0 + slot / e_blk]) * w;
-        dst[k] = dst_local[e0 + slot];
-        val[k] = scatter_op<OP, V>(
-            win[src_local[e0 + slot]],
-            kReadsWeight<OP> ? weights[e0 + slot] : 0.0f);
-      }
+      val[k] = live[k] ? scatter_op<OP, V>(
+                             __ldg(vwin + src[k]),
+                             kReadsWeight<OP> ? wt[k] : 0.0f)
+                       : C::identity();
     }
 #pragma unroll
     for (int k = 0; k < kEdgesPerRound; ++k) {
-      if (__ballot_sync(kFull, live[k]) == 0) continue;   // all pads
+      if (__ballot_sync(kFull, live[k]) == 0) continue;   // past the end
       fold_warp<MODE, V>(acc, tag, live[k], dst[k], val[k], lane);
     }
   }
@@ -264,11 +289,11 @@ gas_combine_kernel(const V* __restrict__ scratch,
 }
 
 template <int MODE, int OP, typename V>
-int launch(const void* vwin, const void* src_local, const void* dst_local,
-           const void* weights, const void* valid, const void* window_id,
-           const void* tile_block_start, const void* tile_chunk_start,
-           void* out, void* scratch, int n_out_tiles, int n_chunks,
-           int e_blk, int w, int t, cudaStream_t stream) {
+int launch(const void* vwin, const void* edge_src, const void* edge_dst,
+           const void* edge_w, const void* tile_edge_start,
+           const void* tile_chunk_start, void* out, void* scratch,
+           int n_out_tiles, int n_chunks, int chunk_edges, int t,
+           cudaStream_t stream) {
   // per warp: an accumulator and a one-byte tag for each of the t slots
   const size_t smem = static_cast<size_t>(kWarps) * t * (sizeof(V) + 1);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -279,13 +304,11 @@ int launch(const void* vwin, const void* src_local, const void* dst_local,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   gas_chunk_kernel<MODE, OP, V><<<n_chunks, kThreads, smem, stream>>>(
-      static_cast<const V*>(vwin), static_cast<const int*>(src_local),
-      static_cast<const int*>(dst_local),
-      static_cast<const float*>(weights), static_cast<const int*>(valid),
-      static_cast<const int*>(window_id),
-      static_cast<const int*>(tile_block_start),
+      static_cast<const V*>(vwin), static_cast<const int*>(edge_src),
+      static_cast<const int*>(edge_dst), static_cast<const float*>(edge_w),
+      static_cast<const int*>(tile_edge_start),
       static_cast<const int*>(tile_chunk_start), static_cast<V*>(out),
-      static_cast<V*>(scratch), n_out_tiles, e_blk, w, t);
+      static_cast<V*>(scratch), n_out_tiles, chunk_edges, t);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_out_tiles, (t + kThreads - 1) / kThreads);
@@ -299,33 +322,30 @@ int launch(const void* vwin, const void* src_local, const void* dst_local,
 
 extern "C" {
 
-// The chunk size this library was built with; tile_chunk_start must be
-// counted with it.
-int gas_chunk_blocks() { return kChunkBlocks; }
-
 // Returns 0 on success, else a cudaError_t code (the first
 // cudaGetLastError() of the two launches that is not 0), or
 // cudaErrorInvalidValue for a combination the kernel does not take.
 // n_chunks is the grid of pass 1: at least tile_chunk_start[n_out_tiles]
-// (CTAs past it exit); scratch holds n_chunks rows of t values. The
-// caller checks shapes, dtypes, devices and contiguity before calling.
+// (CTAs past it exit); scratch holds n_chunks rows of t values;
+// tile_chunk_start counts chunks of chunk_edges edges, a multiple of 4.
+// The caller checks shapes, dtypes, devices and contiguity before
+// calling.
 int gas_launch(int mode, int scatter, const void* vwin,
-               const void* src_local, const void* dst_local,
-               const void* weights, const void* valid,
-               const void* window_id, const void* tile_block_start,
+               const void* edge_src, const void* edge_dst,
+               const void* edge_w, const void* tile_edge_start,
                const void* tile_chunk_start, void* out, void* scratch,
-               int n_out_tiles, int n_chunks, int e_blk, int w, int t,
+               int n_out_tiles, int n_chunks, int chunk_edges, int t,
                void* stream) {
   if (n_out_tiles <= 0) return 0;
-  if (n_chunks < n_out_tiles || e_blk <= 0 || e_blk > kMaxEBlk || w <= 0 ||
-      t <= 0) {
+  if (n_chunks < n_out_tiles || chunk_edges <= 0 ||
+      chunk_edges % kEdgesPerRound != 0 || t <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* a[] = {vwin, src_local, dst_local, weights, valid, window_id,
-                     tile_block_start, tile_chunk_start};
-#define GAS_ARGS a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], out, \
-                 scratch, n_out_tiles, n_chunks, e_blk, w, t, s
+  const void* a[] = {vwin, edge_src, edge_dst, edge_w, tile_edge_start,
+                     tile_chunk_start};
+#define GAS_ARGS a[0], a[1], a[2], a[3], a[4], a[5], out, scratch, \
+                 n_out_tiles, n_chunks, chunk_edges, t, s
 #ifdef GAS_SCATTER_EXPR
   if (scatter != kCustom || mode != GAS_SCATTER_MODE) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -6,54 +6,66 @@ reference package (the Pallas body behind ``gas_pallas_call`` and
 for ``sm_90a``, built at first use by :mod:`._build` and bound with
 ``ctypes``.
 
-What it computes: for every E_BLK-edge block ``b`` and edge ``e``, gather
-``vwin[window_id[b], src_local[b, e]]``, apply the scatter op with the
-edge weight (a named op, or the app's own scatter UDF traced into C++
-by :mod:`.udf_codegen`, one library per UDF), and combine into slot
-``dst_local[b, e]`` of the block's output tile in mode sum, min, max
-(float32) or or (int32). Tile ``k``
-owns blocks ``tile_block_start[k]:tile_block_start[k + 1]``. Pads
-(``valid == 0``) contribute nothing. The output is ``(n_out_tiles, T)``.
+What it computes: for every live edge of a payload, gather its source
+value from ``vwin``, apply the scatter op with the edge weight (a named
+op, or the app's own scatter UDF traced into C++ by :mod:`.udf_codegen`,
+one library per UDF), and combine into its slot of its output tile in
+mode sum, min, max (float32) or or (int32). The output is
+``(n_out_tiles, T)``.
 
-Bound. A launch must read ``valid`` for every padded edge slot, src and
-dst (and the weight, for ``add_weight``) of every real edge, the
-per-block window ids, the tile index, each distinct source value the
-real edges read once, and write ``n_out_tiles * T`` results; it does one
-combine per real edge (two operations with ``add_weight``).
-``chip_smoke.py`` (``_kernel_traffic``) counts these bytes and
-operations; on an H100 (3.35 TB/s, 67 TFLOP/s fp32) the bytes bound it.
+What it reads: the payload's live-edge stream, which
+:func:`.ops.edge_stream` derives on the payload's device from the padded
+blocks when the payload is uploaded. The padded layout holds each edge
+at slot ``e`` of block ``b`` (``src_local``, ``dst_local``, ``weights``,
+with ``valid == 0`` on pads, ``window_id[b]`` naming the source window);
+the stream keeps the live slots alone, in slot order: ``edge_src =
+window_id[b] * W + src_local[b, e]`` (an index into ``vwin``: raw vprops
+for Little, the lane's compacted table for Big), ``edge_dst =
+dst_local[b, e]``, ``edge_w = weights[b, e]``, and tile ``k`` owns edges
+``tile_edge_start[k]:tile_edge_start[k + 1]``. On a uniform graph a Big
+block is 3.6 % live (one compacted window and one tile a block), so the
+padded layout made the kernel walk 27 slots for every edge it folded.
+
+Bound. A launch must read src and dst (and the weight, for
+``add_weight``) of every live edge, the tile's edge and chunk indices,
+each distinct source value once, and write ``n_out_tiles * T`` results;
+it does one combine per live edge (two operations with ``add_weight``).
+``obs.launch_traffic`` counts these bytes and operations; on an H100
+(3.35 TB/s, 67 TFLOP/s fp32) the bytes bound it.
 
 Design. The Pallas body runs its grid in order on one core and carries a
 tile accumulator across grid steps; a CUDA grid has no order. The first
-design gave each tile one CTA that walked its blocks in order, and lost
-to three limits, each of which this design answers:
+design gave each tile one CTA that walked its blocks in order; the
+second cut tiles into chunks of padded blocks. This one answers the
+limits both met:
 
-1. Too few CTAs, and skew: a launch took its heaviest tile's blocks one
-   after another. Now each tile's blocks are cut into chunks of
-   :data:`CHUNK_BLOCKS`, counted from the tile's first block, and each
-   CTA takes one chunk; the pack-time index ``tile_chunk_start``
-   (``n_out_tiles + 1`` int32, beside ``tile_block_start``) gives each
-   tile's first chunk, and a CTA finds its tile by binary search in it.
-   A tile of one chunk is written straight to the output; the chunks of
-   a larger tile write partial tiles to scratch, and a second, ordered
-   pass combines those slot by slot in chunk order.
-2. Every thread read every staged edge. Now a warp combines its 32 edge
-   slots at once: each live lane tags its slot in shared memory, and a
-   slot no other lane shares (most Big steps) is folded by its own
-   lane. Lanes that share a slot are grouped (``__match_any_sync``) and
-   reduce over a fixed lane-order tree of shuffles (a long run to a hub
-   slot takes five steps, not 32); the group's lowest lane folds the
-   total into the warp's own accumulator in shared memory. The warps'
-   accumulators merge in warp order at the end of the chunk.
-3. Pads cost a scan step. Now a pad slot is one ``valid`` load: it
-   gathers nothing and takes no shared-memory step, and a warp whose 32
-   slots are all pads skips the step after its ballot. ``valid`` is
-   read slot by slot, never assumed to be a prefix of the block. A
-   chunk takes one barrier.
+1. Too few CTAs, and skew. Each tile's live edges are cut into chunks of
+   :data:`CHUNK_EDGES`, counted from the tile's first live edge, and
+   each CTA takes one chunk; ``tile_chunk_start`` (``n_out_tiles + 1``
+   int32) gives each tile's first chunk, and a CTA finds its tile by
+   binary search in it. A tile with no live edge has one empty chunk,
+   which writes the identity. A tile of one chunk is written straight
+   to the output; the chunks of a larger tile write partial tiles to
+   scratch, and a second, ordered pass combines those slot by slot in
+   chunk order.
+2. Every thread read every staged edge. A warp combines its 32 edges of
+   a step at once: each lane tags its slot in shared memory, and a slot
+   no other lane shares is folded by its own lane. Lanes that share a
+   slot are grouped (``__match_any_sync``) and reduce over a fixed
+   lane-order tree of shuffles (a long run to a hub slot takes five
+   steps, not 32); the group's lowest lane folds the total into the
+   warp's own accumulator in shared memory. The warps' accumulators
+   merge in warp order at the end of the chunk, after one barrier.
+3. Pads. The kernel reads no ``valid`` and no padded slot: a thread
+   loads four consecutive edges of its chunk (16-byte loads where the
+   chunk's start is aligned, the same edges in four loads where it is
+   not), and the edge stream is read with streaming loads, so the
+   source values stay in L2.
 
 No atomics anywhere: the order of every fp32 combine depends only on the
-tile's blocks and their tile-relative positions, never on scheduling, so
-results are bit-stable and the fused and per-entry launch forms (whose
+tile's live edges and their tile-relative positions, never on
+scheduling or on where the tile lies in its payload, so results are
+bit-stable and the fused, per-entry and sharded launch forms (whose
 entries are tile-snapped) agree bit for bit.
 """
 from __future__ import annotations
@@ -62,7 +74,6 @@ import ctypes
 import weakref
 from typing import Optional
 
-import numpy as np
 import torch
 
 from . import _build, udf_codegen
@@ -70,15 +81,16 @@ from . import _build, udf_codegen
 MODES = {"sum": 0, "min": 1, "max": 2, "or": 3}
 KERNEL_SCATTER_OPS = {"copy": 0, "add_weight": 1}
 SCATTER_CUSTOM = 2        # the kernel's code for a generated UDF variant
-# blocks per CTA chunk; chosen on the card from {16, 32, 64} (PERF.md)
-CHUNK_BLOCKS = 16
-MAX_E_BLK = 1024          # edge slots of a block the kernel takes
+# live edges per CTA chunk; chosen on the card from {2048, 4096, 8192}
+# (PERF.md)
+CHUNK_EDGES = 4096
+EDGES_PER_THREAD = 4      # a chunk's size must be a multiple of it
 N_WARPS = 8               # a 4-byte accumulator and a 1-byte tag per slot each
 MAX_SMEM = 232448         # a CTA's shared memory on sm_90
 MAX_T = MAX_SMEM // (N_WARPS * 5)
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
-    ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+    ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def scatter_udf(scatter_fn, mode: str) -> udf_codegen.ScatterUdf:
@@ -98,76 +110,74 @@ def udf_prelude(scatter_fn, mode: str) -> str:
             f"#define GAS_SCATTER_USES_W {int(udf.uses_weight)}\n")
 
 
-def _library(chunk_blocks: int = CHUNK_BLOCKS, prelude: str = ""):
-    lib = _build.load("gas_kernel", prelude, GAS_CHUNK_BLOCKS=chunk_blocks)
+def _library(prelude: str = ""):
+    lib = _build.load("gas_kernel", prelude)
     if lib.gas_launch.argtypes is None:
-        lib.gas_chunk_blocks.argtypes = []
-        lib.gas_chunk_blocks.restype = ctypes.c_int
-        if lib.gas_chunk_blocks() != chunk_blocks:
-            raise RuntimeError(f"gas kernel library counts chunks of "
-                               f"{lib.gas_chunk_blocks()} blocks, not "
-                               f"{chunk_blocks}")
         lib.gas_launch.argtypes = _ARGTYPES
         lib.gas_launch.restype = ctypes.c_int
     return lib
 
 
-_named_libs: dict = {}                   # chunk_blocks -> library
-# scatter_fn -> {(mode, chunk_blocks): library}, while scatter_fn lives
+_named_lib = None                        # the named ops' library
+# scatter_fn -> {mode: library}, while scatter_fn lives
 _udf_libs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _cached_library(scatter_fn, mode: str, chunk_blocks: int):
+def _cached_library(scatter_fn, mode: str):
     """The library of a launch if an earlier one loaded it, else None:
     the named ops' (``scatter_fn`` None) or ``scatter_fn``'s variant in
     ``mode``; one dict lookup per launch."""
     if scatter_fn is None:
-        return _named_libs.get(chunk_blocks)
+        return _named_lib
     try:
-        return _udf_libs.get(scatter_fn, {}).get((mode, chunk_blocks))
+        return _udf_libs.get(scatter_fn, {}).get(mode)
     except TypeError:                 # not weak-referenceable: no cache
         return None
 
 
-def _load_library(scatter_fn, mode: str, chunk_blocks: int):
+def _load_library(scatter_fn, mode: str):
     """Build or load the library :func:`_cached_library` lacks, and
     cache it."""
+    global _named_lib
     if scatter_fn is None:
-        lib = _named_libs[chunk_blocks] = _library(chunk_blocks)
-        return lib
-    lib = _library(chunk_blocks, udf_prelude(scatter_fn, mode))
+        _named_lib = _library()
+        return _named_lib
+    lib = _library(udf_prelude(scatter_fn, mode))
     try:
-        _udf_libs.setdefault(scatter_fn, {})[(mode, chunk_blocks)] = lib
+        _udf_libs.setdefault(scatter_fn, {})[mode] = lib
     except TypeError:
         pass
     return lib
 
 
-def build(chunk_blocks: int = CHUNK_BLOCKS, scatter_fn=None,
-          mode: Optional[str] = None) -> None:
+def build(scatter_fn=None, mode: Optional[str] = None) -> None:
     """Build and load the kernel library now (it is built at first
     launch otherwise): the named ops' library, or with ``scatter_fn``
     the variant generated for that UDF in ``mode``."""
-    _library(chunk_blocks,
-             "" if scatter_fn is None else udf_prelude(scatter_fn, mode))
+    _library("" if scatter_fn is None else udf_prelude(scatter_fn, mode))
 
 
-def tile_chunk_start(tile_block_start: np.ndarray,
-                     chunk_blocks: int = CHUNK_BLOCKS) -> np.ndarray:
-    """First chunk of each output tile, ``n_out_tiles + 1`` int32: tile
-    ``k``'s blocks, counted from its first, make ``ceil(blocks /
-    chunk_blocks)`` chunks, ``[start[k], start[k + 1])``."""
-    blocks = np.diff(np.asarray(tile_block_start, np.int64))
-    return np.concatenate(
-        [[0], np.cumsum(-(-blocks // chunk_blocks))]).astype(np.int32)
+def tile_chunk_start(tile_edge_start: torch.Tensor,
+                     chunk_edges: int = CHUNK_EDGES) -> torch.Tensor:
+    """First chunk of each output tile, ``n_out_tiles + 1`` int32 on
+    ``tile_edge_start``'s device: tile ``k``'s live edges, counted from
+    its first, make ``max(1, ceil(edges / chunk_edges))`` chunks,
+    ``[start[k], start[k + 1])``."""
+    edges = torch.diff(tile_edge_start.to(torch.int64))
+    chunks = torch.clamp((edges + chunk_edges - 1) // chunk_edges, min=1)
+    out = torch.zeros(edges.shape[0] + 1, dtype=torch.int64,
+                      device=tile_edge_start.device)
+    torch.cumsum(chunks, 0, out=out[1:])
+    return out.to(torch.int32)
 
 
-def max_chunks(n_blocks: int, n_out_tiles: int,
-               chunk_blocks: int = CHUNK_BLOCKS) -> int:
-    """The most chunks ``n_blocks`` blocks in ``n_out_tiles`` non-empty
-    tiles can make: the grid of the kernel's first pass, known without
-    reading ``tile_chunk_start`` back from the card."""
-    return n_out_tiles + max(0, n_blocks - n_out_tiles) // chunk_blocks
+def max_chunks(n_edges: int, n_out_tiles: int,
+               chunk_edges: int = CHUNK_EDGES) -> int:
+    """The most chunks ``n_edges`` live edges in ``n_out_tiles`` tiles
+    can make (each tile at least one): the grid of the kernel's first
+    pass, known without reading ``tile_chunk_start`` back from the
+    card."""
+    return n_out_tiles + n_edges // chunk_edges
 
 
 def _check(name, x, dtype, shape, device):
@@ -180,28 +190,28 @@ def _check(name, x, dtype, shape, device):
             f"{x.is_contiguous()})")
 
 
-def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
-              tile_block_start, tile_chunk_start, *,
-              scatter_op: Optional[str], mode: str, t: int,
-              chunk_blocks: int = CHUNK_BLOCKS,
+def gas_tiles(vwin, edge_src, edge_dst, edge_w, tile_edge_start,
+              tile_chunk_start, *, scatter_op: Optional[str], mode: str,
+              t: int, chunk_edges: int = CHUNK_EDGES,
               scatter_fn=None) -> torch.Tensor:
-    """Run the GAS kernel over one payload (a single plan entry or a
-    packed lane of tile-disjoint segments: the same launch). Takes only
-    the arrays the kernel reads; output tile ``k`` combines blocks
-    ``tile_block_start[k]:tile_block_start[k + 1]``, cut into the
-    chunks ``tile_chunk_start`` counts with ``chunk_blocks`` (the sweep
-    that chose :data:`CHUNK_BLOCKS` is the only caller of another).
-    ``scatter_op`` names a built-in op; ``None`` launches the variant
-    generated for ``scatter_fn`` (traced once per function, its library
-    built at first use), and a UDF outside the code generator's ops
-    raises ``NotImplementedError``: there is no fallback.
+    """Run the GAS kernel over one payload's live-edge stream (a single
+    plan entry or a packed lane of tile-disjoint segments: the same
+    launch). Output tile ``k`` combines edges ``tile_edge_start[k]:
+    tile_edge_start[k + 1]``, cut into the chunks ``tile_chunk_start``
+    counts with ``chunk_edges`` (the sweep that chose
+    :data:`CHUNK_EDGES` is the only caller of another). ``scatter_op``
+    names a built-in op; ``None`` launches the variant generated for
+    ``scatter_fn`` (traced once per function, its library built at first
+    use), and a UDF outside the code generator's ops raises
+    ``NotImplementedError``: there is no fallback.
 
     Tensors must lie on one CUDA device: it launches the kernel or
     raises, and raises on CPU tensors (the plain version,
     :func:`.ref.gas_ref`, is ``ops.run_lane(..., path="ref")``).
     Returns ``(n_out_tiles, t)`` tiles in vwin's dtype. Each call adds
-    one to ``gas_tiles.launches``: one per payload, although the kernel
-    takes two device launches (chunks, then the ordered combine).
+    one to ``gas_tiles.launches`` (one per payload, although the kernel
+    takes two device launches: chunks, then the ordered combine) and the
+    stream's length to ``gas_tiles.edges``.
     """
     if mode not in MODES:
         raise ValueError(f"unknown gather mode {mode!r}")
@@ -218,7 +228,7 @@ def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
             "for 'or'), and scatter_op=None generates one from scatter_fn")
     else:
         scatter_fn, op_code = None, KERNEL_SCATTER_OPS[scatter_op]
-    lib = _cached_library(scatter_fn, mode, chunk_blocks)
+    lib = _cached_library(scatter_fn, mode)
     if lib is None and scatter_fn is not None:
         scatter_udf(scatter_fn, mode)     # an untraceable UDF raises here
     if not vwin.is_cuda:
@@ -226,47 +236,47 @@ def gas_tiles(vwin, src_local, dst_local, weights, valid, window_id,
             f"gas kernel: tensors must lie on a CUDA device, got "
             f"{vwin.device}; the plain version is ops.run_lane(..., "
             f"path='ref')")
-    n_out_tiles = tile_block_start.shape[0] - 1
-    n_blocks, e_blk = src_local.shape
-    w = vwin.shape[1]
-    if not 0 < e_blk <= MAX_E_BLK or not 0 < t <= MAX_T:
-        raise ValueError(f"gas kernel takes E_BLK <= {MAX_E_BLK} and "
-                         f"T <= {MAX_T} ({N_WARPS} accumulators and tags "
-                         f"of T slots in {MAX_SMEM} B of shared memory); "
-                         f"got E_BLK={e_blk}, T={t}")
+    n_out_tiles = tile_edge_start.shape[0] - 1
+    n_edges = edge_src.shape[0]
+    if not 0 < t <= MAX_T or chunk_edges <= 0 \
+            or chunk_edges % EDGES_PER_THREAD:
+        raise ValueError(f"gas kernel takes T <= {MAX_T} ({N_WARPS} "
+                         f"accumulators and tags of T slots in {MAX_SMEM} B "
+                         f"of shared memory) and chunks of a positive "
+                         f"multiple of {EDGES_PER_THREAD} edges; got T={t}, "
+                         f"chunk_edges={chunk_edges}")
     dev = vwin.device
     vdt = torch.int32 if mode == "or" else torch.float32
     _check("vwin", vwin, vdt, vwin.shape, dev)
-    for name, x in (("src_local", src_local), ("dst_local", dst_local),
-                    ("valid", valid)):
-        _check(name, x, torch.int32, (n_blocks, e_blk), dev)
-    _check("weights", weights, torch.float32, (n_blocks, e_blk), dev)
-    _check("window_id", window_id, torch.int32, (n_blocks,), dev)
-    for name, x in (("tile_block_start", tile_block_start),
+    for name, x in (("edge_src", edge_src), ("edge_dst", edge_dst)):
+        _check(name, x, torch.int32, (n_edges,), dev)
+    _check("edge_w", edge_w, torch.float32, (n_edges,), dev)
+    for name, x in (("tile_edge_start", tile_edge_start),
                     ("tile_chunk_start", tile_chunk_start)):
         _check(name, x, torch.int32, (n_out_tiles + 1,), dev)
     out = torch.empty((n_out_tiles, t), dtype=vdt, device=dev)
     if n_out_tiles == 0:
         return out
-    n_chunks = max_chunks(n_blocks, n_out_tiles, chunk_blocks)
+    n_chunks = max_chunks(n_edges, n_out_tiles, chunk_edges)
     scratch = torch.empty((n_chunks, t), dtype=vdt, device=dev)
-    lib = lib or _load_library(scatter_fn, mode, chunk_blocks)
+    lib = lib or _load_library(scatter_fn, mode)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gas_launch(
-            MODES[mode], op_code, vwin.data_ptr(),
-            src_local.data_ptr(), dst_local.data_ptr(), weights.data_ptr(),
-            valid.data_ptr(), window_id.data_ptr(),
-            tile_block_start.data_ptr(), tile_chunk_start.data_ptr(),
+            MODES[mode], op_code, vwin.data_ptr(), edge_src.data_ptr(),
+            edge_dst.data_ptr(), edge_w.data_ptr(),
+            tile_edge_start.data_ptr(), tile_chunk_start.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), n_out_tiles, n_chunks,
-            e_blk, w, t, stream)
+            chunk_edges, t, stream)
     if err != 0:
         raise RuntimeError(f"gas kernel launch failed: CUDA error {err} "
                            f"(mode={mode}, op={scatter_op or 'custom'}, "
-                           f"E_BLK={e_blk}, W={w}, T={t}, "
-                           f"tiles={n_out_tiles}, chunks<={n_chunks})")
+                           f"T={t}, edges={n_edges}, tiles={n_out_tiles}, "
+                           f"chunks<={n_chunks})")
     gas_tiles.launches += 1
+    gas_tiles.edges += n_edges
     return out
 
 
 gas_tiles.launches = 0
+gas_tiles.edges = 0

@@ -1,8 +1,8 @@
 """Little pipeline — dense-partition GAS input form (paper §III-C).
 
 Dense partitions touch most source windows, so the kernel reads raw
-vprops windows: ``vprops.view(-1, W)``, each block loading window
-``window_id[b]`` by id. No dedup, no compaction — the paper's argument
+vprops windows: ``vprops.view(-1, W)``, each edge's source indexing it
+at ``window_id[b] * W + src_local``. No dedup, no compaction — the paper's argument
 that locality makes those techniques dead weight for dense partitions.
 Windows no block names are never read.
 """
@@ -23,6 +23,7 @@ def little_pipeline(vprops_padded, payload: dict, *, scatter_op, mode,
 
 
 def _blocked(p: dict):
-    """The payload arrays the kernel reads, in its argument order."""
-    return (p["src_local"], p["dst_local"], p["weights"], p["valid"],
-            p["window_id"], p["tile_block_start"], p["tile_chunk_start"])
+    """The payload arrays the kernel reads (its live-edge stream), in its
+    argument order."""
+    return (p["edge_src"], p["edge_dst"], p["edge_w"], p["tile_edge_start"],
+            p["tile_chunk_start"])

@@ -14,10 +14,14 @@ whole lane as ONE kernel launch instead of one per entry.
 ``pack_lanes_sharded`` uploads each lane to its owner device instead,
 and both splice in lanes carried over from before a streaming delta.
 
-Every payload carries ``tile_block_start`` and ``tile_chunk_start``
-(``n_out_tiles + 1`` int32 each): the first block and the first chunk
-of :data:`.gas_kernel.CHUNK_BLOCKS` blocks of each output tile, which is
-how a kernel CTA finds its tile and the blocks of its chunk.
+Every payload carries ``tile_block_start`` (``n_out_tiles + 1``
+int32): the first block of each output tile. Every device payload also
+carries the live-edge stream the GAS kernel reads (:func:`edge_stream`),
+derived on the payload's device when it is uploaded
+(:func:`_upload_payload`, which every payload passes through): the live
+slots alone, in slot order, with each tile's first edge and first chunk
+of :data:`.gas_kernel.CHUNK_EDGES` edges. The padded arrays stay beside
+it for the plain path, the profiler and the streaming carry-over.
 
 ``default_path`` follows the device: ``"cuda"`` (the kernel) on a CUDA
 device, ``"ref"`` (the plain PyTorch version) on ``device="cpu"``.
@@ -40,9 +44,14 @@ from .little_pipeline import little_pipeline
 # along axis 0 when packing a lane
 _CONCAT_KEYS = ("src_local", "dst_local", "weights", "valid",
                 "window_id", "tile_id", "tile_first", "tile_idx")
-# payload keys uploaded to the device by _upload_payload
-_DEVICE_KEYS = _CONCAT_KEYS + ("unique_src", "tile_block_start",
-                               "tile_chunk_start")
+# the live-edge stream the GAS kernel reads, derived on the device from
+# the uploaded arrays (edge_stream)
+_STREAM_KEYS = ("edge_src", "edge_dst", "edge_w", "tile_edge_start",
+                "tile_chunk_start")
+# payload keys a device payload holds as tensors: the uploaded host
+# arrays, then the stream
+_DEVICE_KEYS = _CONCAT_KEYS + ("unique_src", "tile_block_start") \
+    + _STREAM_KEYS
 PATHS = ("cuda", "ref")
 
 
@@ -126,17 +135,71 @@ def _entry_np(blocked: BlockedEdges, lo: int, hi: int) -> Optional[dict]:
         "unique_src": blocked.unique_src,
         "num_real_edges": int(blocked.valid[lo:hi].sum()),
         "tile_block_start": tbs,
-        "tile_chunk_start": tile_chunk_start(tbs),
+    }
+
+
+# padded blocks the stream is derived from at a time: bounds the
+# derivation's temporaries (a flag a slot, 8 B a live slot) to a slice of
+# the payload (16 M slots at E_BLK 256), beside the stream itself
+STREAM_SLICE_BLOCKS = 1 << 16
+
+
+def edge_stream(p: dict) -> dict:
+    """The live-edge stream of a device payload, derived with tensor ops
+    on its device from its padded arrays: every slot whose ``valid`` is
+    not 0, slot by slot (a block's live slots need not be a prefix), in
+    slot order. ``edge_src`` (int32) is ``window_id[b] * W +
+    src_local[b, e]``, an index into the kernel's ``vwin`` (raw vprops
+    for Little, the payload's compacted table for Big); ``edge_dst``
+    (int32) the slot in the tile; ``edge_w`` (float32) the weight;
+    ``tile_edge_start`` (``n_out_tiles + 1`` int32) tile ``k``'s edges
+    ``[start[k], start[k + 1])``; ``tile_chunk_start`` its chunks of
+    :data:`.gas_kernel.CHUNK_EDGES` (:func:`.gas_kernel.tile_chunk_start`).
+    Derived
+    :data:`STREAM_SLICE_BLOCKS` blocks at a time into tensors sized
+    once."""
+    valid = p["valid"]
+    n_blocks, e_blk = valid.shape
+    dev, step = valid.device, STREAM_SLICE_BLOCKS
+    block_edge_start = torch.zeros(n_blocks + 1, dtype=torch.int64,
+                                   device=dev)
+    for b0 in range(0, n_blocks, step):
+        block_edge_start[b0 + 1:b0 + step + 1] = \
+            torch.count_nonzero(valid[b0:b0 + step], dim=1)
+    torch.cumsum(block_edge_start, 0, out=block_edge_start)
+    cuts = list(range(0, n_blocks, step)) + [n_blocks]
+    bounds = block_edge_start[cuts].tolist()
+    edge_src = torch.empty(bounds[-1], dtype=torch.int32, device=dev)
+    edge_dst = torch.empty_like(edge_src)
+    edge_w = torch.empty(bounds[-1], dtype=torch.float32, device=dev)
+    window_base = p["window_id"].to(torch.int64) * p["geom"].W
+    for b0, b1, e0, e1 in zip(cuts, cuts[1:], bounds, bounds[1:]):
+        slot = torch.nonzero(valid[b0:b1].reshape(-1)).squeeze(1)
+        block = torch.div(slot, e_blk, rounding_mode="floor") + b0
+        edge_src[e0:e1] = window_base[block] \
+            + p["src_local"][b0:b1].reshape(-1)[slot]
+        edge_dst[e0:e1] = p["dst_local"][b0:b1].reshape(-1)[slot]
+        edge_w[e0:e1] = p["weights"][b0:b1].reshape(-1)[slot]
+    tile_edge_start = block_edge_start[
+        p["tile_block_start"].to(torch.int64)].to(torch.int32)
+    return {
+        "edge_src": edge_src,
+        "edge_dst": edge_dst,
+        "edge_w": edge_w,
+        "tile_edge_start": tile_edge_start,
+        "tile_chunk_start": tile_chunk_start(tile_edge_start),
     }
 
 
 def _upload_payload(p: dict, device) -> dict:
-    """Move a host payload's array fields to ``device`` as tensors."""
+    """Move a host payload's array fields to ``device`` as tensors, and
+    derive the live-edge stream there (:func:`edge_stream`)."""
     out = dict(p)
     for k in _DEVICE_KEYS:
-        if out.get(k) is not None:
+        if k not in _STREAM_KEYS and out.get(k) is not None:
             out[k] = torch.from_numpy(np.ascontiguousarray(out[k])).to(
                 device, copy=True)
+    out.update(edge_stream(out))
     return out
 
 
@@ -215,7 +278,6 @@ def _pack_group(entries: List[dict]) -> dict:
         "unique_src": (np.concatenate(tables) if kind == "big" else None),
         "num_real_edges": int(sum(e["num_real_edges"] for e in entries)),
         "tile_block_start": tbs,
-        "tile_chunk_start": tile_chunk_start(tbs),
     }
     for k in ("src_local", "dst_local", "weights", "valid", "tile_first",
               "tile_idx"):
@@ -242,8 +304,6 @@ def _validate_packed(p: dict) -> None:
     tbs = p["tile_block_start"]
     assert tbs[0] == 0 and tbs[-1] == p["n_blocks"] and np.all(
         np.diff(tbs) > 0), "tile_block_start does not cover the blocks"
-    assert np.array_equal(p["tile_chunk_start"], tile_chunk_start(tbs)), \
-        "tile_chunk_start does not count the tiles' chunks"
     # entries write disjoint output tiles -> one tile-indexed copy is safe
     idx = p["tile_idx"]
     assert np.unique(idx).shape[0] == idx.shape[0], \
@@ -283,10 +343,15 @@ def payload_footprint(p: dict) -> dict:
     """Byte/FLOP accounting of ONE (packed or single-entry) payload, by
     traffic class, from the payload's actual arrays:
 
-    ``edge_bytes``     the streamed edge slab (src/dst/weights/valid)
+    ``edge_bytes``     the padded edge slab (src/dst/weights/valid)
     ``index_bytes``    per-block routing metadata (window/tile ids,
-                       tile_first flags, tile_block_start,
-                       tile_chunk_start, the global tile_idx map)
+                       tile_first flags, tile_block_start, the global
+                       tile_idx map)
+    ``stream_bytes``   the live-edge stream a device payload carries
+                       (:func:`edge_stream`: src, dst and weight of
+                       every real edge, the tile edge and chunk
+                       indices), counted from the payload's sizes, so
+                       a host payload gives what its upload will hold
     ``table_bytes``    the deduped unique-source compaction table (Big)
     ``vertex_bytes``   property values the kernel reads: the gathered
                        unique sources (Big) or the touched source
@@ -299,8 +364,9 @@ def payload_footprint(p: dict) -> dict:
     nb = {k: _nbytes(p.get(k)) for k in _DEVICE_KEYS}
     edge = nb["src_local"] + nb["dst_local"] + nb["weights"] + nb["valid"]
     index = (nb["window_id"] + nb["tile_id"] + nb["tile_first"]
-             + nb["tile_idx"] + nb["tile_block_start"]
-             + nb["tile_chunk_start"])
+             + nb["tile_idx"] + nb["tile_block_start"])
+    real = int(p["num_real_edges"])
+    stream = 12 * real + 8 * (int(p["n_out_tiles"]) + 1)
     table = nb["unique_src"]
     if p["kind"] == "big":
         # vwin = vprops[unique_src]: one property per table slot
@@ -318,12 +384,13 @@ def payload_footprint(p: dict) -> dict:
         "kind": p["kind"],
         "edge_bytes": edge,
         "index_bytes": index,
+        "stream_bytes": stream,
         "table_bytes": table,
         "vertex_bytes": vertex,
         "tile_bytes": tiles,
         "flops": 2 * padded_e * (geom.W + geom.T),
         "padded_edges": padded_e,
-        "real_edges": int(p["num_real_edges"]),
+        "real_edges": real,
     }
 
 

@@ -9,8 +9,9 @@ The port of the reference package's ``obs/profile.py``:
 
   - ``hbm_bytes``: the traffic model (what the kernel streams, gathers
     and writes per execution) — the numerator of achieved GB/s;
-  - ``total_bytes``: every payload tensor + the full vprops operand +
-    the outputs — held within 10 % of :func:`tensor_lane_bytes`.
+  - ``total_bytes``: every payload tensor (the live-edge stream
+    included) + the full vprops operand + the outputs — held within
+    10 % of :func:`tensor_lane_bytes`.
 
 * :func:`tensor_lane_bytes` — an independent count over the tensors one
   lane's launches take (the reference counts its traced program's
@@ -20,8 +21,8 @@ The port of the reference package's ``obs/profile.py``:
   must at least move and do on the card, from its data as it stands.
   ``hbm_bytes`` and ``flops`` model the reference's TPU kernel, which
   streams every padded slot (weights too) through one-hot matmuls; the
-  CUDA kernel reads ``valid`` per slot and the rest per real edge only,
-  and does one combine per real edge. The executor's utilization
+  CUDA kernel reads the live-edge stream (no padded slot) and does one
+  combine per real edge. The executor's utilization
   samples take :func:`lane_traffic`'s counts, so the share of peak they
   report is comparable to a launch's bound.
 
@@ -53,8 +54,9 @@ class LaneFootprint:
 
     Byte classes (summed over the lane's payloads; see
     ``kernels.ops.payload_footprint`` for the per-payload derivation):
-    ``edge_bytes`` streamed edge slabs, ``index_bytes`` routing
-    metadata, ``table_bytes`` deduped Big compaction tables,
+    ``edge_bytes`` padded edge slabs, ``index_bytes`` routing
+    metadata, ``stream_bytes`` the live-edge streams the CUDA kernel
+    reads, ``table_bytes`` deduped Big compaction tables,
     ``vertex_bytes`` property values actually read (unique sources for
     Big, touched W-windows for Little), ``tile_bytes`` the merge
     scatter traffic, ``vprops_bytes`` the full padded property operand.
@@ -65,6 +67,7 @@ class LaneFootprint:
     n_payloads: int
     edge_bytes: int
     index_bytes: int
+    stream_bytes: int
     table_bytes: int
     vertex_bytes: int
     tile_bytes: int
@@ -79,7 +82,8 @@ class LaneFootprint:
         routing metadata + gather tables + gathered/streamed vertex
         values + merge scatter tiles. This is the achieved-GB/s
         numerator (the full vprops array is NOT included — only the
-        values the kernel touches are)."""
+        values the kernel touches are). It models the reference's TPU
+        kernel, so the live-edge stream is not in it."""
         return (self.edge_bytes + self.index_bytes + self.table_bytes
                 + self.vertex_bytes + self.tile_bytes)
 
@@ -89,8 +93,8 @@ class LaneFootprint:
         tensor + the padded vprops operand + output tiles and their tile
         indices. Held within 10 % of :func:`tensor_lane_bytes`
         (``tests/test_torch_profile.py``)."""
-        return (self.edge_bytes + self.index_bytes + self.table_bytes
-                + self.vprops_bytes + self.tile_bytes)
+        return (self.edge_bytes + self.index_bytes + self.stream_bytes
+                + self.table_bytes + self.vprops_bytes + self.tile_bytes)
 
     @property
     def intensity(self) -> float:
@@ -123,6 +127,7 @@ def lane_footprint(payloads: List[dict], v_pad: int,
         n_payloads=len(parts),
         edge_bytes=sum(p["edge_bytes"] for p in parts),
         index_bytes=sum(p["index_bytes"] for p in parts),
+        stream_bytes=sum(p["stream_bytes"] for p in parts),
         table_bytes=sum(p["table_bytes"] for p in parts),
         vertex_bytes=sum(p["vertex_bytes"] for p in parts),
         tile_bytes=sum(p["tile_bytes"] for p in parts),
@@ -144,27 +149,23 @@ def lane_footprints(lanes: List[List[dict]],
 def launch_traffic(p: dict,
                    scatter_op: Optional[str]) -> Tuple[int, int]:
     """(bytes, operations) one GAS launch over payload ``p`` must at
-    least move and do, from its data as it stands: ``valid`` for every
-    padded slot; src and dst (and the weight, for ``add_weight``) of
-    every real edge; the per-block window ids; the tile index pair
-    (``tile_block_start``, ``tile_chunk_start``); each distinct source
-    value the real edges read, once; the output tiles. One combine per
-    real edge, plus one add for ``add_weight``."""
+    least move and do, from its live-edge stream as it stands: src and
+    dst (and the weight, for ``add_weight``) of every live edge; the
+    tile edge and chunk indices (``tile_edge_start``,
+    ``tile_chunk_start``); each distinct source value the edges read,
+    once; the output tiles. One combine per live edge, plus one add for
+    ``add_weight``. No padded slot: the kernel reads none."""
     import torch
 
     geom = p["geom"]
-    keep = p["valid"] != 0
-    real = int(p["num_real_edges"])
-    flat_src = (p["window_id"].to(torch.int64)[:, None] * geom.W
-                + p["src_local"])[keep]
+    n_edges = int(p["edge_src"].numel())
     weighted = scatter_op == "add_weight"
-    nbytes = (p["valid"].numel() * 4 + real * (12 if weighted else 8)
-              + p["window_id"].numel() * 4
-              + p["tile_block_start"].numel() * 4
+    nbytes = (n_edges * (12 if weighted else 8)
+              + p["tile_edge_start"].numel() * 4
               + p["tile_chunk_start"].numel() * 4
-              + int(torch.unique(flat_src).numel()) * 4
+              + int(torch.unique(p["edge_src"]).numel()) * 4
               + int(p["n_out_tiles"]) * geom.T * 4)
-    return nbytes, real * (2 if weighted else 1)
+    return nbytes, n_edges * (2 if weighted else 1)
 
 
 def lane_traffic(payloads: List[dict],

@@ -1,6 +1,8 @@
 """Card-only tests of the port: the CUDA GAS kernel against its plain
-version (on graph payloads and on a heavy tile that spans many chunks),
-its launch count, its refusals, the variants generated for custom
+version (on graph payloads, on a heavy tile that spans many chunks, and
+tile by tile on a Big payload with at most 5 % live slots and on a full
+Little payload), fused == per-entry == sharded bit for bit in sum mode,
+its launch and edge counts, its refusals, the variants generated for custom
 scatter UDFs, the main path on the card, and the
 changing-graph paths through the kernel: sharded == fused, a derived
 store == a cold rebuild after a delta, and reused payloads kept in
@@ -29,7 +31,7 @@ from repro_torch import api
 from repro_torch.core import partition as part
 from repro_torch.core.gas import SCATTER_OPS
 from repro_torch.core.types import Geometry
-from repro_torch.graphs.rmat import rmat
+from repro_torch.graphs.rmat import rmat, uniform_random
 from repro_torch.kernels import gas_kernel, ops, ref
 from repro_torch.streaming import (apply_delta, apply_delta_to_graph,
                                    random_delta)
@@ -94,21 +96,24 @@ def test_kernel_matches_plain_and_is_bit_stable(mode, op, kind, device):
 
 
 def _heavy_tile(device, seed=5):
-    """Kernel arguments of three tiles, the first of 10 * CHUNK_BLOCKS + 7
-    blocks: half of its edges go to one hub slot, and a quarter of all
-    slots are pads scattered through the blocks (not a prefix)."""
+    """Padded blocks of four tiles, the first of about 10.5 chunks of
+    live edges: half of its edges go to one hub slot, a quarter of all
+    slots are pads scattered through the blocks (not a prefix), and the
+    last tile has no live edge."""
     rng = np.random.default_rng(seed)
-    c, e, n_win = gas_kernel.CHUNK_BLOCKS, GEOM.E_BLK, 4
-    sizes = [10 * c + 7, 3, c + 1]
-    tile_id = np.repeat(np.arange(3), sizes).astype(np.int32)
+    e, n_win = GEOM.E_BLK, 4
+    c = -(-gas_kernel.CHUNK_EDGES * 4 // (3 * e))   # blocks a chunk
+    sizes = [10 * c + c // 2, 3, c + 1, 2]
+    tile_id = np.repeat(np.arange(4), sizes).astype(np.int32)
     shape = (tile_id.shape[0], e)
     dst = rng.integers(0, GEOM.T, shape)
     dst[(rng.random(shape) < 0.5) & (tile_id[:, None] == 0)] = 17
+    valid = (rng.random(shape) >= 0.25) & (tile_id[:, None] != 3)
     arrays = {
         "src_local": rng.integers(0, GEOM.W, shape),
         "dst_local": dst,
         "weights": rng.random(shape, dtype=np.float32),
-        "valid": rng.random(shape) >= 0.25,
+        "valid": valid,
         "window_id": rng.integers(0, n_win, shape[0]),
         "tile_id": tile_id,
     }
@@ -119,17 +124,20 @@ def _heavy_tile(device, seed=5):
 
 
 def _launch(a, vwin, mode, op, lo=0, hi=None):
-    """The kernel on blocks [lo, hi) of ``a`` (whole tiles)."""
+    """The kernel on blocks [lo, hi) of ``a`` (whole tiles), over the
+    live-edge stream derived from them."""
     tid = a["tile_id"][lo:hi].cpu().numpy()
     tid = tid - tid[0]
-    n_tiles = int(tid[-1]) + 1
-    tbs = ops.tile_block_start(tid, n_tiles)
-    index = [torch.from_numpy(x).to(vwin.device)
-             for x in (tbs, ops.tile_chunk_start(tbs))]
+    blocks = {k: a[k][lo:hi] for k in ("src_local", "dst_local", "weights",
+                                       "valid", "window_id")}
+    blocks["tile_block_start"] = torch.from_numpy(ops.tile_block_start(
+        tid, int(tid[-1]) + 1)).to(vwin.device)
+    blocks["geom"] = GEOM
+    p = ops.edge_stream(blocks)
     return gas_kernel.gas_tiles(
-        vwin, *(a[k][lo:hi] for k in ("src_local", "dst_local", "weights",
-                                      "valid", "window_id")),
-        *index, scatter_op=op, mode=mode, t=GEOM.T)
+        vwin, p["edge_src"], p["edge_dst"], p["edge_w"],
+        p["tile_edge_start"], p["tile_chunk_start"], scatter_op=op,
+        mode=mode, t=GEOM.T)
 
 
 def _assert_within_fp32_sum(got, plain64):
@@ -193,6 +201,7 @@ def test_custom_udf_kernel_matches_plain(mode, fn, kind, device):
     p = dict(p, weights=torch.rand(p["weights"].shape, device=device,
                                    generator=torch.Generator(
                                        device).manual_seed(3)))
+    p.update(ops.edge_stream(p))               # the stream of new weights
     vp = _props(mode, V_pad, device)
     before = gas_kernel.gas_tiles.launches
     k1, _ = ops.run_lane(p, vp, fn, mode, "cuda", None)
@@ -205,6 +214,97 @@ def test_custom_udf_kernel_matches_plain(mode, fn, kind, device):
         torch.testing.assert_close(k1, plain, rtol=1e-5, atol=1e-7)
     else:
         assert torch.equal(k1, plain)
+
+
+# a Big payload of a uniform graph (at most 5 % of its slots live, as on
+# urand's Big lanes) and a Little payload with every slot live
+SPARSE_GEOM = Geometry(U=512, W=128, T=128, E_BLK=128, big_batch=8)
+
+
+def _stream_case(case, device):
+    """(payload, V_pad) of ``case``: "sparse big" or "full little"."""
+    if case == "sparse big":
+        g, geom = uniform_random(16, 16, seed=7), SPARSE_GEOM
+    else:
+        g, geom = rmat(10, 8, seed=3, weighted=True), GEOM
+    infos, edges = part.partition_graph(g, geom)
+    infos = [i for i in infos if i.num_edges > 0]
+    if case == "sparse big":
+        work = part.block_big(edges, infos[:geom.big_batch], geom)
+        host = ops._entry_np(work, 0, work.n_blocks)
+        assert host["num_real_edges"] <= 0.05 * work.n_blocks * geom.E_BLK
+    else:
+        work = part.block_little(edges, infos[0], geom)
+        host = ops._entry_np(work, 0, work.n_blocks)
+        host["valid"] = np.ones_like(host["valid"])
+        host["num_real_edges"] = host["valid"].size
+    host["weights"] = np.random.default_rng(5).random(
+        host["weights"].shape, dtype=np.float32)
+    return ops._upload_payload(host, device), \
+        part.padded_num_vertices(g.num_vertices, geom)
+
+
+@pytest.mark.parametrize("case", ["sparse big", "full little"])
+@pytest.mark.parametrize("mode,op", MODE_OPS + [("sum", None)])
+def test_stream_kernel_matches_plain_tile_by_tile(case, mode, op, device):
+    """The kernel over the live-edge stream against ``ref.gas_ref`` on
+    the padded blocks, tile by tile: exact for min, max and or; sum
+    within fp32 summation error of the fp64 sum and rtol 1e-5. ``op``
+    None launches the variant generated for a custom UDF. The launch
+    counts the stream's edges, which are the payload's live slots."""
+    p, V_pad = _stream_case(case, device)
+    vp = _props(mode, V_pad, device)
+    fn = SCATTER_OPS[op] if op else (lambda s, w: s * w * 0.5 + 0.25)
+    edges = gas_kernel.gas_tiles.edges
+    got, _ = ops.run_lane(p, vp, fn, mode, "cuda", op)
+    torch.cuda.synchronize()
+    assert gas_kernel.gas_tiles.edges - edges == p["num_real_edges"] == \
+        p["edge_src"].numel()
+    plain, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
+    plain64 = (lambda f: ops.run_lane(
+        p, vp.double(), lambda x, w: f(fn(x.float(), w).double()), mode,
+        "ref", op)[0])
+    for k in range(p["n_out_tiles"]):
+        if mode == "sum":
+            _assert_within_fp32_sum(got[k], lambda f: plain64(f)[k])
+            torch.testing.assert_close(got[k], plain[k], rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            assert torch.equal(got[k], plain[k]), k
+
+
+@pytest.mark.parametrize("op", ["copy", "add_weight"])
+def test_fused_per_entry_sharded_kernel_bit_equal(op, device):
+    """Sum mode through the kernel: a plan's packed lanes, its entries
+    launched one by one and its sharded lanes (two owners on the card)
+    give the same tiles bit for bit."""
+    g = rmat(11, 8, seed=5, weighted=True)
+    store = api.GraphStore(g, geom=SHARD_GEOM)
+    bundle = store.plan(api.PlanConfig(
+        n_lanes=2, hw=api.DEFAULT_HW.clone(gather_b=0.0)))
+    plan = bundle.plan
+    forms = {
+        "fused": bundle.packed_lanes(device),
+        "entry": bundle.lane_entries(device),
+        "sharded": ops.pack_lanes_sharded(
+            plan, bundle.little_works, bundle.big_works,
+            [i % 2 for i in range(len(plan.lanes))], [device, device])[0],
+    }
+    vp = _props("sum", store.V_pad, device)
+    tiles = {}
+    for name, lanes in forms.items():
+        rows = {}
+        for p in (q for lane in lanes for q in lane):
+            out, idx = ops.run_lane(p, vp, SCATTER_OPS[op], "sum", "cuda",
+                                    op)
+            rows.update(zip(idx.tolist(), out))
+        tiles[name] = rows
+    assert {p["kind"] for lane in forms["fused"] for p in lane} == \
+        {"little", "big"}
+    for name in ("entry", "sharded"):
+        assert tiles[name].keys() == tiles["fused"].keys()
+        for i, row in tiles["fused"].items():
+            assert torch.equal(tiles[name][i], row), (name, i)
 
 
 def test_kernel_refuses_unnamed_scatter_op(device):

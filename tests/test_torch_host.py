@@ -22,8 +22,6 @@ from repro_torch.graphs import datasets as tdatasets
 from repro_torch.graphs import formats as tformats
 from repro_torch.graphs.rmat import rmat as trmat
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.gas_kernel import (CHUNK_BLOCKS, max_chunks,
-                                            tile_chunk_start)
 
 
 
@@ -142,28 +140,10 @@ def _check_tile_block_start(p):
     assert np.array_equal(np.flatnonzero(tf == 1), tbs[:-1])
 
 
-def _check_tile_chunk_start(tbs, tcs, chunk_blocks):
-    """The chunks of ``chunk_blocks`` blocks cover each tile's blocks
-    exactly once, in order, with boundaries counted from the tile's first
-    block."""
-    assert tcs.dtype == np.int32 and tcs.shape == tbs.shape
-    assert tcs[0] == 0 and np.all(np.diff(tcs) > 0)
-    covered = []
-    for k in range(tbs.shape[0] - 1):
-        for j in range(tcs[k + 1] - tcs[k]):
-            b0 = tbs[k] + j * chunk_blocks
-            b1 = min(b0 + chunk_blocks, tbs[k + 1])
-            assert tbs[k] <= b0 < b1 <= tbs[k + 1]
-            covered.extend(range(b0, b1))
-    assert covered == list(range(tbs[-1]))
-    # the kernel's grid, from shapes alone, is never short of chunks
-    assert tcs[-1] <= max_chunks(int(tbs[-1]), tbs.shape[0] - 1,
-                                 chunk_blocks)
-
-
 def _same_payload(pj, pt):
-    # port-only keys: the kernel's tile and chunk indices
-    assert set(pt) == set(pj) | {"tile_block_start", "tile_chunk_start"}
+    # port-only key: the tile index (the upload derives the kernel's
+    # live-edge stream, tests/test_torch_edge_stream.py)
+    assert set(pt) == set(pj) | {"tile_block_start"}
     for k, vj in pj.items():
         vt = pt[k]
         if k == "geom":
@@ -175,10 +155,6 @@ def _same_payload(pj, pt):
         else:
             assert vj == vt, k
     _check_tile_block_start(pt)
-    tbs = pt["tile_block_start"]
-    _check_tile_chunk_start(tbs, pt["tile_chunk_start"], CHUNK_BLOCKS)
-    for c in (1, 2, 3):
-        _check_tile_chunk_start(tbs, tile_chunk_start(tbs, c), c)
 
 
 @pytest.mark.parametrize("cfg", [dict(n_lanes=2), dict(n_lanes=4),

@@ -5,12 +5,15 @@ segmented (packed) launches, and the reference's geometry sweep.
 Tolerances: exact for min, max and or; rtol/atol 1e-5 for sum (the
 summation order differs), as in the reference's own kernel tests.
 
-The CUDA kernel cannot run here, so its order of combines is emulated:
-each tile's blocks cut into chunks counted from the tile's first block,
-a partial tile per chunk, the partials combined in chunk order. The
+The CUDA kernel cannot run here, so its order of combines is emulated
+on the payload's live-edge stream: each tile's live edges cut into
+chunks counted from the tile's first live edge, a partial tile per
+chunk, the partials combined in chunk order. The
 emulation must equal the plain version exactly for min, max and or, lie
 within the worst-case in-order fp32 summation error of the exact sum
 for sum, and be bit-equal on fused and per-entry payloads."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,39 +81,38 @@ _COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
             "or": torch.bitwise_or}
 
 
-def _chunked_gas(vwin, src, dst, wts, valid, wid, tbs, *, scatter_fn, mode,
-                 t, chunk_blocks=2):
-    """The kernel's order on the CPU: tile k's blocks
-    ``tbs[k]:tbs[k + 1]`` cut into chunks of ``chunk_blocks`` from its
-    first block (``tile_chunk_start``), a partial tile per chunk (plain
-    version), then the partials combined in chunk order."""
-    tbs = np.asarray(tbs)
-    tcs = tops.tile_chunk_start(tbs, chunk_blocks)
+def _chunked_gas(vwin, stream, *, scatter_fn, mode, t, chunk_edges=64):
+    """The kernel's order on the CPU, over a live-edge stream
+    (``ops.edge_stream``): tile k's edges ``tile_edge_start[k]:
+    tile_edge_start[k + 1]`` cut into chunks of ``chunk_edges`` from its
+    first live edge (``tile_chunk_start``), a partial tile per chunk
+    (plain version), then the partials combined in chunk order."""
+    tes = stream["tile_edge_start"]
+    tcs = gas_kernel.tile_chunk_start(tes, chunk_edges).numpy()
+    tes = tes.numpy()
+    flat = vwin.reshape(-1)
     tiles = []
-    for k in range(tbs.shape[0] - 1):
+    for k in range(tes.shape[0] - 1):
         acc = None
         for j in range(tcs[k + 1] - tcs[k]):
-            b0 = int(tbs[k]) + j * chunk_blocks
-            sl = slice(b0, min(b0 + chunk_blocks, int(tbs[k + 1])))
-            part = tref.gas_ref(
-                vwin, src[sl], dst[sl], wts[sl], valid[sl], wid[sl],
-                torch.zeros(sl.stop - sl.start, dtype=torch.int32),
-                scatter_fn=scatter_fn, mode=mode, t=t, n_out_tiles=1)[0]
+            e0 = int(tes[k]) + j * chunk_edges
+            sl = slice(e0, min(e0 + chunk_edges, int(tes[k + 1])))
+            vals = scatter_fn(flat[stream["edge_src"][sl].long()],
+                              stream["edge_w"][sl]).to(vwin.dtype)
+            part = tref._scatter_combine(stream["edge_dst"][sl].long(), vals,
+                                         t, mode)
             acc = part if acc is None else _COMBINE[mode](acc, part)
         tiles.append(acc)
     return torch.stack(tiles)
 
 
-def _chunked_payload(p, vprops, op, mode, chunk_blocks=2):
+def _chunked_payload(p, vprops, op, mode, chunk_edges=64):
     """:func:`_chunked_gas` on one port payload."""
     geom = p["geom"]
     vwin = (vprops[p["unique_src"]] if p["kind"] == "big"
             else vprops).view(-1, geom.W)
-    return _chunked_gas(vwin, p["src_local"], p["dst_local"], p["weights"],
-                        p["valid"], p["window_id"],
-                        p["tile_block_start"].numpy(),
-                        scatter_fn=SCATTER_OPS[op], mode=mode, t=geom.T,
-                        chunk_blocks=chunk_blocks)
+    return _chunked_gas(vwin, p, scatter_fn=SCATTER_OPS[op], mode=mode,
+                        t=geom.T, chunk_edges=chunk_edges)
 
 
 def _assert_within_fp32_sum(got, exact64, terms_abs64, n_terms):
@@ -210,11 +212,16 @@ def test_plain_gas_geometry_sweep(e_blk, w, t):
                          n_out_tiles=n_tiles)
     _assert_match("sum", plain.numpy(), pallas)
     _assert_match("sum", plain.numpy(), oracle)
-    # the kernel's chunked order finds its tiles from tile_block_start
-    # alone, with tiles of several chunks (5 blocks, chunks of 2)
-    tbs = tops.tile_block_start(tid, n_tiles)
-    emulated = _chunked_gas(*targs[:-1], tbs, scatter_fn=sc, mode="sum",
-                            t=t)
+    # the kernel's chunked order over the stream derived from these
+    # blocks, with tiles of several chunks
+    stream = tops.edge_stream({
+        "valid": targs[4], "window_id": targs[5], "src_local": targs[1],
+        "dst_local": targs[2], "weights": targs[3],
+        "tile_block_start": torch.from_numpy(
+            tops.tile_block_start(tid, n_tiles)),
+        "geom": types.SimpleNamespace(W=w)})
+    emulated = _chunked_gas(targs[0], stream, scatter_fn=sc, mode="sum",
+                            t=t, chunk_edges=128)
     _assert_match("sum", emulated.numpy(), pallas)
 
     def plain64(f):
@@ -260,9 +267,9 @@ def test_kernel_wrapper_on_cpu_does_not_count_launches():
 
 @pytest.mark.parametrize("kind", ["little", "big"])
 def test_chunked_order_fused_equals_per_entry(kind):
-    """Chunks are counted from each tile's first block, and entries are
-    tile-snapped, so the kernel's order gives a packed payload and its
-    entries, launched one by one, the same tiles bit for bit."""
+    """Chunks are counted from each tile's first live edge, and entries
+    are tile-snapped, so the kernel's order gives a packed payload and
+    its entries, launched one by one, the same tiles bit for bit."""
     graph = jrmat(10, 6, seed=11, weighted=True)
     infos, edges = jpart.partition_graph(graph, GEOM)
     infos = [i for i in infos if i.num_edges > 0]

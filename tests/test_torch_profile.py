@@ -1,14 +1,16 @@
 """The port's utilization profiler against the JAX reference.
 
 Per-lane footprints equal the reference's field by field, except
-``index_bytes``: the port's payloads carry two more index arrays
-(``tile_block_start`` and ``tile_chunk_start``, ``n_out_tiles + 1``
-int32 each), so its index bytes exceed the reference's by exactly
-2 x 4 x (n_out_tiles + 1) B per payload. ``tensor_lane_bytes`` (the
-count over the tensors a lane's launches take) stays within 10 % of the
-analytic ``total_bytes``. Utilization samples count what a lane must
-move on the card (``lane_traffic``), not the reference's TPU traffic
-model. ``UtilizationAccumulator`` gives the reference's results on the
+``index_bytes`` and the port's own ``stream_bytes``: the port's payloads
+carry one more index array (``tile_block_start``, ``n_out_tiles + 1``
+int32), so its index bytes exceed the reference's by exactly
+4 x (n_out_tiles + 1) B per payload, and the live-edge stream the CUDA
+kernel reads (12 B a real edge, and two more ``n_out_tiles + 1`` int32
+indices), which ``total_bytes`` counts and the reference's traffic
+model ``hbm_bytes`` does not. ``tensor_lane_bytes`` (the count over the
+tensors a lane's launches take) stays within 10 % of the analytic
+``total_bytes``. Utilization samples count what a lane must move on the
+card (``lane_traffic``), not the reference's TPU traffic model. ``UtilizationAccumulator`` gives the reference's results on the
 inputs of ``tests/test_profile.py``.
 On the CPU no peak is known: utilization is None.
 """
@@ -61,12 +63,21 @@ def test_lane_footprints_equal_reference(executors):
         assert (a is None) == (b is None)
         if a is None:
             continue
-        # the port's tile_block_start + tile_chunk_start, per payload
-        extra = sum(2 * 4 * (p["n_out_tiles"] + 1) for p in lane)
+        # the port's tile_block_start, per payload
+        extra = sum(4 * (p["n_out_tiles"] + 1) for p in lane)
+        # the live-edge stream: src, dst, weight a real edge, and the
+        # tile edge and chunk indices
+        stream = sum(12 * p["num_real_edges"] + 8 * (p["n_out_tiles"] + 1)
+                     for p in lane)
         da, db = a.as_dict(), b.as_dict()
+        assert db.pop("stream_bytes") == stream == sum(
+            p[k].numel() * p[k].element_size() for p in lane
+            for k in ("edge_src", "edge_dst", "edge_w", "tile_edge_start",
+                      "tile_chunk_start"))
         assert db.pop("index_bytes") - extra == da.pop("index_bytes")
-        for key in ("hbm_bytes", "total_bytes"):
-            assert db.pop(key) - extra == da.pop(key)
+        assert db.pop("hbm_bytes") - extra == da.pop("hbm_bytes")
+        assert db.pop("total_bytes") - extra - stream == \
+            da.pop("total_bytes")
         ia, ib = da.pop("intensity"), db.pop("intensity")
         assert ib == pytest.approx(b.flops / (a.hbm_bytes + extra))
         assert ia == a.flops / a.hbm_bytes
@@ -118,10 +129,11 @@ def test_util_parent_receives_the_samples(executors):
 
 @pytest.mark.parametrize("app", ["pagerank", "sssp"])
 def test_lane_traffic_counts_what_the_launches_read(executors, app):
-    """The bytes a lane must move, counted from the host edges of each
-    payload: valid per padded slot, src/dst (+ weight) per real edge,
-    window ids, the tile index pair, each distinct source once, the
-    output tiles, and the Big gather's table, values and window."""
+    """The bytes a lane must move, counted from the padded blocks of
+    each payload: src/dst (+ weight) per real edge, the tile edge and
+    chunk indices, each distinct source once, the output tiles, and the
+    Big gather's table, values and window; no padded slot and no
+    ``valid``."""
     import numpy as np
     _, et = executors
     ex = Executor(et.store, et.bundle, getattr(tapi, f"make_{app}")(),
@@ -141,8 +153,7 @@ def test_lane_traffic_counts_what_the_launches_read(executors, app):
                    * geom.W + p["src_local"].numpy())[valid]
             real = int(valid.sum())
             assert real == p["num_real_edges"]
-            want_bytes += (valid.size * 4 + real * per_edge
-                           + p["window_id"].numel() * 4
+            want_bytes += (real * per_edge
                            + 2 * 4 * (p["n_out_tiles"] + 1)
                            + np.unique(src).size * 4
                            + p["n_out_tiles"] * geom.T * 4)
@@ -217,6 +228,9 @@ def test_accumulator_chaining_retention_and_clear():
 
 
 def test_footprint_dataclass_matches_reference_fields():
+    """The reference's fields, in order, and the port's ``stream_bytes``
+    after ``index_bytes``."""
     from repro.obs.profile import LaneFootprint as JFootprint
-    assert [f.name for f in dataclasses.fields(obs.LaneFootprint)] == \
-        [f.name for f in dataclasses.fields(JFootprint)]
+    want = [f.name for f in dataclasses.fields(JFootprint)]
+    want.insert(want.index("index_bytes") + 1, "stream_bytes")
+    assert [f.name for f in dataclasses.fields(obs.LaneFootprint)] == want

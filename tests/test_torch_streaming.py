@@ -113,7 +113,7 @@ def _same_blocked(a, b):
 
 
 def _same_host_payload(pj, pt):
-    assert set(pt) == set(pj) | {"tile_block_start", "tile_chunk_start"}
+    assert set(pt) == set(pj) | {"tile_block_start"}
     for k, vj in pj.items():
         vt = pt[k]
         if k == "geom":
@@ -223,14 +223,17 @@ def test_apply_delta_matches_reference(case, graphs):
     assert rj.dirty_pids == rt.dirty_pids
     stats_j = {k: v for k, v in rj.stats.items() if not k.startswith("t_")}
     stats_t = {k: v for k, v in rt.stats.items() if not k.startswith("t_")}
-    # the port's payloads carry two more index arrays than the
-    # reference's (tile_block_start, tile_chunk_start): 2 x 4 x
-    # (n_out_tiles + 1) B each, beside the same reused payloads
+    # the port's payloads carry one more index array than the
+    # reference's (tile_block_start: 4 x (n_out_tiles + 1) B) and the
+    # live-edge stream (12 B a real edge, and the tile edge and chunk
+    # indices: 2 x 4 x (n_out_tiles + 1) B), beside the same reused
+    # payloads
     base = st.plan(tapi.PlanConfig(n_lanes=N_LANES)).packed_lanes(CPU)
     reused = [p for lane in rt.store.plan(tapi.PlanConfig(
         n_lanes=N_LANES)).packed_lanes(CPU)
         if any(lane is old for old in base) for p in lane]
-    extra = sum(8 * (p["n_out_tiles"] + 1) for p in reused)
+    extra = sum(12 * (p["n_out_tiles"] + 1) + 12 * p["num_real_edges"]
+                for p in reused)
     assert stats_t.pop("packed_bytes_reused") - extra == \
         stats_j.pop("packed_bytes_reused")
     assert stats_j == stats_t

@@ -287,9 +287,7 @@ def test_one_library_per_udf_and_mode():
         pre[(f1, "max")]
     assert f"#define GAS_SCATTER_MODE {gas_kernel.MODES['max']}" in \
         pre[(f1, "max")]
-    paths = {_build.library_path("gas_kernel", v, GAS_CHUNK_BLOCKS=16)
-             for v in pre.values()}
-    named = _build.library_path("gas_kernel", GAS_CHUNK_BLOCKS=16)
+    paths = {_build.library_path("gas_kernel", v) for v in pre.values()}
+    named = _build.library_path("gas_kernel")
     assert len(paths) == 4 and named not in paths
-    assert _build.library_path("gas_kernel", pre[(f1, "min")],
-                               GAS_CHUNK_BLOCKS=16) in paths
+    assert _build.library_path("gas_kernel", pre[(f1, "min")]) in paths
