@@ -130,6 +130,7 @@ class DistributedEngine:
                 "DistributedEngine needs an initialised torch.distributed "
                 "process group; call torch.distributed.init_process_group "
                 "first")
+        store.require_padded("DistributedEngine")
         self.store = store
         self.app = app
         self.group = group

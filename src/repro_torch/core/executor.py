@@ -40,20 +40,35 @@ from .gas import GASApp, GATHER_IDENTITY
 from .planner import PlanBundle
 
 
+def _host_buffer(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """An empty host tensor for one copy to or from ``device``:
+    page-locked where ``device`` is a card, so that the copy is one DMA
+    and is not staged through pageable memory."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
 def init_props(store, app: GASApp, device):
     """Initial padded property vector for one app on a store (in DBG
     ids), on ``device``."""
     aux = store.aux_on(device)
-    p = app.init(aux | {
-        "outdeg": aux["outdeg"].cpu().numpy(),
-        "perm": store.perm,
-    })
-    full = np.full(store.V_pad, GATHER_IDENTITY[app.gather],
-                   np.int32 if app.gather == "or" else np.float32)
+    p = app.init(aux | {"outdeg": aux["outdeg_host"], "perm": store.perm})
+    buf = _host_buffer(store.V_pad, torch.int32 if app.gather == "or"
+                       else torch.float32, device)
+    full = buf.numpy()
+    full.fill(GATHER_IDENTITY[app.gather])
     full[:p.shape[0]] = p[:store.V_pad]
     if app.name == "pagerank":
-        full[store.graph.num_vertices:] = 0.0
-    return torch.from_numpy(full).to(device)
+        full[store.num_vertices:] = 0.0
+    return buf.to(device)
+
+
+def to_original_ids(vprops, aux) -> np.ndarray:
+    """The properties in original vertex ids, on the host: gathered
+    through the permutation on the device, then copied in one piece."""
+    out = torch.index_select(vprops, 0, aux["perm"])
+    host = _host_buffer(out.shape, out.dtype, out.device)
+    return host.copy_(out).numpy()
 
 
 def _synchronize(device: torch.device) -> None:
@@ -133,6 +148,7 @@ class Executor:
                                                        self.device)
         self._footprints = None      # lazy obs.lane_footprints
         self._traffic = None         # lazy obs.lane_traffic per lane
+        self._init = None            # lazy init_props on the device
 
         t0 = time.perf_counter()
         # shared across every app on this plan and device (memoized on
@@ -209,7 +225,13 @@ class Executor:
         return self.app.apply(self.gather(vprops), vprops, self.aux, it)
 
     def init_props(self):
-        return init_props(self.store, self.app, self.device)
+        """The app's initial properties, a fresh copy on the device for
+        each run: the app's ``init`` (host numpy) and the upload run once
+        per executor, since a run of it on a large graph costs more
+        host time than the run's kernels."""
+        if self._init is None:
+            self._init = init_props(self.store, self.app, self.device)
+        return self._init.clone()
 
     def _iteration_traced(self, vprops, it: int):
         """One iteration's launches, merge and Apply under an active
@@ -291,7 +313,7 @@ class Executor:
             if done:
                 break
         with obs.span("executor.reorder", "executor"):
-            out = vprops.cpu().numpy()[self.store.perm]  # original ids
+            out = to_original_ids(vprops, self.aux)
         return out, {"iterations": it_done, "history": history}
 
     # ------------------------------------------------------------------
@@ -377,10 +399,12 @@ class Executor:
 
     def dispatch_stats(self) -> dict:
         """What one iteration launches: one kernel per payload and ONE
-        merge; the per-entry count is reported alongside, and
+        merge; the per-entry count is reported alongside,
         ``kernel_edges``, the live edges the launches stream (against
         ``stats()["num_padded_edges"]``, the slots of the padded
-        blocks)."""
+        blocks), and ``big_gathered``, the sources the Big payloads'
+        gathers ``vprops[unique_src]`` read (their tables' padded
+        lengths)."""
         num_entries = sum(p["n_entries"] for p in self._payloads)
         return {
             "fuse_lanes": self.fuse_lanes,
@@ -388,17 +412,22 @@ class Executor:
             "kernel_dispatches": len(self._payloads),
             "kernel_edges": sum(int(p["edge_src"].numel())
                                 for p in self._payloads),
+            "big_gathered": sum(int(p["unique_src"].numel())
+                                for p in self._payloads
+                                if p["kind"] == "big"),
             "merge_dispatches": 1 if self._payloads else 0,
             "payload_bytes": self.memory_footprint(),
         }
 
     def stats(self) -> dict:
         b, store = self.bundle, self.store
+        # every payload carries its padded block count, a live-edge
+        # payload too (from its work's per-tile block counts)
         padded_edges = sum(p["n_blocks"] for p in self._payloads) \
             * self.geom.E_BLK
         real_edges = sum(p["num_real_edges"] for p in self._payloads)
         return {
-            "V": store.graph.num_vertices, "E": store.graph.num_edges,
+            "V": store.num_vertices, "E": store.num_edges,
             "device": str(self.device), "path": self.path,
             "partitions": len(b.infos),
             "dense": len(b.dense), "sparse": len(b.sparse),

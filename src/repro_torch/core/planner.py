@@ -159,13 +159,20 @@ class PlanBundle:
             lanes = self._packed_lanes.get(device)
             if lanes is None:
                 from ..kernels import ops
+                reuse = reuse or {}
                 with obs.span("plan.pack", "planner",
                               lanes=len(self.plan.lanes),
-                              reused=len(reuse) if reuse else 0):
-                    lanes = ops.pack_lanes(
+                              reused=len(reuse)) as sp:
+                    host = ops.pack_lanes_host(
                         self.plan, self.little_works, self.big_works,
-                        device, reuse=reuse,
+                        reuse=reuse,
                         max_working_set=self.config.hw.vmem_lane_budget)
+                    sp.set(**ops.lanes_volume(host))
+                with obs.span("plan.upload", "planner") as sp:
+                    lanes = ops.upload_lanes(host, reuse, device)
+                    sp.set(**ops.lanes_volume(
+                        [lane for lane, h in zip(lanes, host)
+                         if h is not None]))
                 if reuse:
                     self.packed_lanes_reused += len(reuse)
                     self.packed_bytes_reused += sum(
@@ -247,9 +254,12 @@ class Planner:
             sp.set(dense=len(dense), sparse=len(sparse))
 
         with obs.span("plan.blockings", "planner"):
+            batches = schedule.batch_sparse(sparse, geom.big_batch)
+            store.prepare_works([i.pid for i in dense],
+                                [tuple(i.pid for i in b) for b in batches])
             little_works = {i.pid: store.little_work(i.pid) for i in dense}
             big_works, big_ests = [], []
-            for batch in schedule.batch_sparse(sparse, geom.big_batch):
+            for batch in batches:
                 big_works.append(
                     store.big_work(tuple(i.pid for i in batch)))
                 big_ests.append(perf_model.estimate_big_batch(batch, geom,

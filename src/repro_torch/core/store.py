@@ -7,8 +7,18 @@ and the Little/Big brick blockings. Blockings are built lazily and
 memoized, so running all five builtin apps against one store pays for
 preprocessing once. Plans are cached per :class:`~.planner.PlanConfig`.
 
-The store itself is host numpy; only ``aux`` (out-degrees etc.) and the
+The store itself is host memory; only ``aux`` (out-degrees etc.) and the
 plans' payloads live on a device, memoized per device.
+
+Two layouts (``layout=``). ``"padded"`` (the default) keeps the
+partition-sorted edges and the Little/Big brick blockings as host numpy,
+the padded blocks the reference builds; every path runs on it.
+``"stream"`` is for a static graph served for analytics, which takes no
+deltas: it keeps only live edges (:mod:`.stream`), built with torch on
+``device``, and its works hold no padded slot, so a graph whose padded
+blocks would not fit the card can be served. The paths that need padded
+blocks refuse it (:meth:`GraphStore.require_padded`): the streaming
+delta apply and regroup, the sharded executor and the SPMD engine.
 
 Layering (see repro_torch/api.py):
 
@@ -35,7 +45,10 @@ import torch
 from .. import obs
 from ..graphs.formats import Graph, relabel
 from . import partition as part
+from . import stream as stream_mod
 from .types import BlockedEdges, Geometry, PartitionInfo
+
+LAYOUTS = ("padded", "stream")
 
 
 class GraphStore:
@@ -53,9 +66,14 @@ class GraphStore:
              overriding the DBG computation.
     fingerprint: identity override (defaults to the source graph's
              content hash).
+    layout:  ``"padded"`` (default) or ``"stream"`` (the module
+             docstring).
+    device:  where a ``"stream"`` store builds its layout and its Big
+             works (default ``cuda``; ``"cpu"`` runs the same torch
+             code on the host); the padded layout ignores it.
 
-    Building the store is host work and needs no device; each Executor
-    names its own.
+    Building a padded store is host work and needs no device; each
+    Executor names its own.
     """
 
     DEFAULT_MAX_PLANS = 32
@@ -63,7 +81,12 @@ class GraphStore:
     def __init__(self, graph: Graph, geom: Geometry = Geometry(),
                  use_dbg: bool = True, max_plans: Optional[int] = None,
                  perm: Optional[np.ndarray] = None,
-                 fingerprint: Optional[str] = None):
+                 fingerprint: Optional[str] = None,
+                 layout: str = "padded", device=None):
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}, got "
+                             f"{layout!r}")
+        self.layout = layout
         self.geom = geom
         self.use_dbg = use_dbg
         self.max_plans = (self.DEFAULT_MAX_PLANS if max_plans is None
@@ -72,6 +95,11 @@ class GraphStore:
             raise ValueError(f"max_plans must be >= 1, got {max_plans}")
         self.source = graph   # pre-DBG input, for sharing-mismatch checks
         self._fp = fingerprint
+        self.stream: Optional[stream_mod.StreamEdges] = None
+        self._init_caches()
+        if layout == "stream":
+            self._build_stream(graph, perm, device)
+            return
 
         t0 = time.perf_counter()
         with obs.span("store.dbg", "store", V=graph.num_vertices,
@@ -98,6 +126,7 @@ class GraphStore:
         self.V_pad = part.padded_num_vertices(self.graph.num_vertices, geom)
         self.t_partition = time.perf_counter() - t0
 
+    def _init_caches(self) -> None:
         # lazy, memoized blockings (the expensive app-independent work)
         self._little_cache: Dict[int, BlockedEdges] = {}
         self._big_cache: Dict[Tuple[int, ...], BlockedEdges] = {}
@@ -109,6 +138,27 @@ class GraphStore:
         self._plan_lock = threading.RLock()
         self.plan_evictions = 0
         self._aux: Dict[torch.device, dict] = {}
+
+    def _build_stream(self, graph: Graph, perm, device) -> None:
+        """The ``"stream"`` layout: DBG, partitions and the tile-major
+        edges built on ``device`` (:func:`.stream.build`), kept on the
+        host; no relabeled graph and no partition-sorted copy."""
+        from ..kernels.ops import resolve_device
+        if perm is not None and len(perm) != graph.num_vertices:
+            raise ValueError(f"perm has {len(perm)} entries for a graph of "
+                             f"{graph.num_vertices} vertices")
+        self.device = resolve_device(device)
+        self.graph = None
+        self.edges = None
+        t0 = time.perf_counter()
+        with obs.span("store.partition", "store", V=graph.num_vertices,
+                      E=graph.num_edges, layout="stream") as sp:
+            self.perm, self._infos, self.stream = stream_mod.build(
+                graph, self.geom, self.use_dbg, perm, self.device)
+            sp.set(partitions=len(self._infos))
+        self.t_dbg = 0.0
+        self.t_partition = time.perf_counter() - t0
+        self.V_pad = part.padded_num_vertices(graph.num_vertices, self.geom)
 
     @classmethod
     def _derived(cls, base: "GraphStore", *, graph: Graph,
@@ -131,7 +181,10 @@ class GraphStore:
         and derived stores are both alive, shared state — perm, carried
         blockings, reused device payloads — is counted in both stores'
         ``memory_footprint()`` (attribution, not exclusive ownership)."""
+        base.require_padded("a delta-derived store")
         self = cls.__new__(cls)
+        self.layout = base.layout
+        self.stream = None
         self.geom = base.geom
         self.use_dbg = base.use_dbg
         self.max_plans = base.max_plans
@@ -202,6 +255,31 @@ class GraphStore:
             raise ValueError(f"store was built with use_dbg={self.use_dbg},"
                              f" but use_dbg={use_dbg} was requested")
 
+    # -- layout ---------------------------------------------------------
+    @property
+    def num_vertices(self) -> int:
+        return (self.graph.num_vertices if self.stream is None
+                else self.stream.num_vertices)
+
+    @property
+    def num_edges(self) -> int:
+        return (self.graph.num_edges if self.stream is None
+                else self.stream.num_edges)
+
+    def out_degrees(self) -> np.ndarray:
+        """Out-degree of every vertex, in DBG ids."""
+        return (self.graph.out_degrees() if self.stream is None
+                else self.stream.out_degrees)
+
+    def require_padded(self, what: str) -> None:
+        """Raise ``ValueError`` unless this store keeps padded blocks:
+        ``what`` needs them, and a ``"stream"`` store has none."""
+        if self.layout != "padded":
+            raise ValueError(
+                f"{what} needs the padded store layout; this store was "
+                f"built with layout={self.layout!r}, which keeps live edges "
+                f"only (no padded blocks)")
+
     # -- partition stats ------------------------------------------------
     @property
     def infos(self) -> List[PartitionInfo]:
@@ -214,9 +292,13 @@ class GraphStore:
 
     # -- memoized blocking ---------------------------------------------
     def little_work(self, pid: int) -> BlockedEdges:
-        """Little-pipeline brick layout of one partition (memoized)."""
+        """Little-pipeline brick layout of one partition (memoized; a
+        :class:`.stream.StreamWork` under the ``"stream"`` layout)."""
         w = self._little_cache.get(pid)
         if w is None:
+            if self.stream is not None:
+                self.prepare_works([pid], [])
+                return self._little_cache[pid]
             t0 = time.perf_counter()
             w = part.block_little(self.edges, self._infos[pid], self.geom)
             self.t_block += time.perf_counter() - t0
@@ -224,10 +306,14 @@ class GraphStore:
         return w
 
     def big_work(self, pids: Tuple[int, ...]) -> BlockedEdges:
-        """Big-pipeline layout of one batch of partitions (memoized)."""
+        """Big-pipeline layout of one batch of partitions (memoized; a
+        :class:`.stream.StreamWork` under the ``"stream"`` layout)."""
         pids = tuple(int(p) for p in pids)
         w = self._big_cache.get(pids)
         if w is None:
+            if self.stream is not None:
+                self.prepare_works([], [pids])
+                return self._big_cache[pids]
             t0 = time.perf_counter()
             w = part.block_big(self.edges, [self._infos[p] for p in pids],
                                self.geom)
@@ -235,18 +321,56 @@ class GraphStore:
             self._big_cache[pids] = w
         return w
 
+    def prepare_works(self, dense_pids, batches) -> None:
+        """Build, in one go, the works a plan will ask for that are not
+        memoized yet: under the ``"stream"`` layout the Little works of
+        ``dense_pids`` and the Big works of ``batches`` (tuples of
+        partition ids, built together on the store's device) under one
+        ``store.stream`` span with their ``edges`` and ``bytes``. The
+        padded layout builds each work when it is asked for."""
+        if self.stream is None:
+            return
+        dense = [int(p) for p in dense_pids
+                 if int(p) not in self._little_cache]
+        batches = [tuple(int(p) for p in b) for b in batches]
+        batches = [b for b in dict.fromkeys(batches)
+                   if b not in self._big_cache]
+        if not dense and not batches:
+            return
+        t0 = time.perf_counter()
+        with obs.span("store.stream", "store", little=len(dense),
+                      big=len(batches)) as sp:
+            built = {p: stream_mod.little_work(self.stream, self._infos[p],
+                                               self.geom) for p in dense}
+            big = (stream_mod.big_works(self.stream, self._infos, self.geom,
+                                        batches, self.device)
+                   if batches else {})
+            works = list(built.values()) + list(big.values())
+            sp.set(edges=sum(w.num_real_edges for w in works),
+                   bytes=sum(w.nbytes() for w in works))
+        self._little_cache.update(built)
+        self._big_cache.update(big)
+        self.t_block += time.perf_counter() - t0
+
     # -- shared device-side aux ----------------------------------------
     def aux_on(self, device: torch.device) -> dict:
         """Apply/init auxiliary data (out-degrees on ``device`` etc.),
-        built once per device and shared by every Executor there."""
+        built once per device and shared by every Executor there: also
+        a read-only host copy of the out-degrees (``outdeg_host``, what
+        an app's ``init`` reads) and the permutation on ``device``
+        (``perm``, for the reorder to original ids)."""
         with self._plan_lock:
             aux = self._aux.get(device)
             if aux is None:
                 outdeg = np.zeros(self.V_pad, np.float32)
-                outdeg[:self.graph.num_vertices] = self.graph.out_degrees()
+                outdeg[:self.num_vertices] = self.out_degrees()
+                outdeg.setflags(write=False)
                 aux = {
-                    "outdeg": torch.from_numpy(outdeg).to(device),
-                    "num_v": float(self.graph.num_vertices),
+                    "outdeg": torch.tensor(outdeg, device=device),
+                    "outdeg_host": outdeg,
+                    "perm": torch.tensor(self.perm, dtype=torch.int32,
+                                         device=device),
+                    "num_v": float(self.num_vertices),
                     "num_v_pad": self.V_pad,
                 }
                 self._aux[device] = aux
@@ -326,6 +450,7 @@ class GraphStore:
         accepts (None = every CUDA device, int n = the first n, or an
         explicit device sequence)."""
         from ..sharding.executor import resolve_devices
+        self.require_padded("sharding a plan over devices")
         return self.plan(config).sharded_lanes(resolve_devices(devices))
 
     def executor(self, app, config=None, path: Optional[str] = None,
@@ -368,21 +493,29 @@ class GraphStore:
     def memory_footprint(self) -> dict:
         """Byte accounting of everything this store keeps alive: graph
         arrays, partition-sorted edges, memoized blockings, cached plans'
-        device payloads and the per-device aux."""
-        graph_bytes = sum(
-            int(a.nbytes) for a in (self.graph.src, self.graph.dst,
-                                    self.graph.weights) if a is not None)
-        graph_bytes += self.perm.nbytes
-        edge_bytes = sum(int(a.nbytes) for a in self.edges.values())
+        device payloads and the per-device aux. Under the ``"stream"``
+        layout ``edge_bytes`` are the tile-major edges and
+        ``blocking_bytes`` what the works hold beside them."""
+        graph_bytes = self.perm.nbytes
+        if self.stream is None:
+            graph_bytes += sum(
+                int(a.nbytes) for a in (self.graph.src, self.graph.dst,
+                                        self.graph.weights) if a is not None)
+            edge_bytes = sum(int(a.nbytes) for a in self.edges.values())
+        else:
+            edge_bytes = self.stream.nbytes()
         with self._plan_lock:
+            works = (list(self._little_cache.values())
+                     + list(self._big_cache.values()))
             blocking_bytes = sum(
-                _blocked_nbytes(w) for w in self._little_cache.values())
-            blocking_bytes += sum(
-                _blocked_nbytes(w) for w in self._big_cache.values())
+                w.owned_nbytes() if isinstance(w, stream_mod.StreamWork)
+                else _blocked_nbytes(w) for w in works)
             plan_bytes = sum(b.device_bytes()["total_bytes"]
                              for b in self._plan_cache.values())
-            aux_bytes = sum(a["outdeg"].numel() * 4
-                            for a in self._aux.values())
+            aux_bytes = sum(t.numel() * t.element_size()
+                            for a in self._aux.values()
+                            for t in a.values()
+                            if isinstance(t, torch.Tensor))
         return {
             "graph_bytes": int(graph_bytes),
             "edge_bytes": int(edge_bytes),
@@ -417,10 +550,23 @@ class GraphStore:
                              default=1.0),
         }
 
+    def device_bytes(self) -> int:
+        """Bytes of the store's own edge state on a device (its plans'
+        payloads and the per-device aux not counted). 0 in both layouts:
+        a ``"stream"`` store builds on the card and keeps its edges in
+        host memory."""
+        if self.stream is None:
+            return 0
+        return sum(t.numel() * t.element_size() for t in (
+            self.stream.src, self.stream.dst_local, self.stream.weights)
+            if t.device.type != "cpu")
+
     def stats(self) -> dict:
         return {
-            "V": self.graph.num_vertices,
-            "E": self.graph.num_edges,
+            "layout": self.layout,
+            "device_bytes": self.device_bytes(),
+            "V": self.num_vertices,
+            "E": self.num_edges,
             "partitions": len(self._infos),
             "t_dbg_ms": self.t_dbg * 1e3,
             "t_partition_ms": self.t_partition * 1e3,

@@ -81,6 +81,12 @@ class Graph:
         return canonicalize(g)
 
 
+def _raw(a: np.ndarray, dtype) -> memoryview:
+    """The bytes of ``a`` as ``dtype``, without the copy ``tobytes``
+    makes (the same bytes, so the same digest)."""
+    return memoryview(np.ascontiguousarray(a, dtype=dtype)).cast("B")
+
+
 def fingerprint(g: Graph) -> str:
     """Stable content hash of a graph: vertex count + edge arrays (+
     weights when present). The ``name`` field is cosmetic and excluded,
@@ -89,13 +95,13 @@ def fingerprint(g: Graph) -> str:
     """
     h = hashlib.blake2b(digest_size=16)
     h.update(f"V={g.num_vertices};E={g.num_edges};".encode())
-    h.update(np.ascontiguousarray(g.src, dtype=np.int32).tobytes())
-    h.update(np.ascontiguousarray(g.dst, dtype=np.int32).tobytes())
+    h.update(_raw(g.src, np.int32))
+    h.update(_raw(g.dst, np.int32))
     if g.weights is None:
         h.update(b";w=none")
     else:
         h.update(b";w=f32;")
-        h.update(np.ascontiguousarray(g.weights, dtype=np.float32).tobytes())
+        h.update(_raw(g.weights, np.float32))
     return h.hexdigest()
 
 

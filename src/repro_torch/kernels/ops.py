@@ -14,14 +14,19 @@ whole lane as ONE kernel launch instead of one per entry.
 ``pack_lanes_sharded`` uploads each lane to its owner device instead,
 and both splice in lanes carried over from before a streaming delta.
 
-Every payload carries ``tile_block_start`` (``n_out_tiles + 1``
-int32): the first block of each output tile. Every device payload also
-carries the live-edge stream the GAS kernel reads (:func:`edge_stream`),
-derived on the payload's device when it is uploaded
-(:func:`_upload_payload`, which every payload passes through): the live
-slots alone, in slot order, with each tile's first edge and first chunk
-of :data:`.gas_kernel.CHUNK_EDGES` edges. The padded arrays stay beside
-it for the plain path, the profiler and the streaming carry-over.
+Every device payload carries the live-edge stream the GAS kernel reads:
+the live slots alone, in slot order, with each tile's first edge and
+first chunk of :data:`.gas_kernel.CHUNK_EDGES` edges. Works of the
+padded store layout are padded blocks: their payloads carry
+``tile_block_start`` (``n_out_tiles + 1`` int32, the first block of each
+output tile) and the padded arrays, and :func:`_upload_payload`, which
+every payload passes through, derives the stream from them on the
+payload's device (:func:`edge_stream`); the padded arrays stay beside it
+for the plain path, the profiler and the streaming carry-over. Works of
+the ``"stream"`` layout (:class:`~repro_torch.core.stream.StreamWork`)
+are live edges already: their payloads are slices of the works' streams
+(:func:`_entry_stream`, :func:`_pack_stream_group`), uploaded as they
+are, with no padded array on the host or on the card.
 
 ``default_path`` follows the device: ``"cuda"`` (the kernel) on a CUDA
 device, ``"ref"`` (the plain PyTorch version) on ``device="cpu"``.
@@ -34,6 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.stream import StreamWork
 from ..core.types import BlockedEdges, Geometry
 from . import ref as ref_mod
 from .big_pipeline import big_pipeline
@@ -83,6 +89,9 @@ def snap_down(blocked: BlockedEdges, x: int) -> int:
     x = max(0, min(x, n))
     if x >= n:
         return n
+    if isinstance(blocked, StreamWork):
+        tbs = blocked.tile_block_start
+        return int(tbs[np.searchsorted(tbs, x, side="right") - 1])
     tf = blocked.tile_first
     while x > 0 and tf[x] != 1:
         x -= 1
@@ -136,6 +145,41 @@ def _entry_np(blocked: BlockedEdges, lo: int, hi: int) -> Optional[dict]:
         "num_real_edges": int(blocked.valid[lo:hi].sum()),
         "tile_block_start": tbs,
     }
+
+
+def _entry_stream(work: StreamWork, lo: int, hi: int) -> Optional[dict]:
+    """Host payload of one plan entry of a live-edge work (tile-snapped;
+    None when empty): the edges of its tiles, as views of the work's
+    stream, and the same per-tile fields a padded entry's upload gives.
+    """
+    lo, hi = snap_to_tiles(work, lo, hi)
+    if hi <= lo:
+        return None
+    tbs = work.tile_block_start
+    t0, t1 = int(np.searchsorted(tbs, lo)), int(np.searchsorted(tbs, hi))
+    e0, e1 = int(work.tile_edge_start[t0]), int(work.tile_edge_start[t1])
+    return {
+        "kind": work.kind,
+        "geom": work.geom,
+        "n_out_tiles": t1 - t0,
+        "n_blocks": hi - lo,
+        "n_entries": 1,
+        "edge_src": work.edge_src[e0:e1],
+        "edge_dst": work.edge_dst[e0:e1],
+        "edge_w": work.edge_w[e0:e1],
+        "tile_edge_start": work.tile_edge_start[t0:t1 + 1] - e0,
+        "tile_idx": (work.tile_dst_start[t0:t1]
+                     // work.geom.T).astype(np.int32),
+        "unique_src": work.unique_src,
+        "num_real_edges": e1 - e0,
+    }
+
+
+def _entry(work, lo: int, hi: int) -> Optional[dict]:
+    """Host payload of one plan entry of either layout's work."""
+    if isinstance(work, StreamWork):
+        return _entry_stream(work, lo, hi)
+    return _entry_np(work, lo, hi)
 
 
 # padded blocks the stream is derived from at a time: bounds the
@@ -192,21 +236,31 @@ def edge_stream(p: dict) -> dict:
 
 
 def _upload_payload(p: dict, device) -> dict:
-    """Move a host payload's array fields to ``device`` as tensors, and
-    derive the live-edge stream there (:func:`edge_stream`)."""
+    """Move a host payload's array fields to ``device`` as tensors. A
+    padded payload's live-edge stream is derived there
+    (:func:`edge_stream`); a live-edge payload's is uploaded, with its
+    chunk index computed on the device."""
     out = dict(p)
+    padded = "valid" in p
     for k in _DEVICE_KEYS:
-        if k not in _STREAM_KEYS and out.get(k) is not None:
-            out[k] = torch.from_numpy(np.ascontiguousarray(out[k])).to(
-                device, copy=True)
-    out.update(edge_stream(out))
+        v = out.get(k)
+        if v is None or (padded and k in _STREAM_KEYS):
+            continue
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = v.to(device, copy=True)
+    if padded:
+        out.update(edge_stream(out))
+    else:
+        out["tile_edge_start"] = out["tile_edge_start"].to(torch.int32)
+        out["tile_chunk_start"] = tile_chunk_start(out["tile_edge_start"])
     return out
 
 
 def materialize_entry(blocked: BlockedEdges, lo: int, hi: int, device):
     """Build the device payload for one plan entry (tile-snapped).
     Returns None when the snapped range is empty."""
-    p = _entry_np(blocked, lo, hi)
+    p = _entry(blocked, lo, hi)
     return None if p is None else _upload_payload(p, device)
 
 
@@ -242,6 +296,8 @@ def _pack_group(entries: List[dict]) -> dict:
         work are packed once); Little window ids index raw vprops
         windows and need no rebase.
     """
+    if "valid" not in entries[0]:
+        return _pack_stream_group(entries)
     kind, geom = entries[0]["kind"], entries[0]["geom"]
     tile_off = 0
     win_parts, tid_parts = [], []
@@ -284,6 +340,62 @@ def _pack_group(entries: List[dict]) -> dict:
         packed[k] = np.concatenate([e[k] for e in entries])
     _validate_packed(packed)
     return packed
+
+
+def _pack_stream_group(entries: List[dict]) -> dict:
+    """:func:`_pack_group` for live-edge entries: their streams
+    concatenated on the host, each tile's edge index shifted by the edges
+    before it, Big sources shifted by their work's offset in the packed
+    unique-source tables (a table shared by split entries of one work is
+    packed once)."""
+    kind, geom = entries[0]["kind"], entries[0]["geom"]
+    tables: List[np.ndarray] = []
+    table_off: dict = {}
+    n_windows = edge_off = 0
+    src_parts, tes_parts = [], []
+    for e in entries:
+        assert e["kind"] == kind and e["geom"] == geom
+        src = e["edge_src"]
+        if kind == "big":
+            tab = e["unique_src"]
+            off = table_off.get(id(tab))
+            if off is None:
+                off = table_off[id(tab)] = n_windows
+                tables.append(tab)
+                n_windows += tab.shape[0] // geom.W
+            if off:
+                src = src + off * geom.W
+        src_parts.append(src)
+        tes_parts.append(e["tile_edge_start"][:-1] + edge_off)
+        edge_off += e["num_real_edges"]
+    packed = {
+        "kind": kind,
+        "geom": geom,
+        "n_out_tiles": int(sum(e["n_out_tiles"] for e in entries)),
+        "n_blocks": int(sum(e["n_blocks"] for e in entries)),
+        "n_entries": len(entries),
+        "edge_src": torch.cat(src_parts),
+        "edge_dst": torch.cat([e["edge_dst"] for e in entries]),
+        "edge_w": torch.cat([e["edge_w"] for e in entries]),
+        "tile_edge_start": np.concatenate(
+            tes_parts + [np.array([edge_off], np.int64)]).astype(np.int32),
+        "tile_idx": np.concatenate([e["tile_idx"] for e in entries]),
+        "unique_src": np.concatenate(tables) if kind == "big" else None,
+        "num_real_edges": edge_off,
+    }
+    _validate_stream_packed(packed)
+    return packed
+
+
+def _validate_stream_packed(p: dict) -> None:
+    """Pack-time invariants of a live-edge payload (host arrays)."""
+    tes = p["tile_edge_start"]
+    assert tes.shape[0] == p["n_out_tiles"] + 1 and tes[0] == 0 \
+        and tes[-1] == p["edge_src"].numel() and np.all(np.diff(tes) > 0), \
+        "tile_edge_start does not cover the edges, a tile at least one"
+    idx = p["tile_idx"]
+    assert np.unique(idx).shape[0] == idx.shape[0] == p["n_out_tiles"], \
+        "packed entries write overlapping destination tiles"
 
 
 def _validate_packed(p: dict) -> None:
@@ -362,6 +474,7 @@ def payload_footprint(p: dict) -> dict:
     """
     geom: Geometry = p["geom"]
     nb = {k: _nbytes(p.get(k)) for k in _DEVICE_KEYS}
+    # absent keys (a live-edge payload has no padded array) count 0
     edge = nb["src_local"] + nb["dst_local"] + nb["weights"] + nb["valid"]
     index = (nb["window_id"] + nb["tile_id"] + nb["tile_first"]
              + nb["tile_idx"] + nb["tile_block_start"])
@@ -373,7 +486,9 @@ def payload_footprint(p: dict) -> dict:
         vertex = (int(p["unique_src"].shape[0]) * 4
                   if p.get("unique_src") is not None else 0)
     else:
-        wids = p["window_id"]
+        wids = p.get("window_id")
+        if wids is None:                 # a live-edge payload
+            wids = torch.div(p["edge_src"], geom.W, rounding_mode="floor")
         n_win = (int(torch.unique(wids).numel())
                  if isinstance(wids, torch.Tensor)
                  else int(np.unique(wids).shape[0]))
@@ -425,7 +540,7 @@ def _pack_lane_np(lane, little_works, big_works,
         work = (little_works[e.work_id] if e.kind == "little"
                 else big_works[e.work_id])
         geom = work.geom
-        p = _entry_np(work, e.block_lo, e.block_hi)
+        p = _entry(work, e.block_lo, e.block_hi)
         if p is not None:
             groups[e.kind].append(p)
     return [_pack_group(chunk)
@@ -462,16 +577,33 @@ def _check_lanes_disjoint(host, reuse) -> None:
         "plan assigns the same destination tile to multiple lanes"
 
 
-def _host_lanes(plan, little_works, big_works, reuse,
-                max_working_set) -> list:
-    """Host payloads of every lane not in ``reuse`` (None for those),
-    checked for global tile disjointness with the reused ones."""
+def pack_lanes_host(plan, little_works, big_works, reuse,
+                    max_working_set) -> list:
+    """The host half of :func:`pack_lanes`: the packed host payloads of
+    every lane not in ``reuse`` (None for those), checked for global
+    tile disjointness with the reused ones."""
     host = [None if i in reuse
             else _pack_lane_np(lane, little_works, big_works,
                                max_working_set)
             for i, lane in enumerate(plan.lanes)]
     _check_lanes_disjoint(host, reuse)
     return host
+
+
+def upload_lanes(host: list, reuse: Optional[dict], device) -> list:
+    """The device half of :func:`pack_lanes`: upload each lane of
+    ``host``, and splice in ``reuse[i]`` where ``host[i]`` is None."""
+    return [reuse[i] if lane is None
+            else [_upload_payload(p, device) for p in lane]
+            for i, lane in enumerate(host)]
+
+
+def lanes_volume(lanes) -> dict:
+    """``edges`` (live) and ``bytes`` (host or device payload arrays)
+    of lanes of payloads; None lanes count nothing."""
+    ps = [p for lane in lanes if lane for p in lane]
+    return {"edges": int(sum(p["num_real_edges"] for p in ps)),
+            "bytes": int(sum(payload_nbytes(p) for p in ps))}
 
 
 def pack_lanes(plan, little_works, big_works, device,
@@ -488,11 +620,9 @@ def pack_lanes(plan, little_works, big_works, device,
     in. ``max_working_set`` (bytes; 0 = off) chunks a lane's packed
     segments — bit-identical results, more launches."""
     reuse = reuse or {}
-    host = _host_lanes(plan, little_works, big_works, reuse,
-                       max_working_set)
-    return [reuse[i] if lane is None
-            else [_upload_payload(p, device) for p in lane]
-            for i, lane in enumerate(host)]
+    host = pack_lanes_host(plan, little_works, big_works, reuse,
+                           max_working_set)
+    return upload_lanes(host, reuse, device)
 
 
 def pack_lanes_sharded(plan, little_works, big_works, owners, devices,
@@ -512,7 +642,7 @@ def pack_lanes_sharded(plan, little_works, big_works, owners, devices,
     device bytes.
     """
     reuse = reuse or {}
-    host = _host_lanes(plan, little_works, big_works, reuse,
+    host = pack_lanes_host(plan, little_works, big_works, reuse,
                        max_working_set)
     lanes, moved, bytes_moved = [], 0, 0
     for i, lane in enumerate(host):
@@ -552,11 +682,18 @@ def run_lane(packed: dict, vprops_padded, scatter_fn, mode: str,
             vwin = vprops_padded[packed["unique_src"]].view(-1, geom.W)
         else:
             vwin = vprops_padded.view(-1, geom.W)
-        tiles = ref_mod.gas_ref(
-            vwin, packed["src_local"], packed["dst_local"],
-            packed["weights"], packed["valid"], packed["window_id"],
-            packed["tile_id"], scatter_fn=scatter_fn, mode=mode, t=geom.T,
-            n_out_tiles=packed["n_out_tiles"])
+        if "valid" in packed:
+            tiles = ref_mod.gas_ref(
+                vwin, packed["src_local"], packed["dst_local"],
+                packed["weights"], packed["valid"], packed["window_id"],
+                packed["tile_id"], scatter_fn=scatter_fn, mode=mode,
+                t=geom.T, n_out_tiles=packed["n_out_tiles"])
+        else:                            # a live-edge payload
+            tiles = ref_mod.gas_stream_ref(
+                vwin, packed["edge_src"], packed["edge_dst"],
+                packed["edge_w"], packed["tile_edge_start"],
+                scatter_fn=scatter_fn, mode=mode, t=geom.T,
+                n_out_tiles=packed["n_out_tiles"])
     elif path == "cuda":
         pipeline = big_pipeline if packed["kind"] == "big" else \
             little_pipeline

@@ -59,6 +59,23 @@ def gas_ref(vwin, src_local, dst_local, weights, valid, window_id, tile_id,
                             mode).reshape(n_out_tiles, t)
 
 
+def gas_stream_ref(vwin, edge_src, edge_dst, edge_w, tile_edge_start, *,
+                   scatter_fn, mode, t, n_out_tiles):
+    """Plain version of the GAS kernel over a live-edge stream: tile
+    ``k`` takes edges ``tile_edge_start[k]:tile_edge_start[k + 1]``,
+    each gathering ``vwin.reshape(-1)[edge_src]`` and combining at slot
+    ``edge_dst``, in one ``scatter_reduce`` of every edge into its tile.
+    Returns ``(n_out_tiles, t)`` in vwin's dtype."""
+    counts = torch.diff(tile_edge_start.to(torch.int64))
+    tile = torch.repeat_interleave(
+        torch.arange(n_out_tiles, device=vwin.device), counts)
+    props = vwin.reshape(-1)[edge_src.to(torch.int64)]
+    vals = scatter_fn(props, edge_w).to(vwin.dtype)
+    flat = tile * t + edge_dst.to(torch.int64)
+    return _scatter_combine(flat, vals, n_out_tiles * t,
+                            mode).reshape(n_out_tiles, t)
+
+
 def edge_ref(graph_src, graph_dst, graph_w, vprops, scatter_fn, mode,
              num_vertices):
     """Ground truth straight from the edge list (no blocking) — the

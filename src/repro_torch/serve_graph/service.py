@@ -68,7 +68,7 @@ from ..control.scheduler import (DeadlineExpired, JobScheduler, QueueFull,
 from ..core.executor import Executor
 from ..core.gas import BUILTIN_APPS, GASApp
 from ..core.planner import PlanConfig
-from ..core.store import GraphStore
+from ..core.store import LAYOUTS, GraphStore
 from ..core.types import Geometry
 from ..graphs.formats import Graph
 from ..kernels import ops
@@ -322,6 +322,16 @@ class GraphService:
         feeds its calibrator from every single-device executor, and
         after each execution may retune (outside the request's
         latency; a failing retune never fails serving).
+    store_layout: ``"padded"`` (default) or ``"stream"``, the layout of
+        every store the service builds (``GraphStore(layout=)``).
+        ``"stream"`` describes a static graph served for analytics, as
+        LDBC Graphalytics serves its graphs: the store keeps live edges
+        only, built on the service's ``device``, so graphs whose padded
+        blocks would not fit the card can be served. Such a service
+        takes no deltas: :meth:`update` and the regroup policy, sharded
+        requests and a worker ``pool`` (which builds stores in other
+        processes) need padded stores and are refused with a
+        ``ValueError``.
     """
 
     def __init__(self, *, cache: Optional[GraphStoreCache] = None,
@@ -345,7 +355,20 @@ class GraphService:
                  autotune=None,
                  max_chain_depth: Optional[int] = None,
                  regroup: Union[RegroupPolicy, bool, dict, None] = None,
-                 rebalance_threshold: Optional[float] = None):
+                 rebalance_threshold: Optional[float] = None,
+                 store_layout: str = "padded"):
+        if store_layout not in LAYOUTS:
+            raise ValueError(f"store_layout must be one of {LAYOUTS}, got "
+                             f"{store_layout!r}")
+        if store_layout != "padded":
+            for what, given in (("pool", pool), ("regroup", regroup),
+                                ("default_shard", default_shard)):
+                if given not in (None, False):
+                    raise ValueError(
+                        f"{what}= needs the padded store layout; "
+                        f"store_layout={store_layout!r} keeps live edges "
+                        f"only (no padded blocks)")
+        self.store_layout = store_layout
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
         if executor_byte_budget is not None and executor_byte_budget < 1:
@@ -581,6 +604,12 @@ class GraphService:
         anchored (on the store's own source graph), so the chained
         fingerprint remains rebuildable after eviction.
         """
+        if self.store_layout != "padded":
+            raise ValueError(
+                f"update() needs the padded store layout; this service "
+                f"builds store_layout={self.store_layout!r} stores, which "
+                f"keep live edges only (no padded blocks to splice a delta "
+                f"into)")
         if delta.base_fp != fingerprint:
             raise ValueError(
                 f"delta targets snapshot {delta.base_fp[:12]}… but "
@@ -830,7 +859,7 @@ class GraphService:
             if skey in self._regroup_busy:
                 return
             if not policy.churn_ready(self._churn.get(skey, 0),
-                                      store.graph.num_edges):
+                                      store.num_edges):
                 return
             last = self._regroup_last.get(skey)
             if (policy.cooldown_s and last is not None
@@ -976,6 +1005,11 @@ class GraphService:
             return self._pool.build_store(
                 graph, geom=geom, use_dbg=use_dbg, fp=fp,
                 max_plans=self.max_plans_per_store)
+        if self.store_layout != "padded":
+            return GraphStore(
+                graph, geom=geom, use_dbg=use_dbg,
+                max_plans=self.max_plans_per_store, fingerprint=fp,
+                layout=self.store_layout, device=self.device)
         return GraphStore(
             graph, geom=geom, use_dbg=use_dbg,
             max_plans=self.max_plans_per_store,
@@ -1056,6 +1090,10 @@ class GraphService:
             # the coalescable forms only
             raise ValueError("submit(shard=...) accepts True/False or a "
                              f"positive int device count, got {shard!r}")
+        if shard is not None and self.store_layout != "padded":
+            raise ValueError(
+                f"submit(shard=...) needs the padded store layout; this "
+                f"service builds store_layout={self.store_layout!r} stores")
 
         graph_obj = graph if isinstance(graph, Graph) else None
         fp = resolve_fingerprint(graph, fingerprint)

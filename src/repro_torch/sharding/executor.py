@@ -183,6 +183,7 @@ class ShardedExecutor:
 
     def __init__(self, store, bundle, app: GASApp, devices=None,
                  path: Optional[str] = None):
+        store.require_padded("the sharded executor")
         self.store = store
         self.bundle = bundle
         self.app = app
@@ -316,7 +317,7 @@ class ShardedExecutor:
     def stats(self) -> dict:
         b, store = self.bundle, self.store
         return {
-            "V": store.graph.num_vertices, "E": store.graph.num_edges,
+            "V": store.num_vertices, "E": store.num_edges,
             "device": str(self.device), "path": self.path,
             "partitions": len(b.infos),
             "little_lanes": b.plan.num_little_lanes,

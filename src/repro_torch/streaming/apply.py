@@ -291,6 +291,7 @@ def splice_delta(store: GraphStore, delta: GraphDelta, *,
     ``bulk_threshold=None`` forces the splice path regardless of dirty
     fraction (parity tests pin one path against the other).
     """
+    store.require_padded("applying a delta")
     t0 = time.perf_counter()
     base_fp = store.fingerprint()
     if delta.base_fp != base_fp:

@@ -93,6 +93,7 @@ def grouping_drift(store: GraphStore, hw=None) -> dict:
     fraction of resident edges whose partition the planner now
     classifies differently than a fresh grouping would".
     """
+    store.require_padded("a grouping-drift check")
     hw = hw or perf_model.DEFAULT_HW
     geom = store.geom
     t0 = time.perf_counter()
@@ -130,6 +131,7 @@ def reregister(store: GraphStore,
     with the OLD store's identity (or ``fingerprint=`` if given) — re-
     registration changes layout, never the snapshot a key addresses.
     """
+    store.require_padded("regrouping")
     V = store.graph.num_vertices
     inv = np.empty(V, np.int32)
     inv[store.perm] = np.arange(V, dtype=np.int32)

@@ -267,3 +267,56 @@ def test_control_plane_installs_a_tracer_without_lane_detail():
         plane = ControlPlane(svc)
         assert svc.tracer is plane.tracer
         assert plane.tracer.lane_detail is False
+
+
+@pytest.mark.parametrize("layout", ["padded", "stream"])
+def test_plan_spans_carry_edges_and_bytes(graph, layout):
+    """A first request's plan stage under a tracer: ``plan.pack`` (the
+    host payloads) and ``plan.upload`` (the device payloads) carry the
+    live edges and the bytes they hold; a stream store's works are built
+    under one ``store.stream`` span."""
+    tracer = tapi.Tracer(lane_detail=False)
+    cfg = tapi.PlanConfig(n_lanes=N_LANES,
+                          hw=tapi.DEFAULT_HW.clone(gather_b=0.0))
+    with tapi.GraphService(device="cpu", default_geom=GEOM, workers=1,
+                           store_layout=layout, tracer=tracer) as svc:
+        svc.submit(graph, "pagerank", config=cfg,
+                   max_iters=2).result(timeout=WAIT)
+        ex = next(iter(svc._executors.values()))[0]
+        spans = [s for tid in tracer.trace_ids() for s in tracer.export(tid)]
+    d = ex.dispatch_stats()
+    pack, = _named(spans, "plan.pack")
+    upload, = _named(spans, "plan.upload")
+    assert pack["attrs"]["edges"] == upload["attrs"]["edges"] \
+        == d["kernel_edges"] == graph.num_edges
+    assert upload["attrs"]["bytes"] == d["payload_bytes"] > 0
+    assert pack["attrs"]["bytes"] > 0
+    assert upload["t_start"] >= pack["t_start"] + pack["dur"]
+    built = _named(spans, "store.stream")
+    if layout == "stream":
+        sp, = built
+        assert sp["attrs"]["edges"] == graph.num_edges
+        assert sp["attrs"]["bytes"] >= 12 * graph.num_edges
+        # a stream payload holds its stream and per-tile arrays only
+        assert pack["attrs"]["bytes"] < 13 * graph.num_edges
+    else:
+        assert not built
+
+
+@pytest.mark.parametrize("layout", ["padded", "stream"])
+def test_store_and_executor_counters(graph, layout):
+    """``GraphStore.stats()`` names the layout and counts what the store
+    keeps on a device (nothing, in either layout: a stream store keeps
+    its edges in host memory); ``big_gathered`` is the Big payloads'
+    table lengths, the sources one iteration's gathers read."""
+    store = tapi.GraphStore(graph, geom=GEOM, layout=layout, device="cpu")
+    st = store.stats()
+    assert st["layout"] == layout and st["device_bytes"] == 0
+    cfg = tapi.PlanConfig(mode="monolithic", n_lanes=N_LANES)
+    ex = Executor(store, store.plan(cfg), tapi.make_pagerank(),
+                  device="cpu")
+    big = [p for lane in ex.lanes for p in lane if p["kind"] == "big"]
+    assert big
+    assert ex.dispatch_stats()["big_gathered"] == sum(
+        int(p["unique_src"].numel()) for p in big)
+    assert ex.stats()["big_gathered"] == ex.dispatch_stats()["big_gathered"]
