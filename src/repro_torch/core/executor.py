@@ -2,7 +2,8 @@
 
 The Executor is the only layer that touches the device: it takes the
 plan's lane payloads on its device, runs the iteration (GAS kernel
-launches → tile merge → Apply) eagerly, and owns ``run`` /
+launches → tile merge → Apply) eagerly or, on the card, replays it from
+the plan's captured iteration (``core/replay.py``), and owns ``run`` /
 ``time_iteration`` / ``time_lanes``. The store's aux (out-degrees etc.)
 is shared across every Executor on the same store and device.
 ``time_lanes`` samples feed the perf-model drift report, the
@@ -35,7 +36,7 @@ import torch
 
 from .. import obs
 from ..kernels import ops
-from . import perf_model
+from . import perf_model, replay
 from .gas import GASApp, GATHER_IDENTITY
 from .planner import PlanBundle
 
@@ -72,8 +73,11 @@ def to_original_ids(vprops, aux) -> np.ndarray:
 
 
 def _synchronize(device: torch.device) -> None:
+    """Wait for what this thread issued on ``device``: its current
+    stream. A wait on the whole device fails, and breaks the capture,
+    while another thread captures an iteration (``core/replay.py``)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 class Executor:
@@ -149,6 +153,7 @@ class Executor:
         self._footprints = None      # lazy obs.lane_footprints
         self._traffic = None         # lazy obs.lane_traffic per lane
         self._init = None            # lazy init_props on the device
+        self._replay_counts = dict.fromkeys(replay.COUNTS, 0)
 
         t0 = time.perf_counter()
         # shared across every app on this plan and device (memoized on
@@ -224,14 +229,42 @@ class Executor:
         """One full iteration: launches → merge → Apply."""
         return self.app.apply(self.gather(vprops), vprops, self.aux, it)
 
-    def init_props(self):
-        """The app's initial properties, a fresh copy on the device for
-        each run: the app's ``init`` (host numpy) and the upload run once
-        per executor, since a run of it on a large graph costs more
-        host time than the run's kernels."""
+    def _initial(self):
+        """The app's initial properties on the device, made once per
+        executor: the app's ``init`` (host numpy) and the upload cost
+        more host time on a large graph than a run's kernels."""
         if self._init is None:
             self._init = init_props(self.store, self.app, self.device)
-        return self._init.clone()
+        return self._init
+
+    def init_props(self):
+        """The app's initial properties, a fresh copy on the device for
+        each run."""
+        return self._initial().clone()
+
+    def _take_capture(self):
+        """The captured iteration this run replays, with its lock held,
+        or None: another run holds it, or its capture failed."""
+        cap = self.bundle.iteration_capture(self.device,
+                                            self.app.iteration_key)
+        if not cap.lock.acquire(blocking=False):
+            return None
+        if cap.broken is not None:
+            cap.lock.release()
+            return None
+        return cap
+
+    def _issue(self, cap, vprops, it: int):
+        """One iteration's launches, merge and Apply: replayed from the
+        capture, or eager (capturing it first where ``cap`` holds none
+        yet). Returns ``(new props, replayed, captured)``."""
+        if cap is None or cap.broken is not None:
+            return self.iteration(vprops, it), False, False
+        if cap.captured:
+            return cap.replay(), True, False
+        new = cap.capture(lambda v: self.iteration(v, it),
+                          (self._payloads, self.aux))
+        return new, False, cap.captured
 
     def _iteration_traced(self, vprops, it: int):
         """One iteration's launches, merge and Apply under an active
@@ -281,39 +314,65 @@ class Executor:
         lanes launch back to back (``executor.issue``: the host's issue
         of every launch, the merge and Apply) and the one
         synchronization of the iteration follows (``executor.wait``);
-        only the per-iteration makespan drift sample is taken."""
+        only the per-iteration makespan drift sample is taken.
+
+        Where :func:`~.replay.eligible` allows and the plan's captured
+        iteration for the app's key is free, the iterations replay it
+        (``core/replay.py``; ``executor.issue`` then spans the replay,
+        its attribute ``replayed`` says which): the same kernels on the
+        same payloads, bit for bit, into two static buffers, and the
+        reorder reads the last of them before the capture is freed."""
         tracer = obs.current_tracer()
         lane_detail = (tracer is not None and tracer.lane_detail
                        and obs.current_ctx() is not None)
-        vprops = self.init_props()
+        eligible = replay.eligible(self.device, self.path, self.fuse_lanes,
+                                   lane_detail, self.app)
+        cap = self._take_capture() if eligible else None
         iters = max_iters or self.app.max_iters
         history = []
-        it_done = 0
-        for it in range(iters):
-            with obs.span("executor.iteration", "executor", it=it):
-                t_it = time.perf_counter()
-                if lane_detail:
-                    new = self._iteration_traced(vprops, it)
-                    _synchronize(self.device)
-                else:
-                    with obs.span("executor.issue", "executor", it=it):
-                        new = self.iteration(vprops, it)
-                    with obs.span("executor.wait", "executor", it=it):
+        it_done = n_replayed = n_captured = 0
+        try:
+            vprops = (self.init_props() if cap is None
+                      else cap.start(self._initial()))
+            for it in range(iters):
+                with obs.span("executor.iteration", "executor", it=it):
+                    t_it = time.perf_counter()
+                    if lane_detail:
+                        new = self._iteration_traced(vprops, it)
                         _synchronize(self.device)
-                # the sample ends with the new properties on the device
-                # and before the convergence test, as the reference's
-                self.drift.add("makespan", self._est_iteration,
-                               time.perf_counter() - t_it)
-                with obs.span("executor.converge", "executor", it=it):
-                    done = self.app.converged(vprops, new, it)
-            it_done = it + 1
-            if collect_history:
-                history.append(new.cpu().numpy())
-            vprops = new
-            if done:
-                break
-        with obs.span("executor.reorder", "executor"):
-            out = to_original_ids(vprops, self.aux)
+                    else:
+                        with obs.span("executor.issue", "executor",
+                                      it=it) as sp:
+                            new, replayed, captured = self._issue(
+                                cap, vprops, it)
+                            sp.set(replayed=replayed)
+                        n_replayed += replayed
+                        n_captured += captured
+                        with obs.span("executor.wait", "executor", it=it):
+                            _synchronize(self.device)
+                    # the sample ends with the new properties on the
+                    # device and before the convergence test, as the
+                    # reference's
+                    self.drift.add("makespan", self._est_iteration,
+                                   time.perf_counter() - t_it)
+                    with obs.span("executor.converge", "executor", it=it):
+                        done = self.app.converged(vprops, new, it)
+                it_done = it + 1
+                if collect_history:     # a copy: a replay reuses `new`
+                    history.append(new.to("cpu", copy=True).numpy())
+                vprops = new
+                if done:
+                    break
+            with obs.span("executor.reorder", "executor"):
+                out = to_original_ids(vprops, self.aux)
+        finally:
+            if cap is not None:
+                cap.lock.release()
+            replay.count(self._replay_counts, iteration_captures=n_captured,
+                         replayed_iterations=n_replayed,
+                         eager_iterations=(it_done - n_replayed
+                                           if eligible else 0),
+                         run_iterations=it_done)
         return out, {"iterations": it_done, "history": history}
 
     # ------------------------------------------------------------------
@@ -404,7 +463,13 @@ class Executor:
         ``stats()["num_padded_edges"]``, the slots of the padded
         blocks), and ``big_gathered``, the sources the Big payloads'
         gathers ``vprops[unique_src]`` read (their tables' padded
-        lengths)."""
+        lengths). The replay counts (``core/replay.py``) are this
+        executor's runs': ``iteration_captures`` (the captures they
+        made), ``replayed_iterations``, ``eager_iterations`` (of runs
+        that could replay) and ``run_iterations`` (every iteration
+        ``run`` ran; ``replay.totals()`` sums them over the process);
+        ``capture_pool_bytes`` is what this plan's captured iterations
+        hold on this device."""
         num_entries = sum(p["n_entries"] for p in self._payloads)
         return {
             "fuse_lanes": self.fuse_lanes,
@@ -417,6 +482,9 @@ class Executor:
                                 if p["kind"] == "big"),
             "merge_dispatches": 1 if self._payloads else 0,
             "payload_bytes": self.memory_footprint(),
+            **self._replay_counts,
+            "capture_pool_bytes": self.bundle.capture_pool_bytes(
+                self.device),
         }
 
     def stats(self) -> dict:

@@ -54,6 +54,15 @@ class GASApp:
     apply(accum, prop, aux, iteration) -> new prop  [vertex-wise, torch]
     init(graph_aux) -> initial prop                  (numpy)
     converged(old_prop, new_prop, iteration) -> bool
+    iteration_key: what one iteration depends on, or None. Apps with
+                equal keys run the same iteration on the same plan, so
+                a captured iteration is shared between them
+                (``core/replay.py``): the name, gather mode and scatter
+                op, and every parameter ``apply`` reads. It leaves out
+                what only changes the initial vector or the loop (a
+                root, ``max_iters``). An app whose ``apply`` reads its
+                ``iteration`` argument, or parameters the executor
+                cannot see, has none and runs eagerly.
     """
 
     name: str
@@ -66,6 +75,7 @@ class GASApp:
     prop_dtype: str = "float32"
     max_iters: int = 64
     scatter_op: Optional[str] = None
+    iteration_key: Optional[tuple] = None
 
 
 def _equal(old, new, it) -> bool:
@@ -92,7 +102,8 @@ def make_pagerank(damping: float = 0.85, max_iters: int = 16) -> GASApp:
         return bool(torch.max(torch.abs(old - new)) < 1e-7)
 
     return GASApp("pagerank", "sum", SCATTER_OPS["copy"], apply, init,
-                  converged, max_iters=max_iters, scatter_op="copy")
+                  converged, max_iters=max_iters, scatter_op="copy",
+                  iteration_key=("pagerank", "sum", "copy", float(damping)))
 
 
 def _root_init(root: int):
@@ -114,7 +125,8 @@ def make_bfs(root: int = 0, max_iters: int = 64) -> GASApp:
         return torch.where((prop >= INF) & reachable, accum + 1.0, prop)
 
     return GASApp("bfs", "min", SCATTER_OPS["copy"], apply, _root_init(root),
-                  _equal, max_iters=max_iters, scatter_op="copy")
+                  _equal, max_iters=max_iters, scatter_op="copy",
+                  iteration_key=("bfs", "min", "copy"))
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +139,8 @@ def make_sssp(root: int = 0, max_iters: int = 64) -> GASApp:
 
     return GASApp("sssp", "min", SCATTER_OPS["add_weight"], apply,
                   _root_init(root), _equal, needs_weights=True,
-                  max_iters=max_iters, scatter_op="add_weight")
+                  max_iters=max_iters, scatter_op="add_weight",
+                  iteration_key=("sssp", "min", "add_weight"))
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +155,8 @@ def make_wcc(max_iters: int = 64) -> GASApp:
         return np.arange(aux["num_v_pad"], dtype=np.float32)
 
     return GASApp("wcc", "min", SCATTER_OPS["copy"], apply, init, _equal,
-                  max_iters=max_iters, scatter_op="copy")
+                  max_iters=max_iters, scatter_op="copy",
+                  iteration_key=("wcc", "min", "copy"))
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +185,8 @@ def make_closeness(sources: Optional[np.ndarray] = None,
 
     return GASApp("closeness", "or", SCATTER_OPS["copy"], apply, init,
                   _equal, prop_dtype="int32", max_iters=max_iters,
-                  scatter_op="copy")
+                  scatter_op="copy",
+                  iteration_key=("closeness", "or", "copy"))
 
 
 BUILTIN_APPS = {

@@ -97,9 +97,9 @@ class PlanConfig:
 class PlanBundle:
     """A plan plus everything the Executor needs to materialize it:
     classified partition stats and the blocked works the lanes refer to.
-    Device payloads are memoized per device (and sharded forms per
-    device tuple), so every app executing this plan on one device shares
-    them."""
+    Device payloads are memoized per device (sharded forms per device
+    tuple, captured iterations per device and iteration key), so every
+    app executing this plan on one device shares them."""
 
     config: PlanConfig
     infos: List[PartitionInfo]               # classified copies
@@ -123,6 +123,9 @@ class PlanBundle:
     # sharded (multi-device) materializations: device tuple ->
     # sharding.ShardedLanes (lane payloads resident on owner devices)
     _sharded: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    # (device, iteration key) -> replay.CapturedIteration
+    _captures: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
     @property
@@ -202,6 +205,25 @@ class PlanBundle:
                                                   keep=keep, seed=seed)
                 self._sharded[devices] = sharded
             return sharded
+
+    def iteration_capture(self, device, key):
+        """The captured iteration (:class:`~.replay.CapturedIteration`)
+        that every executor on this plan and ``device`` whose app has
+        iteration key ``key`` shares; made once, empty until the first
+        run that takes it captures."""
+        with self._mat_lock:
+            cap = self._captures.get((device, key))
+            if cap is None:
+                from .replay import CapturedIteration
+                cap = CapturedIteration(device)
+                self._captures[(device, key)] = cap
+            return cap
+
+    def capture_pool_bytes(self, device) -> int:
+        """Device bytes held in the graph pools of this plan's captured
+        iterations on ``device``."""
+        return sum(cap.pool_bytes for (dev, _), cap
+                   in list(self._captures.items()) if dev == device)
 
     def device_bytes(self) -> dict:
         """Device bytes pinned by the payload forms materialized so far,

@@ -211,7 +211,11 @@ def gas_tiles(vwin, edge_src, edge_dst, edge_w, tile_edge_start,
     Returns ``(n_out_tiles, t)`` tiles in vwin's dtype. Each call adds
     one to ``gas_tiles.launches`` (one per payload, although the kernel
     takes two device launches: chunks, then the ordered combine) and the
-    stream's length to ``gas_tiles.edges``.
+    stream's length to ``gas_tiles.edges``. A call on a stream that is
+    capturing a CUDA graph launches nothing then: it adds to
+    ``gas_tiles.recorded_launches`` and ``recorded_edges`` instead, and
+    each replay of the graph adds them to ``launches`` and ``edges``
+    (``core/replay.py``).
     """
     if mode not in MODES:
         raise ValueError(f"unknown gather mode {mode!r}")
@@ -262,6 +266,7 @@ def gas_tiles(vwin, edge_src, edge_dst, edge_w, tile_edge_start,
     lib = lib or _load_library(scatter_fn, mode)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        recording = torch.cuda.is_current_stream_capturing()
         err = lib.gas_launch(
             MODES[mode], op_code, vwin.data_ptr(), edge_src.data_ptr(),
             edge_dst.data_ptr(), edge_w.data_ptr(),
@@ -273,10 +278,14 @@ def gas_tiles(vwin, edge_src, edge_dst, edge_w, tile_edge_start,
                            f"(mode={mode}, op={scatter_op or 'custom'}, "
                            f"T={t}, edges={n_edges}, tiles={n_out_tiles}, "
                            f"chunks<={n_chunks})")
-    gas_tiles.launches += 1
-    gas_tiles.edges += n_edges
+    if recording:
+        gas_tiles.recorded_launches += 1
+        gas_tiles.recorded_edges += n_edges
+    else:
+        gas_tiles.launches += 1
+        gas_tiles.edges += n_edges
     return out
 
 
-gas_tiles.launches = 0
-gas_tiles.edges = 0
+gas_tiles.launches = gas_tiles.edges = 0
+gas_tiles.recorded_launches = gas_tiles.recorded_edges = 0

@@ -8,7 +8,11 @@ changing-graph paths through the kernel: sharded == fused, a derived
 store == a cold rebuild after a delta, and reused payloads kept in
 place; and the serving layer: a served request == a direct executor,
 a spawn pool with CUDA up in the parent, the traced per-lane run ==
-the fused run; a forced autotune retune on the card,
+the fused run; the replayed iteration (``core/replay.py``) == an eager
+run bit for bit, one capture shared by two roots, a busy capture run
+eagerly beside a replay, captures beside eager work on another thread,
+and new captures after an update and an adopted plan; a forced autotune
+retune on the card,
 ``DistributedEngine`` on a one-rank NCCL group; and the LM serving
 path: reduced dense and MoE models on the card against the CPU, the
 engine's greedy tokens against a manual decode loop, and no serving
@@ -23,12 +27,17 @@ a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each skips, with its reason, where torch finds no CUDA device."""
+import dataclasses
+import gc
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import api
 from repro_torch.core import partition as part
+from repro_torch.core import replay
 from repro_torch.core.gas import SCATTER_OPS
 from repro_torch.core.types import Geometry
 from repro_torch.graphs.rmat import rmat, uniform_random
@@ -605,6 +614,244 @@ def test_distributed_engine_on_one_rank_nccl(device, shard_graph,
                 assert np.array_equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+# -- the replayed iteration on the card (core/replay.py) -------------------
+
+# Little and Big lanes on both layouts (the Big gather's cost set to 0)
+REPLAY_CFG = api.PlanConfig(n_lanes=4, hw=api.DEFAULT_HW.clone(gather_b=0.0))
+
+
+def _roots(g, n=2):
+    """The ``n`` vertices of highest out-degree."""
+    deg = np.bincount(g.src, minlength=g.num_vertices)
+    return [int(v) for v in np.argsort(-deg, kind="stable")[:n]]
+
+
+def _replay_app(name, root):
+    kw = {"root": root} if name in ("bfs", "sssp") else {}
+    return api.BUILTIN_APPS[name](**kw)
+
+
+def _eager(app):
+    """The same app without an iteration key: its runs never replay."""
+    return dataclasses.replace(app, iteration_key=None)
+
+
+def _totals():
+    t = replay.totals()
+    return np.array([t[key] for key in replay.COUNTS])
+
+
+def _assert_same_run(got, want):
+    (a, ma), (b, mb) = got, want
+    assert ma["iterations"] == mb["iterations"]
+    assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+    assert len(ma["history"]) == len(mb["history"])
+    for x, y in zip(ma["history"], mb["history"]):
+        assert torch.equal(torch.from_numpy(x), torch.from_numpy(y))
+
+
+@pytest.mark.parametrize("layout", ["padded", "stream"])
+@pytest.mark.parametrize("app", APPS)
+def test_replayed_run_equals_eager_run(app, layout, device, shard_graph):
+    """The capturing run (its first iteration eager) and a later run
+    (every iteration replayed) equal a run of the same app without a key
+    bit for bit: properties, iterations and history; the kernel's launch
+    and edge counts stay one payload's a payload an iteration, each graph
+    having recorded one iteration's, and the executor's own counts add up
+    to the process's."""
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM, layout=layout)
+    bundle = store.plan(REPLAY_CFG)
+    a = _replay_app(app, _roots(shard_graph)[0])
+    want = api.Executor(store, bundle, _eager(a)).run(collect_history=True)
+    n = want[1]["iterations"]
+    assert n > 1
+    ex = api.Executor(store, bundle, a)
+    assert {p["kind"] for p in ex._payloads} == {"little", "big"}
+    for run in range(2):
+        before = _totals()
+        gas_kernel.gas_tiles.launches = gas_kernel.gas_tiles.edges = 0
+        got = ex.run(collect_history=True)
+        torch.cuda.synchronize()
+        _assert_same_run(got, want)
+        d = ex.dispatch_stats()
+        assert (gas_kernel.gas_tiles.launches, gas_kernel.gas_tiles.edges) \
+            == (n * d["kernel_dispatches"], n * d["kernel_edges"])
+        want_counts = [1, n - 1, 1, n] if run == 0 else [0, n, 0, n]
+        assert list(_totals() - before) == want_counts
+        assert [d[key] for key in replay.COUNTS] == (
+            want_counts if run == 0 else [1, 2 * n - 1, 1, 2 * n])
+    assert ex.dispatch_stats()["capture_pool_bytes"] > 0
+    cap = bundle.iteration_capture(device, a.iteration_key)
+    assert [g[1:] for g in cap.graphs] == [
+        (d["kernel_dispatches"], d["kernel_edges"])] * 2
+
+
+def test_replay_with_tiles_over_48k_of_shared_memory(device):
+    """Tiles of 2,048 slots take 80 KB of shared memory a CTA, so each
+    launch sets the kernel's shared-memory attribute, inside the capture
+    too: the capture holds, and its replays equal the eager run."""
+    geom = Geometry(U=4096, W=512, T=2048, E_BLK=128, big_batch=2)
+    store = api.GraphStore(rmat(12, 8, seed=5, weighted=True), geom=geom)
+    bundle = store.plan(api.PlanConfig(n_lanes=2))
+    app = _replay_app("pagerank", 0)
+    want = api.Executor(store, bundle, _eager(app)).run(collect_history=True)
+    ex = api.Executor(store, bundle, app)
+    for _ in range(2):
+        _assert_same_run(ex.run(collect_history=True), want)
+    cap = bundle.iteration_capture(device, app.iteration_key)
+    assert cap.captured and cap.broken is None, cap.broken
+
+
+def test_two_roots_share_one_capture(device, shard_graph):
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    bundle = store.plan(REPLAY_CFG)
+    before = _totals()
+    n_all, answers = 0, []
+    for root in _roots(shard_graph):
+        app = _replay_app("bfs", root)
+        got = api.Executor(store, bundle, app).run()
+        _assert_same_run(got, api.Executor(store, bundle,
+                                           _eager(app)).run())
+        n_all += got[1]["iterations"]
+        answers.append(got[0])
+    assert not np.array_equal(*answers)
+    # the eager runs beside them count in run_iterations alone
+    assert list(_totals() - before) == [1, n_all - 1, 1, 2 * n_all]
+    assert len(bundle._captures) == 1
+
+
+def test_busy_capture_runs_eagerly_beside_the_replay(device, shard_graph):
+    """Two threads run one key at once: the one holding the capture
+    replays, the other runs eagerly; both equal the eager answer."""
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    bundle = store.plan(REPLAY_CFG)
+    app = _replay_app("pagerank", 0)
+    want = api.Executor(store, bundle, _eager(app)).run()
+    api.Executor(store, bundle, app).run()              # the capture
+    n = want[1]["iterations"]
+    inside, go, out = threading.Event(), threading.Event(), {}
+
+    def held(old, new, it):
+        if it == 1:
+            inside.set()
+            assert go.wait(120)
+        return app.converged(old, new, it)
+
+    def first():
+        out["first"] = api.Executor(
+            store, bundle, dataclasses.replace(app, converged=held)).run()
+
+    before = _totals()
+    t = threading.Thread(target=first)
+    t.start()
+    assert inside.wait(120)
+    out["second"] = api.Executor(store, bundle, app).run()
+    go.set()
+    t.join(120)
+    _assert_same_run(out["first"], want)
+    _assert_same_run(out["second"], want)
+    assert list(_totals() - before) == [0, n, n, 2 * n]
+
+
+def test_capture_beside_eager_work_on_another_thread(device, shard_graph):
+    """Captures on one thread while another issues eager runs back to
+    back, each waiting on its stream (a wait on the whole device is not
+    allowed while a stream captures): every capture holds, every answer
+    equals the eager one, and the launches count one a payload an
+    iteration on both threads (the other thread's launches during a
+    recording count as launched)."""
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    wcc = _eager(_replay_app("wcc", 0))
+    bundle0 = store.plan(REPLAY_CFG)
+    want_wcc = api.Executor(store, bundle0, wcc).run()
+    stop, errors, runs = threading.Event(), [], [0]
+    busy_ex = api.Executor(store, bundle0, wcc)
+
+    def busy():
+        try:
+            while not stop.is_set():
+                _assert_same_run(busy_ex.run(), want_wcc)
+                torch.cuda.current_stream().synchronize()
+                runs[0] += 1
+        except BaseException as exc:          # noqa: BLE001 — reported
+            errors.append(exc)
+
+    t = threading.Thread(target=busy)
+    gas_kernel.gas_tiles.launches, expect = 0, 0
+    t.start()
+    try:
+        before = _totals()
+        for n_lanes in (2, 3, 4, 5, 6, 7):
+            cfg = api.PlanConfig(n_lanes=n_lanes,
+                                 hw=api.DEFAULT_HW.clone(gather_b=0.0))
+            bundle = store.plan(cfg)
+            app = _replay_app("pagerank", 0)
+            want = api.Executor(store, bundle, _eager(app)).run()
+            ex = api.Executor(store, bundle, app)
+            got = ex.run()
+            _assert_same_run(got, want)
+            expect += 2 * got[1]["iterations"] \
+                * ex.dispatch_stats()["kernel_dispatches"]
+            cap = bundle.iteration_capture(device, app.iteration_key)
+            assert cap.captured and cap.broken is None, cap.broken
+    finally:
+        stop.set()
+        t.join(120)
+    assert not errors, errors
+    assert runs[0] > 0
+    assert (_totals() - before)[0] == 6
+    busy_launches = want_wcc[1]["iterations"] \
+        * busy_ex.dispatch_stats()["kernel_dispatches"]
+    assert gas_kernel.gas_tiles.launches == expect + runs[0] * busy_launches
+
+
+def test_new_snapshot_and_adopted_plan_capture_anew(device, shard_graph):
+    """After ``GraphService.update`` and after ``adopt_plan`` the run
+    captures on its own bundle, and equals an eager run there."""
+    from repro_torch.core.planner import Planner
+    root = _roots(shard_graph)[0]
+    app = _replay_app("bfs", root)
+    with api.GraphService(default_geom=SHARD_GEOM, workers=2) as svc:
+        fp = svc.register(shard_graph)
+
+        def served(f):
+            return svc.run(fingerprint=f, app="bfs",
+                           app_kwargs={"root": root}, config=REPLAY_CFG,
+                           timeout=300)
+
+        served(fp)
+        old = svc.cache.peek((fp, SHARD_GEOM, True)).plan(REPLAY_CFG)
+        old_cap = old.iteration_capture(device, app.iteration_key)
+        assert old_cap.captured
+        before = _totals()
+        delta = random_delta(shard_graph, churn=0.005, seed=11,
+                             hot_frac=0.05)
+        new_fp = svc.update(fp, delta).fingerprint
+        props, meta = served(new_fp)
+        store = svc.cache.peek((new_fp, SHARD_GEOM, True))
+        bundle = store.plan(REPLAY_CFG)
+        cap = bundle.iteration_capture(device, app.iteration_key)
+        assert bundle is not old and cap is not old_cap and cap.captured
+        assert (_totals() - before)[0] == 1
+        want = api.Executor(store, bundle, _eager(app)).run()
+        _assert_same_run((props, {**meta, "history": []}), want)
+
+        adopted = Planner(store, REPLAY_CFG).build()
+        store.adopt_plan(adopted)
+        del old, old_cap
+        gc.collect()
+        torch.cuda.empty_cache()
+        junk = torch.full((1 << 24,), float("nan"), device=device)
+        assert store.plan(REPLAY_CFG) is adopted
+        before = _totals()
+        got = api.Executor(store, adopted, app).run()
+        del junk
+        assert (_totals() - before)[0] == 1
+        assert adopted.iteration_capture(device, app.iteration_key) \
+            is not cap
+        _assert_same_run(got, want)
 
 
 # ---------------------------------------------------------------------------
