@@ -470,9 +470,11 @@ def _launch_blocks(a, vwin, geom, mode, op, lo=0, hi=None):
                                        "valid", "window_id")}
     blocks["tile_block_start"] = torch.from_numpy(ops.tile_block_start(
         tid, int(tid[-1]) + 1)).to(vwin.device)
+    blocks["num_real_edges"] = int(blocks["valid"].count_nonzero())
     blocks["geom"] = geom
-    return gas_kernel.gas_tiles(vwin, *_blocked(ops.edge_stream(blocks)),
-                                scatter_op=op, mode=mode, t=geom.T)
+    return gas_kernel.gas_tiles(
+        vwin, *_blocked(ops.edge_stream(blocks, vwin.device)),
+        scatter_op=op, mode=mode, t=geom.T)
 
 
 def phase_heavy_tile(device, seed: int) -> dict:
@@ -521,6 +523,23 @@ def phase_heavy_tile(device, seed: int) -> dict:
             "sum_fp32_bound_used": share}
 
 
+def _padded_plain(host, vprops, fn, mode):
+    """``ref.gas_ref`` on a host payload's padded blocks, on vprops'
+    device: the plain version the kernel over the uploaded stream is
+    held to (a device payload holds no padded array)."""
+    import torch
+    from repro_torch.kernels import ref
+
+    dev, geom = vprops.device, host["geom"]
+    vwin = (vprops[torch.from_numpy(host["unique_src"]).to(dev)]
+            if host["kind"] == "big" else vprops).view(-1, geom.W)
+    blocks = [torch.from_numpy(host[k]).to(dev) for k in (
+        "src_local", "dst_local", "weights", "valid", "window_id",
+        "tile_id")]
+    return ref.gas_ref(vwin, *blocks, scatter_fn=fn, mode=mode, t=geom.T,
+                       n_out_tiles=host["n_out_tiles"])
+
+
 def phase_kernel_vs_plain(device, seed: int) -> dict:
     import numpy as np
     import torch
@@ -551,19 +570,24 @@ def phase_kernel_vs_plain(device, seed: int) -> dict:
                 fn = SCATTER_OPS[op]
                 k1, _ = ops.run_lane(p, vp, fn, mode, "cuda", op)
                 k2, _ = ops.run_lane(p, vp, fn, mode, "cuda", op)
-                ref, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
+                ref = _padded_plain(host, vp, fn, mode)
                 torch.cuda.synchronize()
                 case = (f"E_BLK={e_blk} W={w} T={t} {kind} {form} "
                         f"{mode}/{op}")
                 check(torch.equal(k1, k2), f"kernel not bit-stable: {case}")
+                # the card's scatter_reduce adds in no fixed order
+                stream_ref, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
+                check(torch.allclose(stream_ref, ref, rtol=1e-5, atol=1e-5)
+                      if mode == "sum" else torch.equal(stream_ref, ref),
+                      f"plain path over the stream != padded plain: {case}")
                 if mode == "sum":
                     err = float((k1 - ref).abs().max())
                     worst_sum = max(worst_sum, err)
                     check(torch.allclose(k1, ref, rtol=1e-5, atol=1e-5),
                           f"kernel != plain (max abs err {err}): {case}")
-                    fp32_sum_share(k1, lambda f: ops.run_lane(
-                        p, vp.double(), lambda x, wt: f(fn(
-                            x.float(), wt).double()), mode, "ref", op)[0])
+                    fp32_sum_share(k1, lambda f: _padded_plain(
+                        host, vp.double(), lambda x, wt: f(fn(
+                            x.float(), wt).double()), mode))
                 else:
                     check(torch.equal(k1, ref), f"kernel != plain: {case}")
                 n_cases += 1
@@ -731,6 +755,17 @@ def _calls(payloads, vprops, geom):
              .view(-1, geom.W), p) for p in payloads]
 
 
+def _stream_slots(p, t: int):
+    """(vertex slot, ``vwin`` index) of every live edge of device payload
+    ``p``, in stream order: the destination's slot in the padded vertex
+    vector, and where its source value lies in the launch's ``vwin``."""
+    import torch
+    counts = torch.diff(p["tile_edge_start"].to(torch.int64))
+    tile = p["tile_idx"].to(torch.int64).repeat_interleave(counts)
+    return (tile * t + p["edge_dst"].to(torch.int64),
+            p["edge_src"].to(torch.int64))
+
+
 def _library_ms(calls, geom, v_pad: int, device, reps: int) -> float:
     """The library yardstick: one ``scatter_reduce`` of the pre-gathered,
     pad-free values of every launch in ``calls`` into the padded vertex
@@ -738,14 +773,9 @@ def _library_ms(calls, geom, v_pad: int, device, reps: int) -> float:
     import torch
     idx_parts, val_parts = [], []
     for vwin, p in calls:
-        keep = p["valid"] != 0
-        flat_src = p["window_id"].to(torch.int64)[:, None] * geom.W \
-            + p["src_local"]
-        val_parts.append(vwin.reshape(-1)[flat_src[keep]])
-        tile_global = p["tile_idx"].to(torch.int64)[
-            p["tile_id"].to(torch.int64)]
-        idx_parts.append((tile_global[:, None] * geom.T
-                          + p["dst_local"])[keep])
+        idx, src = _stream_slots(p, geom.T)
+        val_parts.append(vwin.reshape(-1)[src])
+        idx_parts.append(idx)
     idx, vals = torch.cat(idx_parts), torch.cat(val_parts)
     out = torch.zeros(v_pad, device=device)
     return cuda_ms(lambda: out.zero_().scatter_reduce_(
@@ -765,14 +795,14 @@ def _pagerank_launch(vwin, p, geom, tcs=None, chunk_edges=None):
 
 
 def _pagerank_plain(vwin, p, geom, f=lambda x: x):
-    """The plain version of a PageRank launch, summing ``f`` of each
-    term."""
+    """The plain version of a PageRank launch over the payload's stream,
+    summing ``f`` of each term."""
     from repro_torch.kernels import ref
 
-    return ref.gas_ref(vwin, p["src_local"], p["dst_local"], p["weights"],
-                       p["valid"], p["window_id"], p["tile_id"],
-                       scatter_fn=lambda x, w: f(x), mode="sum", t=geom.T,
-                       n_out_tiles=p["n_out_tiles"])
+    return ref.gas_stream_ref(
+        vwin, p["edge_src"], p["edge_dst"], p["edge_w"],
+        p["tile_edge_start"], scatter_fn=lambda x, w: f(x), mode="sum",
+        t=geom.T, n_out_tiles=p["n_out_tiles"])
 
 
 def _held_to_plain(calls, geom, what: str) -> dict:
@@ -1036,12 +1066,10 @@ def phase_urand_big(device, reps: int = REPS, scale: int = URAND_SCALE,
            "payloads": len(payloads), "t_prep_s": time.perf_counter() - t0,
            "padded_slots": sum(p["n_blocks"] * geom.E_BLK for p in payloads),
            "live_edges": sum(int(p["edge_src"].numel()) for p in payloads),
-           "padded_bytes": sum(sum(p[k].numel() * p[k].element_size()
-                                   for k in ("src_local", "dst_local",
-                                             "weights", "valid"))
+           # the padded slabs stay on the host; the card holds the stream
+           "padded_bytes": sum(ops.payload_footprint(p)["edge_bytes"]
                                for p in payloads),
-           "stream_bytes": sum(sum(p[k].numel() * p[k].element_size()
-                                   for k in ops._STREAM_KEYS)
+           "stream_bytes": sum(ops.payload_footprint(p)["stream_bytes"]
                                for p in payloads)}
     res["live_share"] = res["live_edges"] / res["padded_slots"]
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2815,12 +2843,9 @@ def custom_apps() -> dict:
 
 
 def _with_weights(p: dict, weights) -> dict:
-    """Payload ``p`` with other edge weights, its live-edge stream
-    derived anew from them."""
-    from repro_torch.kernels import ops
-    q = dict(p, weights=weights)
-    q.update(ops.edge_stream(q))
-    return q
+    """Device payload ``p`` with other weights on its live edges (the
+    stream's ``edge_w``; the device holds no padded weight)."""
+    return dict(p, edge_w=weights)
 
 
 def _udf_launch(vwin, p, geom, app):
@@ -2833,10 +2858,10 @@ def _udf_launch(vwin, p, geom, app):
 
 def _udf_plain(vwin, p, geom, app, fn=None):
     from repro_torch.kernels import ref
-    return ref.gas_ref(vwin, p["src_local"], p["dst_local"], p["weights"],
-                       p["valid"], p["window_id"], p["tile_id"],
-                       scatter_fn=fn or app.scatter, mode=app.gather,
-                       t=geom.T, n_out_tiles=p["n_out_tiles"])
+    return ref.gas_stream_ref(
+        vwin, p["edge_src"], p["edge_dst"], p["edge_w"],
+        p["tile_edge_start"], scatter_fn=fn or app.scatter,
+        mode=app.gather, t=geom.T, n_out_tiles=p["n_out_tiles"])
 
 
 def _udf_held_to_plain(calls, geom, app) -> dict:
@@ -2875,15 +2900,10 @@ def _udf_library_ms(calls, geom, app, v_pad: int, device,
         return None
     src_parts, w_parts, idx_parts = [], [], []
     for vwin, p in calls:
-        keep = p["valid"] != 0
-        flat_src = p["window_id"].to(torch.int64)[:, None] * geom.W \
-            + p["src_local"]
-        src_parts.append(vwin.reshape(-1)[flat_src[keep]])
-        w_parts.append(p["weights"][keep])
-        tile_global = p["tile_idx"].to(torch.int64)[
-            p["tile_id"].to(torch.int64)]
-        idx_parts.append((tile_global[:, None] * geom.T
-                          + p["dst_local"])[keep])
+        idx, src = _stream_slots(p, geom.T)
+        src_parts.append(vwin.reshape(-1)[src])
+        w_parts.append(p["edge_w"])
+        idx_parts.append(idx)
     src, w, idx = torch.cat(src_parts), torch.cat(w_parts), \
         torch.cat(idx_parts)
     reduce = {"sum": "sum", "min": "amin", "max": "amax"}[app.gather]
@@ -2961,7 +2981,7 @@ def phase_custom_udf(main_res: dict, kernel: dict, build_s: dict, device,
                if app.gather == "or" else
                torch.rand(vp.shape, device=device, generator=gen) * 4 - 1)
         rcalls = [(v, _with_weights(p, torch.rand(
-            p["weights"].shape, device=device, generator=gen)))
+            p["edge_w"].shape, device=device, generator=gen)))
             for v, p in _calls(payloads, rnd, geom)]
         held = _udf_held_to_plain(rcalls, geom, app)
         calls = _calls(payloads, vp, geom)

@@ -37,9 +37,9 @@ def geometry_from(geom) -> Geometry:
 
 def payload_from_numpy(p: dict, device) -> dict:
     """A port device payload from a reference host payload dict (numpy
-    arrays, as ``_entry_np``/``_pack_group`` build them). Adds the
-    kernel's ``tile_block_start``; the upload derives the live-edge
-    stream."""
+    arrays, as ``_entry_np``/``_pack_group`` build them). Adds
+    ``tile_block_start``, from which the upload derives the live-edge
+    stream; the device payload keeps no padded array."""
     p = dict(p)
     p["geom"] = geometry_from(p["geom"])
     p["tile_block_start"] = ops.tile_block_start(

@@ -489,8 +489,8 @@ class Executor:
 
     def stats(self) -> dict:
         b, store = self.bundle, self.store
-        # every payload carries its padded block count, a live-edge
-        # payload too (from its work's per-tile block counts)
+        # every device payload carries its padded block count, from
+        # either store layout (a stream work keeps per-tile block counts)
         padded_edges = sum(p["n_blocks"] for p in self._payloads) \
             * self.geom.E_BLK
         real_edges = sum(p["num_real_edges"] for p in self._payloads)

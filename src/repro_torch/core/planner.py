@@ -226,10 +226,11 @@ class PlanBundle:
                    in list(self._captures.items()) if dev == device)
 
     def device_bytes(self) -> dict:
-        """Device bytes pinned by the payload forms materialized so far,
+        """Device bytes pinned by the payload forms materialized so far
+        and by the captured iterations (graph pools and static buffers),
         over every device (each sharded form counted once)."""
         from ..kernels import ops
-        out = {"entry_bytes": 0, "packed_bytes": 0, "sharded_bytes": 0}
+        out = {}
         for key, forms in (("entry_bytes", self._lane_entries),
                            ("packed_bytes", self._packed_lanes)):
             out[key] = sum(ops.payload_nbytes(p)
@@ -237,8 +238,9 @@ class PlanBundle:
                            for lane in lanes for p in lane)
         out["sharded_bytes"] = sum(
             s.nbytes() for s in list(self._sharded.values()))
-        out["total_bytes"] = (out["entry_bytes"] + out["packed_bytes"]
-                              + out["sharded_bytes"])
+        out["capture_bytes"] = sum(
+            cap.nbytes() for cap in list(self._captures.values()))
+        out["total_bytes"] = sum(out.values())
         return out
 
 

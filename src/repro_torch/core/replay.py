@@ -125,7 +125,7 @@ class CapturedIteration:
     its replays adds to ``gas_tiles.launches`` and ``edges``; ``keep``
     holds what the graphs read outside their pool (the payloads and the
     store's aux), so that it outlives them; ``pool_bytes`` is what their
-    pool holds."""
+    pool holds, and :meth:`nbytes` that and the buffers."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -140,6 +140,13 @@ class CapturedIteration:
     @property
     def captured(self) -> bool:
         return self.graphs is not None
+
+    def nbytes(self) -> int:
+        """Device bytes this capture holds: its graphs' pool and its two
+        static property buffers."""
+        bufs = self.bufs or ()
+        return self.pool_bytes + sum(b.numel() * b.element_size()
+                                     for b in bufs)
 
     def start(self, init: torch.Tensor) -> torch.Tensor:
         """Copy a run's initial properties into A; returns A."""

@@ -430,9 +430,10 @@ class GraphStore:
             return config.cache_key() in self._plan_cache
 
     def clear_plans(self) -> dict:
-        """Drop every cached PlanBundle (and the device payloads memoized
-        on them). Blockings stay cached, so re-planning is cheap. Returns
-        ``{"plans": evicted count, "freed_bytes": payload bytes}``."""
+        """Drop every cached PlanBundle (and the device payloads and
+        captured iterations memoized on them). Blockings stay cached, so
+        re-planning is cheap. Returns ``{"plans": evicted count,
+        "freed_bytes": their device bytes}``."""
         with self._plan_lock:
             n = len(self._plan_cache)
             freed = sum(b.device_bytes()["total_bytes"]
@@ -493,7 +494,7 @@ class GraphStore:
     def memory_footprint(self) -> dict:
         """Byte accounting of everything this store keeps alive: graph
         arrays, partition-sorted edges, memoized blockings, cached plans'
-        device payloads and the per-device aux. Under the ``"stream"``
+        device payloads and captured iterations, and the per-device aux. Under the ``"stream"``
         layout ``edge_bytes`` are the tile-major edges and
         ``blocking_bytes`` what the works hold beside them."""
         graph_bytes = self.perm.nbytes

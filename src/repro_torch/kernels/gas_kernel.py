@@ -13,18 +13,21 @@ one library per UDF), and combine into its slot of its output tile in
 mode sum, min, max (float32) or or (int32). The output is
 ``(n_out_tiles, T)``.
 
-What it reads: the payload's live-edge stream, which
-:func:`.ops.edge_stream` derives on the payload's device from the padded
-blocks when the payload is uploaded. The padded layout holds each edge
-at slot ``e`` of block ``b`` (``src_local``, ``dst_local``, ``weights``,
-with ``valid == 0`` on pads, ``window_id[b]`` naming the source window);
-the stream keeps the live slots alone, in slot order: ``edge_src =
-window_id[b] * W + src_local[b, e]`` (an index into ``vwin``: raw vprops
-for Little, the lane's compacted table for Big), ``edge_dst =
-dst_local[b, e]``, ``edge_w = weights[b, e]``, and tile ``k`` owns edges
-``tile_edge_start[k]:tile_edge_start[k + 1]``. On a uniform graph a Big
-block is 3.6 % live (one compacted window and one tile a block), so the
-padded layout made the kernel walk 27 slots for every edge it folded.
+What it reads: the payload's live-edge stream, which is all a device
+payload holds of its edges. A host payload of the padded store layout
+holds each edge at slot ``e`` of block ``b`` (``src_local``,
+``dst_local``, ``weights``, with ``valid == 0`` on pads, ``window_id[b]``
+naming the source window); :func:`.ops.edge_stream` derives its stream
+on the payload's device when it is uploaded, and the padded blocks stay
+on the host. The stream keeps the live slots alone, in slot order:
+``edge_src = window_id[b] * W + src_local[b, e]`` (an index into
+``vwin``: raw vprops for Little, the lane's compacted table for Big),
+``edge_dst = dst_local[b, e]``, ``edge_w = weights[b, e]``, and tile
+``k`` owns edges ``tile_edge_start[k]:tile_edge_start[k + 1]``. A store
+of the ``"stream"`` layout builds the same stream with no padded block.
+On a uniform graph a Big block is 3.6 % live (one compacted window and
+one tile a block), so the padded layout made the kernel walk 27 slots
+for every edge it folded.
 
 Bound. A launch must read src and dst (and the weight, for
 ``add_weight``) of every live edge, the tile's edge and chunk indices,
@@ -206,8 +209,9 @@ def gas_tiles(vwin, edge_src, edge_dst, edge_w, tile_edge_start,
     ``NotImplementedError``: there is no fallback.
 
     Tensors must lie on one CUDA device: it launches the kernel or
-    raises, and raises on CPU tensors (the plain version,
-    :func:`.ref.gas_ref`, is ``ops.run_lane(..., path="ref")``).
+    raises, and raises on CPU tensors (the plain version over the same
+    stream, :func:`.ref.gas_stream_ref`, is ``ops.run_lane(...,
+    path="ref")``).
     Returns ``(n_out_tiles, t)`` tiles in vwin's dtype. Each call adds
     one to ``gas_tiles.launches`` (one per payload, although the kernel
     takes two device launches: chunks, then the ordered combine) and the

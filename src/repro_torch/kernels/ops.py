@@ -14,23 +14,26 @@ whole lane as ONE kernel launch instead of one per entry.
 ``pack_lanes_sharded`` uploads each lane to its owner device instead,
 and both splice in lanes carried over from before a streaming delta.
 
-Every device payload carries the live-edge stream the GAS kernel reads:
-the live slots alone, in slot order, with each tile's first edge and
-first chunk of :data:`.gas_kernel.CHUNK_EDGES` edges. Works of the
-padded store layout are padded blocks: their payloads carry
-``tile_block_start`` (``n_out_tiles + 1`` int32, the first block of each
-output tile) and the padded arrays, and :func:`_upload_payload`, which
-every payload passes through, derives the stream from them on the
-payload's device (:func:`edge_stream`); the padded arrays stay beside it
-for the plain path, the profiler and the streaming carry-over. Works of
-the ``"stream"`` layout (:class:`~repro_torch.core.stream.StreamWork`)
-are live edges already: their payloads are slices of the works' streams
+A device payload has one form whatever made it: the counts
+(:data:`_COUNT_KEYS`), the live-edge stream the GAS kernel reads (the
+live slots alone, in slot order, with each tile's first edge and first
+chunk of :data:`.gas_kernel.CHUNK_EDGES` edges), ``tile_idx``, and for
+Big its compacted ``unique_src`` (:data:`_DEVICE_KEYS`). The host
+layout is known only here, and the device never holds a padded array.
+Host payloads of the padded store layout are padded blocks (the
+reference's arrays, byte for byte, plus ``tile_block_start``, the first
+block of each output tile); :func:`_upload_payload`, which every payload
+passes through, derives their stream on the payload's device
+(:func:`edge_stream`), moving the padded arrays a slice at a time.
+Works of the ``"stream"`` layout
+(:class:`~repro_torch.core.stream.StreamWork`) are live edges already:
+their host payloads are slices of the works' streams
 (:func:`_entry_stream`, :func:`_pack_stream_group`), uploaded as they
-are, with no padded array on the host or on the card.
+are.
 
 ``default_path`` follows the device: ``"cuda"`` (the kernel) on a CUDA
-device, ``"ref"`` (the plain PyTorch version) on ``device="cpu"``.
-With no CUDA and no explicit device it raises.
+device, ``"ref"`` (the plain PyTorch version over the same stream) on
+``device="cpu"``. With no CUDA and no explicit device it raises.
 """
 from __future__ import annotations
 
@@ -46,18 +49,21 @@ from .big_pipeline import big_pipeline
 from .gas_kernel import tile_chunk_start
 from .little_pipeline import little_pipeline
 
-# payload keys that hold per-block / per-tile arrays and concatenate
-# along axis 0 when packing a lane
-_CONCAT_KEYS = ("src_local", "dst_local", "weights", "valid",
-                "window_id", "tile_id", "tile_first", "tile_idx")
-# the live-edge stream the GAS kernel reads, derived on the device from
-# the uploaded arrays (edge_stream)
+# the counts every payload carries, host and device alike
+_COUNT_KEYS = ("kind", "geom", "n_out_tiles", "n_blocks", "n_entries",
+               "num_real_edges")
+# the live-edge stream the GAS kernel reads
 _STREAM_KEYS = ("edge_src", "edge_dst", "edge_w", "tile_edge_start",
                 "tile_chunk_start")
-# payload keys a device payload holds as tensors: the uploaded host
-# arrays, then the stream
-_DEVICE_KEYS = _CONCAT_KEYS + ("unique_src", "tile_block_start") \
-    + _STREAM_KEYS
+# the tensors a device payload holds: the stream, the output tiles'
+# global indices and (Big only) the compacted unique-source table
+_DEVICE_KEYS = _STREAM_KEYS + ("tile_idx", "unique_src")
+# bytes of a padded slot (src_local, dst_local, weights, valid) and of a
+# block's routing fields (window_id, tile_id, tile_first) in a host
+# payload, all 4-byte: the reference's footprint classes, reckoned from
+# the counts a device payload keeps
+_SLOT_BYTES = 16
+_BLOCK_BYTES = 12
 PATHS = ("cuda", "ref")
 
 
@@ -182,50 +188,64 @@ def _entry(work, lo: int, hi: int) -> Optional[dict]:
     return _entry_np(work, lo, hi)
 
 
-# padded blocks the stream is derived from at a time: bounds the
-# derivation's temporaries (a flag a slot, 8 B a live slot) to a slice of
-# the payload (16 M slots at E_BLK 256), beside the stream itself
+# padded blocks the stream is derived from at a time: bounds what the
+# derivation holds on the device beside the stream (the slice's padded
+# arrays, a flag a slot, 8 B a live slot) to 16 M slots at E_BLK 256
 STREAM_SLICE_BLOCKS = 1 << 16
 
 
-def edge_stream(p: dict) -> dict:
-    """The live-edge stream of a device payload, derived with tensor ops
-    on its device from its padded arrays: every slot whose ``valid`` is
-    not 0, slot by slot (a block's live slots need not be a prefix), in
-    slot order. ``edge_src`` (int32) is ``window_id[b] * W +
+def _tensor(v, device, copy: bool = False) -> torch.Tensor:
+    """``v`` (a numpy array or a tensor) as a tensor on ``device``: a
+    copy with ``copy``, else ``v``'s own memory where it is already
+    there."""
+    if isinstance(v, np.ndarray):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+    return v.to(device, copy=copy)
+
+
+def edge_stream(p: dict, device) -> dict:
+    """The live-edge stream of a padded payload ``p`` (numpy arrays or
+    tensors), derived with tensor ops on ``device``: every slot whose
+    ``valid`` is not 0, slot by slot (a block's live slots need not be a
+    prefix), in slot order. ``edge_src`` (int32) is ``window_id[b] * W +
     src_local[b, e]``, an index into the kernel's ``vwin`` (raw vprops
     for Little, the payload's compacted table for Big); ``edge_dst``
     (int32) the slot in the tile; ``edge_w`` (float32) the weight;
     ``tile_edge_start`` (``n_out_tiles + 1`` int32) tile ``k``'s edges
     ``[start[k], start[k + 1])``; ``tile_chunk_start`` its chunks of
     :data:`.gas_kernel.CHUNK_EDGES` (:func:`.gas_kernel.tile_chunk_start`).
-    Derived
-    :data:`STREAM_SLICE_BLOCKS` blocks at a time into tensors sized
-    once."""
+    The padded arrays move to ``device`` :data:`STREAM_SLICE_BLOCKS`
+    blocks at a time, each slice dropped once its edges are written, into
+    tensors sized once from ``num_real_edges``."""
     valid = p["valid"]
     n_blocks, e_blk = valid.shape
-    dev, step = valid.device, STREAM_SLICE_BLOCKS
+    n_edges, w = int(p["num_real_edges"]), p["geom"].W
     block_edge_start = torch.zeros(n_blocks + 1, dtype=torch.int64,
-                                   device=dev)
-    for b0 in range(0, n_blocks, step):
-        block_edge_start[b0 + 1:b0 + step + 1] = \
-            torch.count_nonzero(valid[b0:b0 + step], dim=1)
-    torch.cumsum(block_edge_start, 0, out=block_edge_start)
-    cuts = list(range(0, n_blocks, step)) + [n_blocks]
-    bounds = block_edge_start[cuts].tolist()
-    edge_src = torch.empty(bounds[-1], dtype=torch.int32, device=dev)
+                                   device=device)
+    edge_src = torch.empty(n_edges, dtype=torch.int32, device=device)
     edge_dst = torch.empty_like(edge_src)
-    edge_w = torch.empty(bounds[-1], dtype=torch.float32, device=dev)
-    window_base = p["window_id"].to(torch.int64) * p["geom"].W
-    for b0, b1, e0, e1 in zip(cuts, cuts[1:], bounds, bounds[1:]):
-        slot = torch.nonzero(valid[b0:b1].reshape(-1)).squeeze(1)
-        block = torch.div(slot, e_blk, rounding_mode="floor") + b0
-        edge_src[e0:e1] = window_base[block] \
-            + p["src_local"][b0:b1].reshape(-1)[slot]
-        edge_dst[e0:e1] = p["dst_local"][b0:b1].reshape(-1)[slot]
-        edge_w[e0:e1] = p["weights"][b0:b1].reshape(-1)[slot]
-    tile_edge_start = block_edge_start[
-        p["tile_block_start"].to(torch.int64)].to(torch.int32)
+    edge_w = torch.empty(n_edges, dtype=torch.float32, device=device)
+    e0 = 0
+    for b0 in range(0, n_blocks, STREAM_SLICE_BLOCKS):
+        b1 = min(b0 + STREAM_SLICE_BLOCKS, n_blocks)
+        keep = _tensor(valid[b0:b1], device) != 0
+        block_edge_start[b0 + 1:b1 + 1] = keep.sum(1)
+        slot = torch.nonzero(keep.reshape(-1)).squeeze(1)
+        e1 = e0 + slot.numel()
+        assert e1 <= n_edges, "num_real_edges does not count the live slots"
+        block = torch.div(slot, e_blk, rounding_mode="floor")
+        window = _tensor(p["window_id"][b0:b1], device).to(torch.int64)
+        edge_src[e0:e1] = window[block] * w + _tensor(
+            p["src_local"][b0:b1], device).reshape(-1)[slot]
+        edge_dst[e0:e1] = _tensor(p["dst_local"][b0:b1],
+                                  device).reshape(-1)[slot]
+        edge_w[e0:e1] = _tensor(p["weights"][b0:b1],
+                                device).reshape(-1)[slot]
+        e0 = e1
+    assert e0 == n_edges, "num_real_edges does not count the live slots"
+    torch.cumsum(block_edge_start, 0, out=block_edge_start)
+    tile_edge_start = block_edge_start[_tensor(
+        p["tile_block_start"], device).to(torch.int64)].to(torch.int32)
     return {
         "edge_src": edge_src,
         "edge_dst": edge_dst,
@@ -236,24 +256,25 @@ def edge_stream(p: dict) -> dict:
 
 
 def _upload_payload(p: dict, device) -> dict:
-    """Move a host payload's array fields to ``device`` as tensors. A
-    padded payload's live-edge stream is derived there
-    (:func:`edge_stream`); a live-edge payload's is uploaded, with its
-    chunk index computed on the device."""
-    out = dict(p)
-    padded = "valid" in p
-    for k in _DEVICE_KEYS:
-        v = out.get(k)
-        if v is None or (padded and k in _STREAM_KEYS):
-            continue
-        if isinstance(v, np.ndarray):
-            v = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = v.to(device, copy=True)
-    if padded:
-        out.update(edge_stream(out))
+    """The device payload of host payload ``p``: its counts, and as
+    tensors on ``device`` its live-edge stream, ``tile_idx`` and (Big)
+    ``unique_src``. The one place that knows the host layout: a padded
+    payload's stream is derived on ``device`` (:func:`edge_stream`) and
+    none of its padded arrays is kept; a live-edge payload's stream is
+    copied as it is, with its chunk index computed on ``device``."""
+    out = {k: p[k] for k in _COUNT_KEYS}
+    if "valid" in p:
+        out.update(edge_stream(p, device))
     else:
-        out["tile_edge_start"] = out["tile_edge_start"].to(torch.int32)
-        out["tile_chunk_start"] = tile_chunk_start(out["tile_edge_start"])
+        for k in ("edge_src", "edge_dst", "edge_w"):
+            out[k] = _tensor(p[k], device, copy=True)
+        tes = _tensor(p["tile_edge_start"], device, copy=True).to(
+            torch.int32)
+        out["tile_edge_start"] = tes
+        out["tile_chunk_start"] = tile_chunk_start(tes)
+    out["tile_idx"] = _tensor(p["tile_idx"], device, copy=True)
+    if p["kind"] == "big":
+        out["unique_src"] = _tensor(p["unique_src"], device, copy=True)
     return out
 
 
@@ -452,57 +473,46 @@ def _nbytes(x) -> int:
 
 
 def payload_footprint(p: dict) -> dict:
-    """Byte/FLOP accounting of ONE (packed or single-entry) payload, by
-    traffic class, from the payload's actual arrays:
+    """Byte/FLOP accounting of ONE (packed or single-entry) device
+    payload, by traffic class. The classes the reference counts from its
+    padded arrays are reckoned from the payload's counts, so either store
+    layout gives the same values for the same graph:
 
     ``edge_bytes``     the padded edge slab (src/dst/weights/valid)
     ``index_bytes``    per-block routing metadata (window/tile ids,
-                       tile_first flags, tile_block_start, the global
-                       tile_idx map)
-    ``stream_bytes``   the live-edge stream a device payload carries
-                       (:func:`edge_stream`: src, dst and weight of
-                       every real edge, the tile edge and chunk
-                       indices), counted from the payload's sizes, so
-                       a host payload gives what its upload will hold
+                       tile_first flags) and the global tile_idx map
+    ``stream_bytes``   the live-edge stream the card holds and the
+                       kernel reads (src, dst and weight of every real
+                       edge, the tile edge and chunk indices)
     ``table_bytes``    the deduped unique-source compaction table (Big)
     ``vertex_bytes``   property values the kernel reads: the gathered
                        unique sources (Big) or the touched source
-                       windows (Little — W values per distinct window)
+                       windows (Little — W values per distinct window
+                       its edges read)
     ``tile_bytes``     the merge traffic: output tiles plus tile_idx
     ``flops``          the reference's one-hot gather (E·W) + router
                        (E·T) MACs over padded edges, ×2
     """
     geom: Geometry = p["geom"]
-    nb = {k: _nbytes(p.get(k)) for k in _DEVICE_KEYS}
-    # absent keys (a live-edge payload has no padded array) count 0
-    edge = nb["src_local"] + nb["dst_local"] + nb["weights"] + nb["valid"]
-    index = (nb["window_id"] + nb["tile_id"] + nb["tile_first"]
-             + nb["tile_idx"] + nb["tile_block_start"])
+    n_blocks, n_tiles = int(p["n_blocks"]), int(p["n_out_tiles"])
+    tile_idx = _nbytes(p["tile_idx"])
     real = int(p["num_real_edges"])
-    stream = 12 * real + 8 * (int(p["n_out_tiles"]) + 1)
-    table = nb["unique_src"]
     if p["kind"] == "big":
         # vwin = vprops[unique_src]: one property per table slot
-        vertex = (int(p["unique_src"].shape[0]) * 4
-                  if p.get("unique_src") is not None else 0)
+        vertex = int(p["unique_src"].numel()) * 4
     else:
-        wids = p.get("window_id")
-        if wids is None:                 # a live-edge payload
-            wids = torch.div(p["edge_src"], geom.W, rounding_mode="floor")
-        n_win = (int(torch.unique(wids).numel())
-                 if isinstance(wids, torch.Tensor)
-                 else int(np.unique(wids).shape[0]))
+        n_win = int(torch.unique(torch.div(
+            p["edge_src"], geom.W, rounding_mode="floor")).numel())
         vertex = n_win * geom.W * 4
-    tiles = int(p["n_out_tiles"]) * geom.T * 4 + nb["tile_idx"]
-    padded_e = int(p["n_blocks"]) * geom.E_BLK
+    padded_e = n_blocks * geom.E_BLK
     return {
         "kind": p["kind"],
-        "edge_bytes": edge,
-        "index_bytes": index,
-        "stream_bytes": stream,
-        "table_bytes": table,
+        "edge_bytes": padded_e * _SLOT_BYTES,
+        "index_bytes": n_blocks * _BLOCK_BYTES + tile_idx,
+        "stream_bytes": sum(_nbytes(p[k]) for k in _STREAM_KEYS),
+        "table_bytes": _nbytes(p.get("unique_src")),
         "vertex_bytes": vertex,
-        "tile_bytes": tiles,
+        "tile_bytes": n_tiles * geom.T * 4 + tile_idx,
         "flops": 2 * padded_e * (geom.W + geom.T),
         "padded_edges": padded_e,
         "real_edges": real,
@@ -599,11 +609,12 @@ def upload_lanes(host: list, reuse: Optional[dict], device) -> list:
 
 
 def lanes_volume(lanes) -> dict:
-    """``edges`` (live) and ``bytes`` (host or device payload arrays)
-    of lanes of payloads; None lanes count nothing."""
+    """``edges`` (live) and ``bytes`` (every array the payloads hold:
+    a host payload's, or a device payload's :func:`payload_nbytes`) of
+    lanes of payloads; None lanes count nothing."""
     ps = [p for lane in lanes if lane for p in lane]
     return {"edges": int(sum(p["num_real_edges"] for p in ps)),
-            "bytes": int(sum(payload_nbytes(p) for p in ps))}
+            "bytes": int(sum(_nbytes(v) for p in ps for v in p.values()))}
 
 
 def pack_lanes(plan, little_works, big_works, device,
@@ -658,7 +669,7 @@ def pack_lanes_sharded(plan, little_works, big_works, owners, devices,
 
 
 def payload_nbytes(payload: dict) -> int:
-    """Device bytes pinned by one (entry or packed) payload."""
+    """Device bytes pinned by one (entry or packed) device payload."""
     return sum(_nbytes(payload.get(k)) for k in _DEVICE_KEYS)
 
 
@@ -672,8 +683,9 @@ def run_lane(packed: dict, vprops_padded, scatter_fn, mode: str,
     launch). ``path="cuda"`` goes through the kernel wrapper, which
     raises on CPU tensors: the variant of the named ``scatter_op``, or
     with ``scatter_op=None`` the one generated for ``scatter_fn``.
-    ``path="ref"`` runs the plain version, and this is the one place
-    that picks it. Returns
+    ``path="ref"`` runs the plain version over the same stream
+    (:func:`.ref.gas_stream_ref`), and this is the one place that picks
+    it. Returns
     ``(tiles (n_out_tiles, T), tile_idx (n_out_tiles,))``."""
     path = path or default_path(vprops_padded.device)
     if path == "ref":
@@ -682,18 +694,10 @@ def run_lane(packed: dict, vprops_padded, scatter_fn, mode: str,
             vwin = vprops_padded[packed["unique_src"]].view(-1, geom.W)
         else:
             vwin = vprops_padded.view(-1, geom.W)
-        if "valid" in packed:
-            tiles = ref_mod.gas_ref(
-                vwin, packed["src_local"], packed["dst_local"],
-                packed["weights"], packed["valid"], packed["window_id"],
-                packed["tile_id"], scatter_fn=scatter_fn, mode=mode,
-                t=geom.T, n_out_tiles=packed["n_out_tiles"])
-        else:                            # a live-edge payload
-            tiles = ref_mod.gas_stream_ref(
-                vwin, packed["edge_src"], packed["edge_dst"],
-                packed["edge_w"], packed["tile_edge_start"],
-                scatter_fn=scatter_fn, mode=mode, t=geom.T,
-                n_out_tiles=packed["n_out_tiles"])
+        tiles = ref_mod.gas_stream_ref(
+            vwin, packed["edge_src"], packed["edge_dst"], packed["edge_w"],
+            packed["tile_edge_start"], scatter_fn=scatter_fn, mode=mode,
+            t=geom.T, n_out_tiles=packed["n_out_tiles"])
     elif path == "cuda":
         pipeline = big_pipeline if packed["kind"] == "big" else \
             little_pipeline

@@ -9,9 +9,10 @@ The port of the reference package's ``obs/profile.py``:
 
   - ``hbm_bytes``: the traffic model (what the kernel streams, gathers
     and writes per execution) — the numerator of achieved GB/s;
-  - ``total_bytes``: every payload tensor (the live-edge stream
-    included) + the full vprops operand + the outputs — held within
-    10 % of :func:`tensor_lane_bytes`.
+  - ``total_bytes``: every tensor a device payload holds (its
+    live-edge stream, ``tile_idx`` and Big table) + the full vprops
+    operand + the outputs — held within 10 % of
+    :func:`tensor_lane_bytes`.
 
 * :func:`tensor_lane_bytes` — an independent count over the tensors one
   lane's launches take (the reference counts its traced program's
@@ -55,8 +56,10 @@ class LaneFootprint:
     Byte classes (summed over the lane's payloads; see
     ``kernels.ops.payload_footprint`` for the per-payload derivation):
     ``edge_bytes`` padded edge slabs, ``index_bytes`` routing
-    metadata, ``stream_bytes`` the live-edge streams the CUDA kernel
-    reads, ``table_bytes`` deduped Big compaction tables,
+    metadata (both the reference's, reckoned from block counts: the
+    card holds neither), ``stream_bytes`` the live-edge streams the card
+    holds and the CUDA kernel reads, ``table_bytes`` deduped Big
+    compaction tables,
     ``vertex_bytes`` property values actually read (unique sources for
     Big, touched W-windows for Little), ``tile_bytes`` the merge
     scatter traffic, ``vprops_bytes`` the full padded property operand.
@@ -89,12 +92,14 @@ class LaneFootprint:
 
     @property
     def total_bytes(self) -> int:
-        """Operand + result bytes of one lane execution: every payload
-        tensor + the padded vprops operand + output tiles and their tile
-        indices. Held within 10 % of :func:`tensor_lane_bytes`
+        """Operand + result bytes of one lane execution on the card: the
+        payload tensors (the live-edge stream, the Big table, and
+        ``tile_idx``, which is also the result's tile index and is
+        counted once, in ``tile_bytes``) + the padded vprops operand +
+        the output tiles. Held within 10 % of :func:`tensor_lane_bytes`
         (``tests/test_torch_profile.py``)."""
-        return (self.edge_bytes + self.index_bytes + self.stream_bytes
-                + self.table_bytes + self.vprops_bytes + self.tile_bytes)
+        return (self.stream_bytes + self.table_bytes + self.vprops_bytes
+                + self.tile_bytes)
 
     @property
     def intensity(self) -> float:

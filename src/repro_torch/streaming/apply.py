@@ -61,10 +61,10 @@ and ``chip_smoke.py`` on the GAS kernel). A cold build
 that recomputes DBG from the post-delta degrees may instead differ by
 reduction order (1-ULP drift in 'sum' apps) — identical for min/or/max.
 
-The GAS kernel's reuse across a delta rests on one property: it reads
-``valid`` slot by slot and never stops at a block's first pad, so a
-carried-over payload and a fresh pack of the same lane give the same
-tiles.
+A carried-over payload is its lane's live-edge stream (a device
+payload holds no padded array), and a fresh pack of the same lane
+derives the same stream, taken from ``valid`` slot by slot, so the two
+give the same tiles.
 
 The base store is never mutated: in-flight executors keep running
 against the old snapshot.

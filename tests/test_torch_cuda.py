@@ -9,8 +9,9 @@ store == a cold rebuild after a delta, and reused payloads kept in
 place; and the serving layer: a served request == a direct executor,
 a spawn pool with CUDA up in the parent, the traced per-lane run ==
 the fused run; the replayed iteration (``core/replay.py``) == an eager
-run bit for bit, one capture shared by two roots, a busy capture run
-eagerly beside a replay, captures beside eager work on another thread,
+run bit for bit, one capture shared by two roots, its pool and buffers
+in the bundle's device bytes, a busy capture run eagerly beside a
+replay, captures beside eager work on another thread,
 and new captures after an update and an adopted plan; a forced autotune
 retune on the card,
 ``DistributedEngine`` on a one-rank NCCL group; and the LM serving
@@ -60,7 +61,8 @@ def device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _payload(kind, device, seed=3):
+def _host_payload(kind, seed=3):
+    """A packed host payload of two entries of ``kind``, and V_pad."""
     g = rmat(10, 8, seed=seed, weighted=True)
     infos, edges = part.partition_graph(g, GEOM)
     infos = [i for i in infos if i.num_edges > 0]
@@ -69,9 +71,26 @@ def _payload(kind, device, seed=3):
     mid = work.n_blocks // 2
     entries = [e for e in (ops._entry_np(work, 0, mid),
                            ops._entry_np(work, mid, work.n_blocks)) if e]
-    packed = ops._pack_group(entries)
-    V_pad = part.padded_num_vertices(g.num_vertices, GEOM)
-    return ops._upload_payload(packed, device), V_pad
+    return ops._pack_group(entries), \
+        part.padded_num_vertices(g.num_vertices, GEOM)
+
+
+def _payload(kind, device, seed=3):
+    host, V_pad = _host_payload(kind, seed)
+    return ops._upload_payload(host, device), V_pad
+
+
+def _padded_plain(host, vprops, fn, mode):
+    """``ref.gas_ref`` on a host payload's padded blocks, on vprops'
+    device."""
+    dev, geom = vprops.device, host["geom"]
+    vwin = (vprops[torch.from_numpy(host["unique_src"]).to(dev)]
+            if host["kind"] == "big" else vprops).view(-1, geom.W)
+    blocks = [torch.from_numpy(host[k]).to(dev) for k in (
+        "src_local", "dst_local", "weights", "valid", "window_id",
+        "tile_id")]
+    return ref.gas_ref(vwin, *blocks, scatter_fn=fn, mode=mode, t=geom.T,
+                       n_out_tiles=host["n_out_tiles"])
 
 
 def _props(mode, n, device):
@@ -88,16 +107,27 @@ def _props(mode, n, device):
 @pytest.mark.parametrize("kind", ["little", "big"])
 @pytest.mark.parametrize("mode,op", MODE_OPS)
 def test_kernel_matches_plain_and_is_bit_stable(mode, op, kind, device):
-    p, V_pad = _payload(kind, device)
+    """The kernel over the uploaded stream, and the plain path over it,
+    against the plain version on the host payload's padded blocks (the
+    card's ``scatter_reduce`` adds in no fixed order: sum at rtol
+    1e-5)."""
+    host, V_pad = _host_payload(kind)
+    p = ops._upload_payload(host, device)
     vp = _props(mode, V_pad, device)
     fn = SCATTER_OPS[op]
     before = gas_kernel.gas_tiles.launches
     k1, _ = ops.run_lane(p, vp, fn, mode, "cuda", op)
     k2, _ = ops.run_lane(p, vp, fn, mode, "cuda", op)
-    plain, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
+    plain = _padded_plain(host, vp, fn, mode)
+    stream_plain, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
     torch.cuda.synchronize()
     assert gas_kernel.gas_tiles.launches == before + 2
     assert torch.equal(k1, k2)
+    if mode == "sum":
+        torch.testing.assert_close(stream_plain, plain, rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert torch.equal(stream_plain, plain)
     if mode == "sum":
         torch.testing.assert_close(k1, plain, rtol=1e-5, atol=1e-5)
     else:
@@ -141,8 +171,9 @@ def _launch(a, vwin, mode, op, lo=0, hi=None):
                                        "valid", "window_id")}
     blocks["tile_block_start"] = torch.from_numpy(ops.tile_block_start(
         tid, int(tid[-1]) + 1)).to(vwin.device)
+    blocks["num_real_edges"] = int(blocks["valid"].count_nonzero())
     blocks["geom"] = GEOM
-    p = ops.edge_stream(blocks)
+    p = ops.edge_stream(blocks, vwin.device)
     return gas_kernel.gas_tiles(
         vwin, p["edge_src"], p["edge_dst"], p["edge_w"],
         p["tile_edge_start"], p["tile_chunk_start"], scatter_op=op,
@@ -206,11 +237,10 @@ def test_custom_udf_kernel_matches_plain(mode, fn, kind, device):
     """A scatter UDF the kernel has no name for launches its generated
     variant, bit-stable, equal to the plain version (rtol 1e-5 for
     sum)."""
-    p, V_pad = _payload(kind, device)
-    p = dict(p, weights=torch.rand(p["weights"].shape, device=device,
-                                   generator=torch.Generator(
-                                       device).manual_seed(3)))
-    p.update(ops.edge_stream(p))               # the stream of new weights
+    host, V_pad = _host_payload(kind)
+    host["weights"] = np.random.default_rng(3).random(
+        host["weights"].shape, dtype=np.float32)
+    p = ops._upload_payload(host, device)      # the stream of new weights
     vp = _props(mode, V_pad, device)
     before = gas_kernel.gas_tiles.launches
     k1, _ = ops.run_lane(p, vp, fn, mode, "cuda", None)
@@ -231,7 +261,8 @@ SPARSE_GEOM = Geometry(U=512, W=128, T=128, E_BLK=128, big_batch=8)
 
 
 def _stream_case(case, device):
-    """(payload, V_pad) of ``case``: "sparse big" or "full little"."""
+    """(host payload, device payload, V_pad) of ``case``: "sparse big"
+    or "full little"."""
     if case == "sparse big":
         g, geom = uniform_random(16, 16, seed=7), SPARSE_GEOM
     else:
@@ -249,7 +280,7 @@ def _stream_case(case, device):
         host["num_real_edges"] = host["valid"].size
     host["weights"] = np.random.default_rng(5).random(
         host["weights"].shape, dtype=np.float32)
-    return ops._upload_payload(host, device), \
+    return host, ops._upload_payload(host, device), \
         part.padded_num_vertices(g.num_vertices, geom)
 
 
@@ -261,7 +292,7 @@ def test_stream_kernel_matches_plain_tile_by_tile(case, mode, op, device):
     within fp32 summation error of the fp64 sum and rtol 1e-5. ``op``
     None launches the variant generated for a custom UDF. The launch
     counts the stream's edges, which are the payload's live slots."""
-    p, V_pad = _stream_case(case, device)
+    host, p, V_pad = _stream_case(case, device)
     vp = _props(mode, V_pad, device)
     fn = SCATTER_OPS[op] if op else (lambda s, w: s * w * 0.5 + 0.25)
     edges = gas_kernel.gas_tiles.edges
@@ -269,10 +300,10 @@ def test_stream_kernel_matches_plain_tile_by_tile(case, mode, op, device):
     torch.cuda.synchronize()
     assert gas_kernel.gas_tiles.edges - edges == p["num_real_edges"] == \
         p["edge_src"].numel()
-    plain, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
-    plain64 = (lambda f: ops.run_lane(
-        p, vp.double(), lambda x, w: f(fn(x.float(), w).double()), mode,
-        "ref", op)[0])
+    plain = _padded_plain(host, vp, fn, mode)
+    plain64 = (lambda f: _padded_plain(
+        host, vp.double(), lambda x, w: f(fn(x.float(), w).double()),
+        mode))
     for k in range(p["n_out_tiles"]):
         if mode == "sum":
             _assert_within_fp32_sum(got[k], lambda f: plain64(f)[k])
@@ -408,7 +439,7 @@ def test_sharded_over_every_card(device, shard_graph):
     assert len(sh.devices) == n
     for i, lane in enumerate(sh.lanes):
         for p in lane:
-            assert p["src_local"].device == \
+            assert p["edge_src"].device == \
                 sh.devices[sh.placement.device_of_lane[i]]
     for app in APPS:
         want, mw = _run(store, app)
@@ -686,6 +717,25 @@ def test_replayed_run_equals_eager_run(app, layout, device, shard_graph):
     cap = bundle.iteration_capture(device, a.iteration_key)
     assert [g[1:] for g in cap.graphs] == [
         (d["kernel_dispatches"], d["kernel_edges"])] * 2
+
+
+def test_device_bytes_count_the_captured_pools(device, shard_graph):
+    """After a capture the bundle's ``device_bytes()`` (and so the
+    store's ``memory_footprint()``, the store cache's budget) counts its
+    graph pool and its two static buffers."""
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    bundle = store.plan(REPLAY_CFG)
+    app = _replay_app("pagerank", 0)
+    api.Executor(store, bundle, app).run()
+    torch.cuda.synchronize()
+    cap = bundle.iteration_capture(device, app.iteration_key)
+    assert cap.captured and cap.pool_bytes > 0
+    db = bundle.device_bytes()
+    assert db["capture_bytes"] == cap.pool_bytes + 2 * 4 * store.V_pad \
+        == bundle.capture_pool_bytes(device) + 2 * 4 * store.V_pad
+    assert db["total_bytes"] == sum(v for k, v in db.items()
+                                    if k != "total_bytes")
+    assert store.memory_footprint()["plan_bytes"] == db["total_bytes"]
 
 
 def test_replay_with_tiles_over_48k_of_shared_memory(device):

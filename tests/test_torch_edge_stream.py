@@ -1,12 +1,14 @@
 """The live-edge stream the CUDA GAS kernel reads, on the CPU.
 
 Every device payload passes through ``ops._upload_payload``, which
-derives the stream on the payload's device (``ops.edge_stream``): the
-live slots of the padded blocks alone, in slot order, taken from
-``valid`` slot by slot. Checked on every way a payload is made (one plan
-entry, a packed lane, a sharded lane, a ``DistributedEngine`` rank's
-chunks, and a payload whose ``valid`` has holes in mid-block and a tile
-with no live edge), for both input forms:
+derives the stream of a padded host payload on the payload's device
+(``ops.edge_stream``): the live slots of the padded blocks alone, in
+slot order, taken from ``valid`` slot by slot; the device payload keeps
+none of the padded arrays. Checked on every way a payload is made (one
+plan entry, a packed lane, a sharded lane, a ``DistributedEngine``
+rank's chunks, and a payload whose ``valid`` has holes in mid-block and
+a tile with no live edge), for both input forms, against the host
+payload's padded blocks:
 
 * the stream holds exactly the live slots, in slot order, and
   ``edge_src == window_id * W + src_local``;
@@ -15,7 +17,8 @@ with no live edge), for both input forms:
 * the kernel's order over the stream (each tile's chunks, a partial tile
   per chunk, the partials combined in chunk order), evaluated in plain
   PyTorch, equals ``ref.gas_ref`` on the padded blocks: bit for bit for
-  min, max and or, rtol 1e-5 for sum;
+  min, max and or, rtol 1e-5 for sum; the plain path over the stream
+  (``ops.run_lane(..., "ref")``) equals it bit for bit;
 * and bit for bit on fused, per-entry and sharded payloads in sum mode.
 """
 import numpy as np
@@ -81,50 +84,67 @@ def _with_holes(host: dict, seed: int = 3) -> dict:
 
 
 def _payloads(bundle, kind: str, form: str) -> list:
-    """Device payloads of ``kind`` on the CPU, made as ``form`` makes
-    them."""
+    """(host payload, device payload) pairs of ``kind`` on the CPU, made
+    as ``form`` makes them."""
     works = {"little": bundle.little_works, "big": bundle.big_works}[kind]
+    plan = bundle.plan
     if form == "entry":
         w = works[max(range(len(works)), key=lambda i: works[i].n_blocks)]
-        out = [ops.materialize_entry(w, 0, w.n_blocks, "cpu")]
+        out = [(ops._entry_np(w, 0, w.n_blocks),
+                ops.materialize_entry(w, 0, w.n_blocks, "cpu"))]
     elif form in ("packed", "holes"):
-        host = [p for lane in bundle.plan.lanes
+        host = [p for lane in plan.lanes
                 for p in ops._pack_lane_np(lane, bundle.little_works,
-                                           bundle.big_works)
-                if p["kind"] == kind]
+                                           bundle.big_works)]
         if form == "holes":
             host = [_with_holes(p) for p in host]
-        out = [ops._upload_payload(p, "cpu") for p in host]
+        out = [(p, ops._upload_payload(p, "cpu")) for p in host]
     elif form == "sharded":
-        plan = bundle.plan
+        host = ops.pack_lanes_host(plan, bundle.little_works,
+                                   bundle.big_works, {}, 0.0)
         lanes, _, _ = ops.pack_lanes_sharded(
             plan, bundle.little_works, bundle.big_works,
             [i % 2 for i in range(len(plan.lanes))], ["cpu", "cpu"])
-        out = [p for lane in lanes for p in lane]
+        out = list(zip([p for lane in host for p in lane],
+                       [p for lane in lanes for p in lane]))
     else:                                   # a DistributedEngine rank's
         little, big = chunk_queues(bundle, 2, blocks_per_chunk=4)
         queues = little if kind == "little" else big
-        out = [ops._upload_payload(pack_chunks(q), "cpu")
-               for q in queues if q]
-    out = [p for p in out if p is not None and p["kind"] == kind]
+        out = [(h, ops._upload_payload(h, "cpu"))
+               for h in (pack_chunks(q) for q in queues if q)]
+    out = [(h, p) for h, p in out if p is not None and p["kind"] == kind]
     assert out, (kind, form)
+    for h, p in out:
+        assert h["kind"] == p["kind"] and h["n_blocks"] == p["n_blocks"]
     return out
 
 
-def _live_slots(p):
-    """The padded blocks' live slots, flat and in slot order (numpy)."""
-    keep = p["valid"].numpy().reshape(-1) != 0
-    src = (p["window_id"].numpy().astype(np.int64)[:, None] * GEOM.W
-           + p["src_local"].numpy()).reshape(-1)
-    return (keep, src[keep], p["dst_local"].numpy().reshape(-1)[keep],
-            p["weights"].numpy().reshape(-1)[keep])
+def _live_slots(h):
+    """The padded blocks' live slots of host payload ``h``, flat and in
+    slot order."""
+    keep = h["valid"].reshape(-1) != 0
+    src = (h["window_id"].astype(np.int64)[:, None] * GEOM.W
+           + h["src_local"]).reshape(-1)
+    return (keep, src[keep], h["dst_local"].reshape(-1)[keep],
+            h["weights"].reshape(-1)[keep])
+
+
+def _padded_plain(h, vprops, fn, mode):
+    """``ref.gas_ref`` on host payload ``h``'s padded blocks."""
+    vwin = vprops[torch.from_numpy(h["unique_src"])] \
+        if h["kind"] == "big" else vprops
+    blocks = [torch.from_numpy(h[k]) for k in (
+        "src_local", "dst_local", "weights", "valid", "window_id",
+        "tile_id")]
+    return ref.gas_ref(vwin.view(-1, GEOM.W), *blocks, scatter_fn=fn,
+                       mode=mode, t=GEOM.T, n_out_tiles=h["n_out_tiles"])
 
 
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("kind", ["little", "big"])
 def test_stream_holds_the_live_slots_in_slot_order(bundle, kind, form):
-    for p in _payloads(bundle, kind, form):
-        keep, src, dst, w = _live_slots(p)
+    for h, p in _payloads(bundle, kind, form):
+        keep, src, dst, w = _live_slots(h)
         assert keep.sum() == p["num_real_edges"] > 0
         assert p["edge_src"].dtype == p["edge_dst"].dtype == torch.int32
         assert p["edge_w"].dtype == torch.float32
@@ -134,14 +154,13 @@ def test_stream_holds_the_live_slots_in_slot_order(bundle, kind, form):
         # every source indexes the kernel's vwin: raw vprops windows for
         # Little, the payload's compacted table for Big
         n_vwin = (p["unique_src"].numel() if kind == "big"
-                  else p["window_id"].max().item() * GEOM.W + GEOM.W)
+                  else int(h["window_id"].max()) * GEOM.W + GEOM.W)
         assert int(p["edge_src"].max()) < n_vwin
         for k in ops._STREAM_KEYS:
             assert p[k].is_contiguous() and k in ops._DEVICE_KEYS
         if form == "holes":
-            valid = p["valid"].numpy()
             assert any(np.any(np.diff((row != 0).astype(int)) > 0)
-                       for row in valid), "no hole before a live slot"
+                       for row in h["valid"]), "no hole before a live slot"
 
 
 def _check_chunks(tes: np.ndarray, tcs: np.ndarray, chunk: int) -> None:
@@ -164,9 +183,9 @@ def _check_chunks(tes: np.ndarray, tcs: np.ndarray, chunk: int) -> None:
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("kind", ["little", "big"])
 def test_tile_edge_and_chunk_indices(bundle, kind, form):
-    for p in _payloads(bundle, kind, form):
-        keep = p["valid"].numpy() != 0
-        tbs = p["tile_block_start"].numpy()
+    for h, p in _payloads(bundle, kind, form):
+        keep = h["valid"] != 0
+        tbs = h["tile_block_start"]
         tes = p["tile_edge_start"].numpy()
         assert tes.dtype == np.int32 and tes.shape == tbs.shape
         assert np.array_equal(
@@ -217,17 +236,20 @@ def _stream_eval(p, vprops, fn, mode, chunk=CHUNK):
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("kind", ["little", "big"])
 def test_stream_evaluation_equals_plain_version(store, bundle, kind, form):
-    for p in _payloads(bundle, kind, form):
+    for h, p in _payloads(bundle, kind, form):
         for mode, op in MODE_OPS:
             vp = _props(mode, store.V_pad)
             fn = SCATTER_OPS[op]
             got = _stream_eval(p, vp, fn, mode)
-            want, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
+            want = _padded_plain(h, vp, fn, mode)
             assert got.dtype == want.dtype and got.shape == want.shape
             if mode == "sum":
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
             else:
                 assert torch.equal(got, want), (mode, op)
+            # the plain path folds the same values in the same order
+            plain, _ = ops.run_lane(p, vp, fn, mode, "ref", op)
+            assert torch.equal(plain, want), (mode, op)
 
 
 def _tiles_by_index(payloads, vprops, fn, mode):
@@ -251,8 +273,8 @@ def test_fused_per_entry_and_sharded_streams_bit_equal(store, bundle,
     entries = [p for lane in ops.materialize_lanes(
         plan, bundle.little_works, bundle.big_works, "cpu") for p in lane
         if p["kind"] == kind]
-    fused = _payloads(bundle, kind, "packed")
-    sharded = _payloads(bundle, kind, "sharded")
+    fused = [p for _, p in _payloads(bundle, kind, "packed")]
+    sharded = [p for _, p in _payloads(bundle, kind, "sharded")]
     assert len(entries) >= len(fused)
     vp = _props("sum", store.V_pad)
     for op in ("copy", "add_weight"):
@@ -290,10 +312,11 @@ def test_stream_derived_in_slices_is_the_same(bundle, kind, monkeypatch):
     tensors sized once: any slice size gives the same stream, on payloads
     with holes and an empty tile too."""
     for form in ("packed", "holes"):
-        for p in _payloads(bundle, kind, form):
-            whole = ops.edge_stream(p)
+        for h, p in _payloads(bundle, kind, form):
+            whole = ops.edge_stream(h, "cpu")
+            assert all(torch.equal(whole[k], p[k]) for k in whole)
             for step in (1, 3, 7):
                 monkeypatch.setattr(ops, "STREAM_SLICE_BLOCKS", step)
-                sliced = ops.edge_stream(p)
+                sliced = ops.edge_stream(h, "cpu")
                 assert all(torch.equal(sliced[k], whole[k]) for k in whole)
             monkeypatch.undo()

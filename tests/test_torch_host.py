@@ -193,6 +193,7 @@ def test_payload_from_numpy_matches_port_upload(small_graph, small_geom):
             for lj, lt in zip(bj.plan.lanes, bt.plan.lanes)) if pj)
     carried = convert.payload_from_numpy(pj, "cpu")
     own = tops._upload_payload(pt, "cpu")
+    assert set(carried) == set(own)
     for k in tops._DEVICE_KEYS:
         if own.get(k) is None:
             assert carried.get(k) is None
@@ -200,4 +201,10 @@ def test_payload_from_numpy_matches_port_upload(small_graph, small_geom):
         assert carried[k].dtype == own[k].dtype
         assert np.array_equal(carried[k].numpy(), own[k].numpy()), k
     assert tops.payload_nbytes(carried) == tops.payload_nbytes(own)
-    assert tops.payload_footprint(carried) == tops.payload_footprint(pt)
+    assert tops.payload_footprint(carried) == tops.payload_footprint(own)
+    # the reference's byte classes, from the host arrays
+    fp = tops.payload_footprint(own)
+    assert fp["edge_bytes"] == sum(pt[k].nbytes for k in (
+        "src_local", "dst_local", "weights", "valid"))
+    assert fp["index_bytes"] == sum(pt[k].nbytes for k in (
+        "window_id", "tile_id", "tile_first", "tile_idx"))

@@ -219,7 +219,8 @@ def test_plain_gas_geometry_sweep(e_blk, w, t):
         "dst_local": targs[2], "weights": targs[3],
         "tile_block_start": torch.from_numpy(
             tops.tile_block_start(tid, n_tiles)),
-        "geom": types.SimpleNamespace(W=w)})
+        "num_real_edges": int(valid.sum()),
+        "geom": types.SimpleNamespace(W=w)}, "cpu")
     emulated = _chunked_gas(targs[0], stream, scatter_fn=sc, mode="sum",
                             t=t, chunk_edges=128)
     _assert_match("sum", emulated.numpy(), pallas)

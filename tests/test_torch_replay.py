@@ -246,6 +246,25 @@ def test_replay_loop_equals_eager_run(name, layout, graph, root, stand_in):
     assert ex.dispatch_stats()["capture_pool_bytes"] == 4096
 
 
+def test_device_bytes_count_the_captures(graph, root, stand_in):
+    """Each captured iteration's pool and its two static buffers are in
+    the bundle's ``device_bytes()`` and so in the store's
+    ``memory_footprint()``, which the store cache's budget reads."""
+    store = _store(graph)
+    bundle = store.plan(CONFIG)
+    assert bundle.device_bytes()["capture_bytes"] == 0
+    for name in ("bfs", "pagerank"):
+        api.Executor(store, bundle, _app(name, root), device="cpu").run()
+    assert len(bundle._captures) == 2
+    props = 4 * store.V_pad                      # one float32 buffer
+    db = bundle.device_bytes()
+    assert db["capture_bytes"] == 2 * (4096 + 2 * props)
+    assert db["total_bytes"] == sum(v for k, v in db.items()
+                                    if k != "total_bytes")
+    assert db["packed_bytes"] > 0
+    assert store.memory_footprint()["plan_bytes"] == db["total_bytes"]
+
+
 def test_roots_share_one_capture_and_a_busy_one_runs_eagerly(
         graph, root, stand_in):
     store = _store(graph)

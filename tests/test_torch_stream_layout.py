@@ -8,7 +8,9 @@ store on the same graph:
   counts included) and the plan equal the padded store's;
 * every payload's live-edge stream, tile indices and ``unique_src`` equal
   what the padded payloads derive (``ops.edge_stream``), bit for bit,
-  packed and per entry;
+  packed and per entry, with the same device bytes and footprints;
+* every way a device payload is made, from either layout, gives the one
+  key set of ``ops._upload_payload`` and no padded array;
 * PageRank, BFS and WCC served from a stream store answer as the plain
   reference of the benchmark (``gbench/reference``) and as the padded
   store does;
@@ -24,12 +26,15 @@ import pytest
 import torch
 
 from repro_torch import api
+from repro_torch import convert, obs
 from repro_torch.core import partition, stream, types
+from repro_torch.core.distributed import chunk_queues, pack_chunks
 from repro_torch.core.executor import Executor
 from repro_torch.core.gas import BUILTIN_APPS
 from repro_torch.core.store import GraphStore
 from repro_torch.graphs.formats import from_edges
 from repro_torch.graphs.rmat import rmat
+from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
@@ -120,29 +125,20 @@ def test_layout_equals_the_padded_store(stores, graph, geom):
     assert padded.stats()["device_bytes"] == 0
 
 
-def _stream_of(p: dict) -> dict:
-    """The arrays of a device payload the kernel reads."""
-    out = {k: p[k] for k in ("edge_src", "edge_dst", "edge_w",
-                             "tile_edge_start", "tile_chunk_start",
-                             "tile_idx")}
-    out["unique_src"] = p.get("unique_src")
-    for k in ("kind", "n_out_tiles", "n_blocks", "num_real_edges",
-              "n_entries"):
-        out[k] = p[k]
-    return out
-
-
 def _assert_same_payloads(lanes_a, lanes_b):
+    """Payload by payload: the same keys, tensors and counts, device
+    bytes and footprints."""
     assert [len(x) for x in lanes_a] == [len(x) for x in lanes_b]
     for pa, pb in zip([p for x in lanes_a for p in x],
                       [p for x in lanes_b for p in x]):
-        a, b = _stream_of(pa), _stream_of(pb)
-        assert set(a) == set(b)
-        for k, v in a.items():
+        assert set(pa) == set(pb)
+        for k, v in pa.items():
             if isinstance(v, torch.Tensor):
-                assert v.dtype == b[k].dtype and torch.equal(v, b[k]), k
+                assert v.dtype == pb[k].dtype and torch.equal(v, pb[k]), k
             else:
-                assert v == b[k], k
+                assert v == pb[k], k
+        assert ops.payload_nbytes(pa) == ops.payload_nbytes(pb)
+        assert ops.payload_footprint(pa) == ops.payload_footprint(pb)
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
@@ -162,8 +158,77 @@ def test_payloads_equal_the_padded_stream(stores, graph, geom, config):
         [w.n_blocks for w in ba.big_works]
     _assert_same_payloads(ba.packed_lanes(CPU), bb.packed_lanes(CPU))
     _assert_same_payloads(ba.lane_entries(CPU), bb.lane_entries(CPU))
-    for p in (p for lane in bb.packed_lanes(CPU) for p in lane):
-        assert "valid" not in p and "src_local" not in p
+    v_pad = padded.V_pad
+    assert obs.lane_footprints(ba.packed_lanes(CPU), v_pad) == \
+        obs.lane_footprints(bb.packed_lanes(CPU), v_pad)
+    assert ba.device_bytes() == bb.device_bytes()
+
+
+# what a device payload holds, whatever made it (big payloads add their
+# unique_src table), and what it never holds
+DEVICE_KEYS = {"kind", "geom", "n_out_tiles", "n_blocks", "n_entries",
+               "num_real_edges", "edge_src", "edge_dst", "edge_w",
+               "tile_edge_start", "tile_chunk_start", "tile_idx"}
+PADDED_KEYS = {"src_local", "dst_local", "weights", "valid", "window_id",
+               "tile_id", "tile_first", "segment_starts",
+               "tile_block_start"}
+PAYLOAD_FORMS = [("padded", f) for f in ("entry", "packed", "sharded",
+                                         "distributed", "delta",
+                                         "convert")] \
+    + [("stream", f) for f in ("entry", "packed")]
+
+
+def _device_payloads(graph, layout: str, form: str) -> list:
+    """Device payloads on the CPU made as ``form`` makes them, from a
+    fresh store of ``layout``."""
+    store = GraphStore(graph, geom=GEOMS["small"], layout=layout,
+                       device="cpu")
+    cfg = CONFIGS["big"]
+    bundle = store.plan(cfg)
+    if form == "entry":
+        lanes = bundle.lane_entries(CPU)
+    elif form == "packed":
+        lanes = bundle.packed_lanes(CPU)
+    elif form == "sharded":
+        lanes = store.shard(cfg, [CPU, CPU]).lanes
+    elif form == "distributed":
+        lanes = [[ops._upload_payload(pack_chunks(q), CPU)
+                  for q in queues if q]
+                 for queues in chunk_queues(bundle, 2, blocks_per_chunk=4)]
+    elif form == "delta":                     # lanes carried over
+        from repro_torch.streaming import apply_delta, make_delta
+        old = bundle.packed_lanes(CPU)
+        res = apply_delta(store, make_delta(
+            store.fingerprint(), remove=(graph.src[:1], graph.dst[:1])))
+        lanes = [lane for lane in res.store.plan(cfg).packed_lanes(CPU)
+                 if any(lane is o for o in old)]
+        assert len(lanes) == res.stats["packed_lanes_reused"] >= 1
+    else:           # from a host payload as the reference builds it
+        lanes = [[convert.payload_from_numpy(
+            {k: v for k, v in h.items() if k != "tile_block_start"}, CPU)
+            for h in ops._pack_lane_np(lane, bundle.little_works,
+                                       bundle.big_works)]
+            for lane in bundle.plan.lanes]
+    return [p for lane in lanes for p in lane]
+
+
+@pytest.mark.parametrize("layout,form", PAYLOAD_FORMS)
+def test_every_device_payload_holds_one_key_set(graphs, layout, form):
+    """The counts, the live-edge stream, ``tile_idx`` and (Big)
+    ``unique_src``, and no padded array, on every form and layout."""
+    payloads = _device_payloads(graphs["rmat_w"], layout, form)
+    if form != "delta":
+        assert {p["kind"] for p in payloads} == {"little", "big"}
+    for p in payloads:
+        arrays = DEVICE_KEYS - set(ops._COUNT_KEYS)
+        if p["kind"] == "big":
+            arrays = arrays | {"unique_src"}
+        assert set(p) == arrays | set(ops._COUNT_KEYS)
+        assert not set(p) & PADDED_KEYS
+        assert all(isinstance(p[k], torch.Tensor) and p[k].device == CPU
+                   for k in arrays)
+        assert ops.payload_nbytes(p) == sum(
+            p[k].numel() * p[k].element_size() for k in arrays)
 
 
 @pytest.mark.parametrize("graph", ["rmat_w", "kron"])
@@ -296,7 +361,7 @@ def test_executor_counters_on_a_stream_store(stores, app):
         if p["kind"] == "big") > 0
     assert da["big_gathered"] == db["big_gathered"]
     assert da["kernel_edges"] == db["kernel_edges"] == padded.num_edges
-    assert db["payload_bytes"] < da["payload_bytes"]
+    assert db["payload_bytes"] == da["payload_bytes"]
     sa, sb = (e.stats() for e in exs)
     assert sa["num_padded_edges"] == sb["num_padded_edges"]
     out_a, _ = exs[0].run()

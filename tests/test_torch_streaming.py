@@ -223,18 +223,21 @@ def test_apply_delta_matches_reference(case, graphs):
     assert rj.dirty_pids == rt.dirty_pids
     stats_j = {k: v for k, v in rj.stats.items() if not k.startswith("t_")}
     stats_t = {k: v for k, v in rt.stats.items() if not k.startswith("t_")}
-    # the port's payloads carry one more index array than the
-    # reference's (tile_block_start: 4 x (n_out_tiles + 1) B) and the
-    # live-edge stream (12 B a real edge, and the tile edge and chunk
-    # indices: 2 x 4 x (n_out_tiles + 1) B), beside the same reused
+    # the port's device payloads hold the live-edge stream (12 B a real
+    # edge, and the tile edge and chunk indices: 2 x 4 x (n_out_tiles +
+    # 1) B) in place of the reference's padded slabs (16 B a slot) and
+    # per-block routing fields (window and tile id, tile_first: 12 B a
+    # block), beside the same tile_idx and tables of the same reused
     # payloads
     base = st.plan(tapi.PlanConfig(n_lanes=N_LANES)).packed_lanes(CPU)
     reused = [p for lane in rt.store.plan(tapi.PlanConfig(
         n_lanes=N_LANES)).packed_lanes(CPU)
         if any(lane is old for old in base) for p in lane]
-    extra = sum(12 * (p["n_out_tiles"] + 1) + 12 * p["num_real_edges"]
-                for p in reused)
-    assert stats_t.pop("packed_bytes_reused") - extra == \
+    stream = sum(8 * (p["n_out_tiles"] + 1) + 12 * p["num_real_edges"]
+                 for p in reused)
+    padded = sum(p["n_blocks"] * (16 * p["geom"].E_BLK + 12)
+                 for p in reused)
+    assert stats_t.pop("packed_bytes_reused") - stream + padded == \
         stats_j.pop("packed_bytes_reused")
     assert stats_j == stats_t
     assert stats_t["path"] == ("bulk_sort" if case == "bulk" else "splice")
