@@ -479,12 +479,14 @@ def _launch_blocks(a, vwin, geom, mode, op, lo=0, hi=None):
 
 def phase_heavy_tile(device, seed: int) -> dict:
     """The heavy tile in every mode/op pair: kernel == plain, bit-stable,
-    and packed == its tiles launched one by one."""
+    and packed == its tiles launched one by one; min, max and or go
+    through the order-free fold (their launches count their edges as
+    exact)."""
     import numpy as np
     import torch
     from repro_torch.core.gas import SCATTER_OPS
     from repro_torch.core.types import Geometry
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import gas_kernel, ref
 
     geom = Geometry()
     rng = np.random.default_rng(seed)
@@ -498,8 +500,13 @@ def phase_heavy_tile(device, seed: int) -> dict:
     for mode, op in MODE_OPS:
         vwin = torch.from_numpy(props.get(mode, props["min"])).to(
             device).view(n_win, geom.W)
+        exact0 = gas_kernel.gas_tiles.exact_edges
         k1 = _launch_blocks(a, vwin, geom, mode, op)
         k2 = _launch_blocks(a, vwin, geom, mode, op)
+        live = int(a["valid"].count_nonzero())
+        check(gas_kernel.gas_tiles.exact_edges - exact0 == (
+            2 * live if mode in gas_kernel.EXACT_MODES else 0),
+            f"exact edges miscounted: {mode}/{op}")
 
         def plain(v, scatter_fn=SCATTER_OPS[op]):
             return ref.gas_ref(v, a["src_local"], a["dst_local"],
@@ -1031,10 +1038,10 @@ URAND_SCALE, URAND_DEGREE, URAND_BATCHES = 20, 32, 4
 def phase_urand_big(device, reps: int = REPS, scale: int = URAND_SCALE,
                     batches: int = URAND_BATCHES) -> dict:
     """The GAS kernel at the shapes of urand20's Big lanes: the live
-    share of the padded blocks, and per launch form (PageRank sum/copy,
-    SSSP min/add_weight) the kernel's time beside the bound of the
-    stream it reads (``obs.launch_traffic``), each launch held to the
-    plain version."""
+    share of the padded blocks, and per launch form (PageRank sum/copy
+    through the ordered fold, SSSP min/add_weight through the order-free
+    one) the kernel's time beside the bound of the stream it reads
+    (``obs.launch_traffic``), each launch held to the plain version."""
     import numpy as np
     import torch
     from repro_torch.core import partition as part
@@ -1099,6 +1106,8 @@ def phase_urand_big(device, reps: int = REPS, scale: int = URAND_SCALE,
                                  mode=mode, t=geom.T) for vwin, p in calls],
             reps)
         res["forms"][f"{mode}/{op}"] = {
+            "fold": ("order-free" if mode in gas_kernel.EXACT_MODES
+                     else "ordered"),
             "kernel_ms": kernel_ms, "bound_ms": bound_ms,
             "bound_bytes": nbytes, "roofline_pct": 100 * bound_ms / kernel_ms,
             "ctas": sum(int(p["tile_chunk_start"][-1]) for p in payloads)}
@@ -4497,7 +4506,8 @@ def main(argv=None) -> int:
         ptxas = sorted({line.split(":", 1)[-1].strip() for line in
                         _build.build_log.get(main_lib, "").splitlines()
                         if "registers" in line or "spill" in line})
-        log("phase 1: ptxas, both kernels x 7 instantiations: "
+        log("phase 1: ptxas, the chunk kernel x 7 instantiations, the "
+            "combine (sum) and identity (min, max, or) kernels: "
             + "; ".join(ptxas))
 
         t0 = time.perf_counter()

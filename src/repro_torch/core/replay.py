@@ -32,7 +32,7 @@ which :meth:`~.executor.Executor.dispatch_stats` reports, and to the
 process's, which :func:`totals` reads. ``gas_tiles.launches`` and
 ``gas_tiles.edges`` keep counting the kernel's launches: the calls
 recorded into a graph count apart (``gas_tiles.recorded_launches``), and
-each replay adds what its graph recorded.
+each replay adds what its graph recorded (``exact_edges`` too).
 """
 from __future__ import annotations
 
@@ -120,9 +120,9 @@ class CapturedIteration:
     """The two graphs of one (bundle, device, iteration key) and their
     static buffers. ``lock`` is held by the one run that uses them.
 
-    Each graph comes with the GAS launches and edges recorded into it
-    (``gas_tiles.recorded_launches``, ``recorded_edges``), which each of
-    its replays adds to ``gas_tiles.launches`` and ``edges``; ``keep``
+    Each graph comes with the GAS counts recorded into it
+    (``gas_kernel.recorded_counts``: launches, edges, exact edges), which
+    each of its replays adds to ``gas_tiles``'s counters; ``keep``
     holds what the graphs read outside their pool (the payloads and the
     store's aux), so that it outlives them; ``pool_bytes`` is what their
     pool holds, and :meth:`nbytes` that and the buffers."""
@@ -162,18 +162,18 @@ class CapturedIteration:
         iteration's result. A failed recording sets ``broken`` and
         leaves B as the eager iteration wrote it."""
         a, b = self.bufs
-        k = gas_kernel.gas_tiles
         with _capture_lock, _side_stream(self.device):
             b.copy_(iteration(a))
             pool = torch.cuda.graph_pool_handle()
             graphs = []
             try:
                 for src, dst in ((a, b), (b, a)):
-                    n0, e0 = k.recorded_launches, k.recorded_edges
+                    before = gas_kernel.recorded_counts()
                     g = _record(lambda s=src, d=dst: d.copy_(iteration(s)),
                                 pool)
-                    graphs.append((g, k.recorded_launches - n0,
-                                   k.recorded_edges - e0))
+                    graphs.append((g, {
+                        name: n - before[name] for name, n in
+                        gas_kernel.recorded_counts().items()}))
             except RuntimeError as exc:     # the CUDA error: kept, eager
                 self.broken = f"{type(exc).__name__}: {exc}"
         if self.broken is None:
@@ -186,9 +186,8 @@ class CapturedIteration:
     def replay(self) -> torch.Tensor:
         """One iteration from the current buffer into the other, on this
         thread's current stream; returns the new properties."""
-        g, launches, edges = self.graphs[self.cur]
+        g, counts = self.graphs[self.cur]
         g.replay()
         self.cur ^= 1
-        gas_kernel.gas_tiles.launches += launches
-        gas_kernel.gas_tiles.edges += edges
+        gas_kernel.add_counts(counts)
         return self.bufs[self.cur]

@@ -17,20 +17,33 @@
 // chunk), so every boundary depends on the tile alone. The CTA streams
 // its chunk in rounds of kEdgesPerRound consecutive edges per thread
 // (16-byte loads where the chunk's start allows them), gathers vwin at
-// each source and applies the scatter op.
-// Each warp combines its 32 edges of a step at once (fold_warp): an edge
-// whose slot no other lane shares is folded by its lane; lanes that share
-// a slot reduce over a fixed lane-order tree of shuffles, and the group's
-// lowest lane folds the total into the warp's own accumulator in shared
-// memory. One barrier per chunk, then the warps' accumulators merge in
-// warp order into the tile (one chunk) or into the chunk's scratch row
-// (several).
-// Pass 2 (gas_combine_kernel): for tiles of several chunks, each slot
-// combines its scratch rows in chunk order.
-// No atomics anywhere: the order of every fp32 combine depends only on
-// the tile's live edges and their tile-relative positions, so results are
-// bit-stable and the fused, per-entry and sharded launch forms agree bit
-// for bit.
+// each source and applies the scatter op. The fold depends on the gather
+// mode:
+// - sum (ordered): each warp combines its 32 edges of a step at once
+//   (fold_warp): an edge whose slot no other lane shares is folded by its
+//   lane; lanes that share a slot reduce over a fixed lane-order tree of
+//   shuffles, and the group's lowest lane folds the total into the warp's
+//   own accumulator in shared memory. One barrier per chunk, then the
+//   warps' accumulators merge in warp order into the tile (one chunk) or
+//   into the chunk's scratch row (several). Pass 2 (gas_combine_kernel):
+//   for tiles of several chunks, each slot combines its scratch rows in
+//   chunk order.
+// - min, max, or (exact): their result does not depend on the order, so
+//   the CTA keeps one accumulator of t int32 in shared memory and each
+//   live lane folds its edge with one shared-memory atomic (fold_exact),
+//   a float as its order-preserving int image (Image). A step whose live
+//   lanes all share one slot (a hub) reduces in the warp first and
+//   issues one atomic.
+//   A tile of one chunk is written straight from the accumulator; for a
+//   tile of several, the launch first sets its row to the identity
+//   (gas_identity_kernel) and each chunk folds its touched slots into it
+//   with one atomic each in device memory: no scratch and no pass 2.
+//
+// Sum uses no float atomics: the order of every fp32 combine depends only
+// on the tile's live edges and their tile-relative positions, so results
+// are bit-stable and the fused, per-entry and sharded launch forms agree
+// bit for bit. min, max and or fold with integer atomics on an
+// order-preserving image, whose result is the same bits in any order.
 //
 // Scatter ops: the named ops copy and add_weight, and kCustom, a user's
 // scatter UDF that kernels/udf_codegen.py traced into the expression
@@ -162,6 +175,93 @@ __device__ __forceinline__ void fold_warp(V* acc, unsigned char* tag,
   __syncwarp();
 }
 
+// The exact modes' values as int32 whose signed order is the values'
+// order: a float's bits with the low 31 flipped where the sign is set
+// (monotone over every finite and infinite value; -0 sorts below +0, and
+// NaNs beyond the infinities of their sign); an int as it is. The map is
+// its own inverse.
+template <typename V>
+struct Image;
+
+template <>
+struct Image<float> {
+  static __device__ __forceinline__ int to(float v) {
+    const int b = __float_as_int(v);
+    return b ^ ((b >> 31) & 0x7fffffff);
+  }
+  static __device__ __forceinline__ float from(int i) {
+    return __int_as_float(i ^ ((i >> 31) & 0x7fffffff));
+  }
+};
+
+template <>
+struct Image<int> {
+  static __device__ __forceinline__ int to(int v) { return v; }
+  static __device__ __forceinline__ int from(int i) { return i; }
+};
+
+template <int MODE>
+__device__ __forceinline__ void atomic_fold(int* a, int v) {
+  if constexpr (MODE == kMin) {
+    atomicMin(a, v);
+  } else if constexpr (MODE == kMax) {
+    atomicMax(a, v);
+  } else {
+    atomicOr(a, v);
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ int warp_fold(int v) {
+  if constexpr (MODE == kMin) {
+    return __reduce_min_sync(kFull, v);
+  } else if constexpr (MODE == kMax) {
+    return __reduce_max_sync(kFull, v);
+  } else {
+    return static_cast<int>(__reduce_or_sync(kFull, static_cast<unsigned>(v)));
+  }
+}
+
+// Folds this warp's 32 edges of one step (images; a lane without an edge
+// holds the identity's) into the CTA's accumulator, in any order: each
+// live lane issues one shared-memory atomic, and the hardware serialises
+// lanes that share a slot. A step whose live lanes (`lanes`, not 0) all
+// share one slot reduces in the warp and issues one atomic. Every lane of
+// the warp must call it.
+template <int MODE>
+__device__ __forceinline__ void fold_exact(int* acc, unsigned lanes,
+                                           bool live, int d, int v,
+                                           int lane) {
+  const int first = __ffs(lanes) - 1;
+  const int d0 = __shfl_sync(kFull, d, first);
+  if (__all_sync(kFull, !live || d == d0)) {
+    v = warp_fold<MODE>(v);
+    if (lane == first) atomic_fold<MODE>(acc + d0, v);
+  } else if (live) {
+    atomic_fold<MODE>(acc + d, v);
+  }
+}
+
+// Folds v into *p in device memory in the exact modes' order, on the
+// value's own bits: a float with the sign clear compares as a signed
+// int, one with the sign set as an unsigned int in reverse, which is
+// Image's order on the bits that p holds.
+template <int MODE, typename V>
+__device__ __forceinline__ void atomic_fold_out(V* p, V v) {
+  if constexpr (MODE == kOr) {
+    atomicOr(p, v);
+  } else {
+    const int b = __float_as_int(v);
+    if (b >= 0) {
+      atomic_fold<MODE>(reinterpret_cast<int*>(p), b);
+    } else if constexpr (MODE == kMin) {
+      atomicMax(reinterpret_cast<unsigned*>(p), static_cast<unsigned>(b));
+    } else {
+      atomicMin(reinterpret_cast<unsigned*>(p), static_cast<unsigned>(b));
+    }
+  }
+}
+
 // Whether 16-byte loads of p[i .. i + 4) are aligned.
 template <typename T>
 __device__ __forceinline__ bool aligned16(const T* p, int64_t i) {
@@ -179,12 +279,16 @@ gas_chunk_kernel(const V* __restrict__ vwin,
                  V* __restrict__ out, V* __restrict__ scratch,
                  int n_out_tiles, int chunk_edges, int t) {
   using C = Combine<MODE, V>;
+  constexpr bool kOrdered = MODE == kSum;
   extern __shared__ __align__(16) unsigned char smem[];
+  // ordered: per warp an accumulator and a tag per slot; exact: one
+  // accumulator of images for the CTA
   V* accs = reinterpret_cast<V*>(smem);                         // [kWarps][t]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   V* acc = accs + warp * t;                    // this warp's accumulator
   unsigned char* tag = reinterpret_cast<unsigned char*>(accs + kWarps * t) +
                        warp * t;               // this warp's slot tags
+  int* img = reinterpret_cast<int*>(smem);                      // [t]
 
   // the grid is an upper bound on the chunk count
   const int chunk = blockIdx.x;
@@ -201,8 +305,15 @@ gas_chunk_kernel(const V* __restrict__ vwin,
   const int64_t left = tile_edge_start[tile + 1] - e0;   // >= 0
   const int n = left < chunk_edges ? static_cast<int>(left) : chunk_edges;
 
-  for (int s = lane; s < t; s += 32) acc[s] = C::identity();
-  __syncwarp();
+  if constexpr (kOrdered) {
+    for (int s = lane; s < t; s += 32) acc[s] = C::identity();
+    __syncwarp();
+  } else {
+    for (int s = threadIdx.x; s < t; s += kThreads) {
+      img[s] = Image<V>::to(C::identity());
+    }
+    __syncthreads();
+  }
 
   // the same edges go to the same thread either way; only the width of
   // the loads depends on where the chunk lies in memory
@@ -250,24 +361,59 @@ gas_chunk_kernel(const V* __restrict__ vwin,
     }
 #pragma unroll
     for (int k = 0; k < kEdgesPerRound; ++k) {
-      if (__ballot_sync(kFull, live[k]) == 0) continue;   // past the end
-      fold_warp<MODE, V>(acc, tag, live[k], dst[k], val[k], lane);
+      const unsigned lanes = __ballot_sync(kFull, live[k]);
+      if (lanes == 0) continue;                            // past the end
+      if constexpr (kOrdered) {
+        fold_warp<MODE, V>(acc, tag, live[k], dst[k], val[k], lane);
+      } else {
+        fold_exact<MODE>(img, lanes, live[k], dst[k], Image<V>::to(val[k]),
+                         lane);
+      }
     }
   }
 
   __syncthreads();
   const bool one_chunk = tile_chunk_start[tile + 1] - c0 == 1;
-  V* dest = one_chunk ? out + static_cast<int64_t>(tile) * t
-                      : scratch + static_cast<int64_t>(chunk) * t;
-  for (int s = threadIdx.x; s < t; s += kThreads) {
-    V v = accs[s];
+  if constexpr (kOrdered) {
+    V* dest = one_chunk ? out + static_cast<int64_t>(tile) * t
+                        : scratch + static_cast<int64_t>(chunk) * t;
+    for (int s = threadIdx.x; s < t; s += kThreads) {
+      V v = accs[s];
 #pragma unroll
-    for (int wp = 1; wp < kWarps; ++wp) v = C::apply(v, accs[wp * t + s]);
-    dest[s] = v;
+      for (int wp = 1; wp < kWarps; ++wp) v = C::apply(v, accs[wp * t + s]);
+      dest[s] = v;
+    }
+  } else {
+    // a tile of several chunks: its row holds the identity
+    // (gas_identity_kernel), and each chunk folds its touched slots in
+    V* dest = out + static_cast<int64_t>(tile) * t;
+    const int none = Image<V>::to(C::identity());
+    for (int s = threadIdx.x; s < t; s += kThreads) {
+      const int v = img[s];
+      if (one_chunk) {
+        dest[s] = Image<V>::from(v);
+      } else if (v != none) {
+        atomic_fold_out<MODE, V>(dest + s, Image<V>::from(v));
+      }
+    }
   }
 }
 
-// Tiles of several chunks: slot s of tile k combines scratch rows
+// Exact modes, before pass 1: the rows of tiles of several chunks hold
+// the identity.
+template <int MODE, typename V>
+__global__ void __launch_bounds__(kThreads)
+gas_identity_kernel(const int* __restrict__ tile_chunk_start,
+                    V* __restrict__ out, int t) {
+  const int tile = blockIdx.x;
+  const int s = blockIdx.y * kThreads + threadIdx.x;
+  if (tile_chunk_start[tile + 1] - tile_chunk_start[tile] < 2 || s >= t) {
+    return;
+  }
+  out[static_cast<int64_t>(tile) * t + s] = Combine<MODE, V>::identity();
+}
+
+// Sum, tiles of several chunks: slot s of tile k combines scratch rows
 // tile_chunk_start[k] .. tile_chunk_start[k + 1] in chunk order.
 template <int MODE, typename V>
 __global__ void __launch_bounds__(kThreads)
@@ -294,13 +440,23 @@ int launch(const void* vwin, const void* edge_src, const void* edge_dst,
            const void* tile_chunk_start, void* out, void* scratch,
            int n_out_tiles, int n_chunks, int chunk_edges, int t,
            cudaStream_t stream) {
-  // per warp: an accumulator and a one-byte tag for each of the t slots
-  const size_t smem = static_cast<size_t>(kWarps) * t * (sizeof(V) + 1);
+  // sum: per warp an accumulator and a one-byte tag for each of the t
+  // slots; exact modes: one accumulator of int images
+  const size_t smem = MODE == kSum
+                          ? static_cast<size_t>(kWarps) * t * (sizeof(V) + 1)
+                          : static_cast<size_t>(t) * sizeof(int);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         gas_chunk_kernel<MODE, OP, V>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(n_out_tiles, (t + kThreads - 1) / kThreads);
+  if constexpr (MODE != kSum) {
+    gas_identity_kernel<MODE, V><<<grid, kThreads, 0, stream>>>(
+        static_cast<const int*>(tile_chunk_start), static_cast<V*>(out), t);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   gas_chunk_kernel<MODE, OP, V><<<n_chunks, kThreads, smem, stream>>>(
@@ -310,12 +466,14 @@ int launch(const void* vwin, const void* edge_src, const void* edge_dst,
       static_cast<const int*>(tile_chunk_start), static_cast<V*>(out),
       static_cast<V*>(scratch), n_out_tiles, chunk_edges, t);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_out_tiles, (t + kThreads - 1) / kThreads);
-  gas_combine_kernel<MODE, V><<<grid, kThreads, 0, stream>>>(
-      static_cast<const V*>(scratch),
-      static_cast<const int*>(tile_chunk_start), static_cast<V*>(out), t);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (MODE == kSum) {
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gas_combine_kernel<MODE, V><<<grid, kThreads, 0, stream>>>(
+        static_cast<const V*>(scratch),
+        static_cast<const int*>(tile_chunk_start), static_cast<V*>(out), t);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -326,7 +484,8 @@ extern "C" {
 // cudaGetLastError() of the two launches that is not 0), or
 // cudaErrorInvalidValue for a combination the kernel does not take.
 // n_chunks is the grid of pass 1: at least tile_chunk_start[n_out_tiles]
-// (CTAs past it exit); scratch holds n_chunks rows of t values;
+// (CTAs past it exit); scratch holds n_chunks rows of t values in sum
+// mode, and the exact modes read none of it (it may be null);
 // tile_chunk_start counts chunks of chunk_edges edges, a multiple of 4.
 // The caller checks shapes, dtypes, devices and contiguity before
 // calling.

@@ -48,28 +48,43 @@ limits both met:
    int32) gives each tile's first chunk, and a CTA finds its tile by
    binary search in it. A tile with no live edge has one empty chunk,
    which writes the identity. A tile of one chunk is written straight
-   to the output; the chunks of a larger tile write partial tiles to
-   scratch, and a second, ordered pass combines those slot by slot in
-   chunk order.
-2. Every thread read every staged edge. A warp combines its 32 edges of
-   a step at once: each lane tags its slot in shared memory, and a slot
-   no other lane shares is folded by its own lane. Lanes that share a
-   slot are grouped (``__match_any_sync``) and reduce over a fixed
-   lane-order tree of shuffles (a long run to a hub slot takes five
-   steps, not 32); the group's lowest lane folds the total into the
+   to the output. In sum mode the chunks of a larger tile write partial
+   tiles to scratch, and a second, ordered pass combines those slot by
+   slot in chunk order; in the exact modes (2.) the launch first sets
+   such a tile's row to the identity, and each chunk folds its touched
+   slots into it with one atomic each.
+2. Every thread read every staged edge. In sum mode a warp combines its
+   32 edges of a step at once: each lane tags its slot in shared memory,
+   and a slot no other lane shares is folded by its own lane. Lanes that
+   share a slot are grouped (``__match_any_sync``) and reduce over a
+   fixed lane-order tree of shuffles (a long run to a hub slot takes
+   five steps, not 32); the group's lowest lane folds the total into the
    warp's own accumulator in shared memory. The warps' accumulators
-   merge in warp order at the end of the chunk, after one barrier.
+   merge in warp order at the end of the chunk, after one barrier. The
+   exact modes (:data:`EXACT_MODES`: min, max, or) give the same bits in
+   any order, so they skip that ordering: the CTA keeps one accumulator
+   of ``T`` int32 in shared memory, and each live edge is one
+   shared-memory ``atomicMin`` / ``atomicMax`` / ``atomicOr`` of its
+   value, a float as its order-preserving int image (its bits with the
+   low 31 flipped where the sign is set). A step whose 32 live lanes all
+   share one slot (a hub) reduces in the warp (``__reduce_*_sync``) and
+   issues one atomic. The stream's slots are in no order within a tile,
+   so lanes rarely collide.
 3. Pads. The kernel reads no ``valid`` and no padded slot: a thread
    loads four consecutive edges of its chunk (16-byte loads where the
    chunk's start is aligned, the same edges in four loads where it is
    not), and the edge stream is read with streaming loads, so the
    source values stay in L2.
 
-No atomics anywhere: the order of every fp32 combine depends only on the
-tile's live edges and their tile-relative positions, never on
+Sum uses no float atomics: the order of every fp32 combine depends only
+on the tile's live edges and their tile-relative positions, never on
 scheduling or on where the tile lies in its payload, so results are
 bit-stable and the fused, per-entry and sharded launch forms (whose
-entries are tile-snapped) agree bit for bit.
+entries are tile-snapped) agree bit for bit. min, max and or fold with
+integer atomics on an order-preserving image, whose result is the same
+bits in any order. The image differs from ``fminf`` / ``fmaxf`` on two
+inputs no app gives: -0 sorts below +0, and a NaN sorts beyond the
+infinity of its sign (``fminf`` drops a NaN).
 """
 from __future__ import annotations
 
@@ -82,13 +97,16 @@ import torch
 from . import _build, udf_codegen
 
 MODES = {"sum": 0, "min": 1, "max": 2, "or": 3}
+# the gather modes whose result does not depend on the order of the fold:
+# the kernel folds them with atomics (the module's note)
+EXACT_MODES = frozenset({"min", "max", "or"})
 KERNEL_SCATTER_OPS = {"copy": 0, "add_weight": 1}
 SCATTER_CUSTOM = 2        # the kernel's code for a generated UDF variant
 # live edges per CTA chunk; chosen on the card from {2048, 4096, 8192}
 # (PERF.md)
 CHUNK_EDGES = 4096
 EDGES_PER_THREAD = 4      # a chunk's size must be a multiple of it
-N_WARPS = 8               # a 4-byte accumulator and a 1-byte tag per slot each
+N_WARPS = 8               # sum: a 4-byte accumulator and a 1-byte tag a slot each
 MAX_SMEM = 232448         # a CTA's shared memory on sm_90
 MAX_T = MAX_SMEM // (N_WARPS * 5)
 
@@ -212,14 +230,10 @@ def gas_tiles(vwin, edge_src, edge_dst, edge_w, tile_edge_start,
     raises, and raises on CPU tensors (the plain version over the same
     stream, :func:`.ref.gas_stream_ref`, is ``ops.run_lane(...,
     path="ref")``).
-    Returns ``(n_out_tiles, t)`` tiles in vwin's dtype. Each call adds
-    one to ``gas_tiles.launches`` (one per payload, although the kernel
-    takes two device launches: chunks, then the ordered combine) and the
-    stream's length to ``gas_tiles.edges``. A call on a stream that is
-    capturing a CUDA graph launches nothing then: it adds to
-    ``gas_tiles.recorded_launches`` and ``recorded_edges`` instead, and
-    each replay of the graph adds them to ``launches`` and ``edges``
-    (``core/replay.py``).
+    Returns ``(n_out_tiles, t)`` tiles in vwin's dtype. Each call counts
+    itself (:func:`count_launch`): one launch per payload, although the
+    kernel takes two device launches, the stream's length in edges and,
+    in an exact mode, in ``exact_edges``.
     """
     if mode not in MODES:
         raise ValueError(f"unknown gather mode {mode!r}")
@@ -266,7 +280,10 @@ def gas_tiles(vwin, edge_src, edge_dst, edge_w, tile_edge_start,
     if n_out_tiles == 0:
         return out
     n_chunks = max_chunks(n_edges, n_out_tiles, chunk_edges)
-    scratch = torch.empty((n_chunks, t), dtype=vdt, device=dev)
+    # the partial tiles of sum's ordered combine (the exact modes fold
+    # into out)
+    scratch = (None if mode in EXACT_MODES else
+               torch.empty((n_chunks, t), dtype=vdt, device=dev))
     lib = lib or _load_library(scatter_fn, mode)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -275,21 +292,48 @@ def gas_tiles(vwin, edge_src, edge_dst, edge_w, tile_edge_start,
             MODES[mode], op_code, vwin.data_ptr(), edge_src.data_ptr(),
             edge_dst.data_ptr(), edge_w.data_ptr(),
             tile_edge_start.data_ptr(), tile_chunk_start.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), n_out_tiles, n_chunks,
-            chunk_edges, t, stream)
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            n_out_tiles, n_chunks, chunk_edges, t, stream)
     if err != 0:
         raise RuntimeError(f"gas kernel launch failed: CUDA error {err} "
                            f"(mode={mode}, op={scatter_op or 'custom'}, "
                            f"T={t}, edges={n_edges}, tiles={n_out_tiles}, "
                            f"chunks<={n_chunks})")
-    if recording:
-        gas_tiles.recorded_launches += 1
-        gas_tiles.recorded_edges += n_edges
-    else:
-        gas_tiles.launches += 1
-        gas_tiles.edges += n_edges
+    count_launch(n_edges, mode, recording)
     return out
 
 
-gas_tiles.launches = gas_tiles.edges = 0
+# what gas_tiles counts: its calls, the live edges they streamed, and those
+# of the exact modes (the order-free fold)
+COUNTS = ("launches", "edges", "exact_edges")
+
+
+def count_launch(n_edges: int, mode: str, recording: bool = False) -> None:
+    """Count one call of :func:`gas_tiles` over ``n_edges`` live edges in
+    ``mode``: one in ``gas_tiles.launches``, ``n_edges`` in ``edges`` and,
+    for an exact mode, in ``exact_edges``. A call on a stream that is
+    capturing a CUDA graph launches nothing then, so it counts into
+    ``recorded_launches``, ``recorded_edges`` and ``recorded_exact_edges``
+    instead; each replay of the graph adds what it recorded
+    (:func:`recorded_counts`, :func:`add_counts`; ``core/replay.py``)."""
+    add = {"launches": 1, "edges": n_edges,
+           "exact_edges": n_edges if mode in EXACT_MODES else 0}
+    add_counts(add, "recorded_" if recording else "")
+
+
+def add_counts(add: dict, prefix: str = "") -> None:
+    """Add ``add`` (counts of :data:`COUNTS`) to ``gas_tiles``'s
+    counters whose names start with ``prefix``."""
+    for name, n in add.items():
+        setattr(gas_tiles, prefix + name, getattr(gas_tiles, prefix + name)
+                + n)
+
+
+def recorded_counts() -> dict:
+    """The counts recorded into CUDA graphs so far, by :data:`COUNTS`."""
+    return {name: getattr(gas_tiles, "recorded_" + name) for name in COUNTS}
+
+
+gas_tiles.launches = gas_tiles.edges = gas_tiles.exact_edges = 0
 gas_tiles.recorded_launches = gas_tiles.recorded_edges = 0
+gas_tiles.recorded_exact_edges = 0

@@ -2,6 +2,9 @@
 version (on graph payloads, on a heavy tile that spans many chunks, and
 tile by tile on a Big payload with at most 5 % live slots and on a full
 Little payload), fused == per-entry == sharded bit for bit in sum mode,
+the exact modes' order-free fold bit-equal to the plain path and to an
+ordered fold (hub steps, multi-chunk and unaligned chunks, empty tiles,
+infinities; signed zeros and NaNs pinned) and in every launch form,
 its launch and edge counts, its refusals, the variants generated for custom
 scatter UDFs, the main path on the card, and the
 changing-graph paths through the kernel: sharded == fused, a derived
@@ -39,7 +42,7 @@ import torch
 from repro_torch import api
 from repro_torch.core import partition as part
 from repro_torch.core import replay
-from repro_torch.core.gas import SCATTER_OPS
+from repro_torch.core.gas import GATHER_IDENTITY, SCATTER_OPS
 from repro_torch.core.types import Geometry
 from repro_torch.graphs.rmat import rmat, uniform_random
 from repro_torch.kernels import gas_kernel, ops, ref
@@ -345,6 +348,156 @@ def test_fused_per_entry_sharded_kernel_bit_equal(op, device):
         assert tiles[name].keys() == tiles["fused"].keys()
         for i, row in tiles["fused"].items():
             assert torch.equal(tiles[name][i], row), (name, i)
+
+
+# the exact modes' order-free fold: every named op of min, max and or, and
+# the generated UDF variant of each (CUSTOM_UDFS)
+EXACT_CASES = [(m, op, None) for m, op in MODE_OPS
+               if m in gas_kernel.EXACT_MODES] + [
+    (m, None, fn) for m, fn in CUSTOM_UDFS if m in gas_kernel.EXACT_MODES]
+_NP_FOLD = {"min": np.fmin, "max": np.fmax, "or": np.bitwise_or}
+
+
+def _exact_stream(device, seed=11):
+    """A live-edge stream of five tiles: a hub tile of 3.5 chunks whose
+    edges all go to slot 17 (every step's live lanes on one slot), a tile
+    of 2.5 chunks of random slots whose first edge is not 16-byte aligned
+    (the hub tile's length is odd), a tile with no edge, a tile of one
+    whole chunk and a tile of 7 edges. Returns the stream's arrays as
+    ``gas_tiles`` takes them, ``n_win``, and the tile count."""
+    rng = np.random.default_rng(seed)
+    c, n_win = gas_kernel.CHUNK_EDGES, 4
+    counts = [3 * c + c // 2 + 3, 2 * c + c // 2 + 1, 0, c, 7]
+    dst = np.concatenate([np.full(counts[0], 17)] + [
+        rng.integers(0, GEOM.T, k) for k in counts[1:]])
+    tes = np.concatenate([[0], np.cumsum(counts)])
+    arrays = [torch.from_numpy(x).to(device) for x in (
+        rng.integers(0, n_win * GEOM.W, dst.size).astype(np.int32),
+        dst.astype(np.int32), rng.random(dst.size, dtype=np.float32),
+        tes.astype(np.int32))]
+    return (*arrays, gas_kernel.tile_chunk_start(arrays[3])), n_win, \
+        len(counts)
+
+
+def _exact_props(mode, n, device):
+    """Signed values with +-inf and +-3e38 (the identities) among them;
+    int32 over the whole range for or."""
+    x = _props(mode, n, device)
+    if mode != "or":
+        x[:4] = torch.tensor([float("inf"), -float("inf"), 3e38, -3e38])
+    return x
+
+
+def _ordered_fold(vals, flat, size, mode):
+    """The fold of ``vals`` into ``size`` slots one value after another in
+    stream order (numpy's fmin / fmax / bitwise-or, left to right over
+    each slot's values), the identity where no value lands."""
+    out = np.full(size, GATHER_IDENTITY[mode], dtype=vals.dtype)
+    order = np.argsort(flat, kind="stable")
+    slots, starts = np.unique(flat[order], return_index=True)
+    if slots.size:
+        out[slots] = _NP_FOLD[mode].reduceat(vals[order], starts)
+    return out
+
+
+@pytest.mark.parametrize("mode,op,fn", EXACT_CASES)
+def test_exact_fold_equals_plain_and_ordered_fold(mode, op, fn, device):
+    """min, max and or through the order-free fold (one shared-memory
+    atomic an edge; a hub step reduced in the warp first; tiles of
+    several chunks folded into the output with atomics) are bit-equal to
+    the plain path (``ref.gas_stream_ref``) and to an ordered fold in
+    stream order, on a hub tile, random tiles of one and several chunks
+    whose chunks start on and off 16-byte boundaries, an empty tile, and
+    signed values with +-inf and the identities; bit-stable; the launch
+    counts its edges as exact."""
+    stream, n_win, n_tiles = _exact_stream(device)
+    src, dst, w, tes, tcs = stream
+    vwin = _exact_props(mode, n_win * GEOM.W, device).view(n_win, GEOM.W)
+    scatter = fn or SCATTER_OPS[op]
+    before = gas_kernel.gas_tiles.exact_edges
+    k1 = gas_kernel.gas_tiles(vwin, *stream, scatter_op=op, mode=mode,
+                              t=GEOM.T, scatter_fn=fn)
+    k2 = gas_kernel.gas_tiles(vwin, *stream, scatter_op=op, mode=mode,
+                              t=GEOM.T, scatter_fn=fn)
+    plain = ref.gas_stream_ref(vwin, src, dst, w, tes, scatter_fn=scatter,
+                               mode=mode, t=GEOM.T, n_out_tiles=n_tiles)
+    torch.cuda.synchronize()
+    assert gas_kernel.gas_tiles.exact_edges - before == 2 * src.numel()
+    assert int(tcs[1] - tcs[0]) == 4 and int(tcs[2] - tcs[1]) == 3
+    assert int(tes[1]) % 4 != 0
+    assert torch.equal(k1, k2)
+    assert torch.equal(k1, plain)
+    vals = scatter(vwin.reshape(-1)[src.long()], w).to(vwin.dtype)
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=device),
+                                   torch.diff(tes.long()))
+    flat = (tile * GEOM.T + dst.long()).cpu().numpy()
+    ordered = _ordered_fold(vals.cpu().numpy(), flat, n_tiles * GEOM.T, mode)
+    assert torch.equal(k1.cpu(), torch.from_numpy(ordered).view(k1.shape))
+    assert torch.equal(k1[2], torch.full_like(k1[2], GATHER_IDENTITY[mode]))
+
+
+def _image(bits):
+    """The kernel's order-preserving int image of float32 bits (int32)."""
+    return bits ^ ((bits >> 31) & 0x7fffffff)
+
+
+@pytest.mark.parametrize("mode", ["min", "max"])
+def test_exact_fold_pins_signed_zero_and_nan(mode, device):
+    """The two inputs where the int image's order is not ``fminf``'s: -0
+    sorts below +0, and a NaN beyond the infinity of its sign. No app
+    gives them; the kernel's bits for them, in a tile of one chunk and in
+    one of two (folded into the output with atomics), are the image's
+    min or max over each slot (compared bit for bit)."""
+    rng = np.random.default_rng(13)
+    special = np.array([0.0, -0.0, np.nan, -np.nan, 1.0, -1.0],
+                       dtype=np.float32)
+    c = gas_kernel.CHUNK_EDGES
+    tes = np.array([0, c // 2, 2 * c], dtype=np.int32)
+    pick = rng.integers(0, special.size, tes[-1])
+    dst = rng.integers(0, 8, tes[-1]).astype(np.int32)   # 8 slots a tile
+    stream = [torch.from_numpy(x).to(device) for x in (
+        pick.astype(np.int32), dst, np.zeros(tes[-1], np.float32), tes)]
+    vwin = torch.from_numpy(np.resize(special, GEOM.W)).to(device).view(
+        1, GEOM.W)
+    got = gas_kernel.gas_tiles(
+        vwin, *stream, gas_kernel.tile_chunk_start(stream[3]),
+        scatter_op="copy", mode=mode, t=GEOM.T)
+    torch.cuda.synchronize()
+    ident = np.float32(GATHER_IDENTITY[mode]).view(np.int32)
+    want = np.full(2 * GEOM.T, _image(ident), dtype=np.int32)
+    flat = np.repeat([0, GEOM.T], np.diff(tes)) + dst
+    fold = np.minimum if mode == "min" else np.maximum
+    fold.at(want, flat, _image(special.view(np.int32)[pick]))
+    assert torch.equal(got.view(torch.int32).cpu().reshape(-1),
+                       torch.from_numpy(_image(want)))
+
+
+@pytest.mark.parametrize("app", ["bfs", "wcc"])
+def test_exact_fold_equal_in_every_launch_form(app, device, shard_graph):
+    """BFS and WCC, through the order-free fold, give one answer in every
+    launch form: fused lanes run eagerly, fused and replayed from a
+    captured iteration, one launch per plan entry, and lanes sharded over
+    two owners on the card; all bit-equal to the plain path."""
+    store = api.GraphStore(shard_graph, geom=SHARD_GEOM)
+    bundle = store.plan(REPLAY_CFG)
+    a = _replay_app(app, _roots(shard_graph)[0])
+    want = api.Executor(store, bundle, a, path="ref").run()
+    ex = api.Executor(store, bundle, a)
+    ex.run()                                            # the capture
+    runs = {
+        "fused": api.Executor(store, bundle, _eager(a)).run(),
+        "replayed": ex.run(),
+        "per entry": api.Executor(store, bundle, _eager(a),
+                                  fuse_lanes=False).run(),
+        "sharded": api.compile(None, a, store=store, config=REPLAY_CFG,
+                               shard=[device, device]).run(),
+    }
+    torch.cuda.synchronize()
+    assert ex.dispatch_stats()["replayed_iterations"] >= \
+        runs["replayed"][1]["iterations"] > 1
+    for name, got in runs.items():
+        assert got[1]["iterations"] == want[1]["iterations"], name
+        assert np.array_equal(got[0], want[0]), name
 
 
 def test_kernel_refuses_unnamed_scatter_op(device):
@@ -690,7 +843,8 @@ def test_replayed_run_equals_eager_run(app, layout, device, shard_graph):
     (every iteration replayed) equal a run of the same app without a key
     bit for bit: properties, iterations and history; the kernel's launch
     and edge counts stay one payload's a payload an iteration, each graph
-    having recorded one iteration's, and the executor's own counts add up
+    having recorded one iteration's (its exact edges too: all of them in
+    min, max and or, none in sum), and the executor's own counts add up
     to the process's."""
     store = api.GraphStore(shard_graph, geom=SHARD_GEOM, layout=layout)
     bundle = store.plan(REPLAY_CFG)
@@ -715,8 +869,10 @@ def test_replayed_run_equals_eager_run(app, layout, device, shard_graph):
             want_counts if run == 0 else [1, 2 * n - 1, 1, 2 * n])
     assert ex.dispatch_stats()["capture_pool_bytes"] > 0
     cap = bundle.iteration_capture(device, a.iteration_key)
-    assert [g[1:] for g in cap.graphs] == [
-        (d["kernel_dispatches"], d["kernel_edges"])] * 2
+    exact = d["kernel_edges"] if a.gather in gas_kernel.EXACT_MODES else 0
+    assert [g[1] for g in cap.graphs] == [{
+        "launches": d["kernel_dispatches"], "edges": d["kernel_edges"],
+        "exact_edges": exact}] * 2
 
 
 def test_device_bytes_count_the_captured_pools(device, shard_graph):

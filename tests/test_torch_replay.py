@@ -1,7 +1,9 @@
 """CPU tests of the replayed iteration (``repro_torch.core.replay``): when
 a run may replay, the iteration key of the built-in apps, the replay
 counts in ``Executor.dispatch_stats()``, the run loop over a stand-in
-for the CUDA graphs, and gbench's reader of the replayed share.
+for the CUDA graphs, the GAS kernel's counters (exact edges among them)
+live, recorded and replayed, and gbench's readers of the replayed share
+and of the exact-edge share.
 
 The graphs themselves run only on the card (``tests/test_torch_cuda.py``,
 ``-k replay``)."""
@@ -404,6 +406,56 @@ def test_replays_count_the_launches_their_graphs_recorded(
             gas_kernel.gas_tiles.edges) == (3 * replayed, 300 * replayed)
 
 
+def _kernel_counts(prefix=""):
+    return tuple(getattr(gas_kernel.gas_tiles, prefix + name)
+                 for name in gas_kernel.COUNTS)
+
+
+@pytest.fixture
+def zeroed_counts(monkeypatch):
+    """``gas_tiles``'s counters, live and recorded, set to 0."""
+    for name in gas_kernel.COUNTS:
+        monkeypatch.setattr(gas_kernel.gas_tiles, name, 0)
+        monkeypatch.setattr(gas_kernel.gas_tiles, "recorded_" + name, 0)
+
+
+@pytest.mark.parametrize("recording", [False, True])
+@pytest.mark.parametrize("mode", sorted(gas_kernel.MODES))
+def test_a_launch_counts_its_exact_edges(mode, recording, zeroed_counts):
+    """A launch counts one launch and its edges and, in min, max and or
+    (the order-free fold), its edges as exact too; a launch on a
+    capturing stream counts into the recorded counters alone."""
+    gas_kernel.count_launch(250, mode, recording)
+    exact = 250 if mode in ("min", "max", "or") else 0
+    counted = (1, 250, exact)
+    assert _kernel_counts("recorded_" if recording else "") == counted
+    assert _kernel_counts("" if recording else "recorded_") == (0, 0, 0)
+    assert gas_kernel.recorded_counts() == dict(zip(
+        gas_kernel.COUNTS, counted if recording else (0, 0, 0)))
+
+
+@pytest.mark.parametrize("mode", sorted(gas_kernel.MODES))
+def test_replays_add_the_exact_edges_their_graphs_recorded(
+        mode, graph, root, stand_in, monkeypatch, zeroed_counts):
+    """Each replay adds every count its graph recorded, exact edges
+    included: here 3 launches of 100 edges in ``mode`` an iteration."""
+    def record(fn, pool):
+        for _ in range(3):
+            gas_kernel.count_launch(100, mode, recording=True)
+        return types.SimpleNamespace(replay=fn)
+
+    monkeypatch.setattr(replay, "_record", record)
+    store = _store(graph)
+    ex = api.Executor(store, store.plan(CONFIG), _app("bfs", root),
+                      device="cpu")
+    _, meta = ex.run()
+    replayed = meta["iterations"] - 1
+    assert ex.dispatch_stats()["replayed_iterations"] == replayed
+    exact = 300 if mode in gas_kernel.EXACT_MODES else 0
+    assert _kernel_counts() == (3 * replayed, 300 * replayed,
+                                exact * replayed)
+
+
 # -- gbench's reader -------------------------------------------------------
 
 def _reader():
@@ -433,3 +485,32 @@ def test_reader_gives_nothing_where_nothing_ran(graph, monkeypatch):
         assert mod.after_window(live) is None        # a program without
     assert mod.read(types.SimpleNamespace(
         extra={"iter_replay_share": share})) == share
+
+
+def _exact_share_reader():
+    from gbench import harness
+    return harness.load_reader("gas_exact_edge_share")
+
+
+@pytest.mark.parametrize("case", ["share", "no edges", "no counter",
+                                  "no program"])
+def test_exact_share_reader(case, monkeypatch, zeroed_counts):
+    """``gas_exact_edge_share`` reads ``exact_edges / edges`` of the
+    kernel's counters after the window; nothing where the kernel
+    streamed no edge, where the program has no ``exact_edges`` counter
+    (a program before the order-free fold) or no kernel module."""
+    mod = _exact_share_reader()
+    k = gas_kernel.gas_tiles
+    k.edges, k.exact_edges = 400, 300
+    if case == "no edges":
+        k.edges = k.exact_edges = 0
+    elif case == "no counter":
+        monkeypatch.delattr(k, "exact_edges")
+    elif case == "no program":
+        monkeypatch.setitem(sys.modules, "repro_torch.kernels", None)
+    share = mod.after_window(types.SimpleNamespace())
+    assert share == (0.75 if case == "share" else None)
+    assert mod.read(types.SimpleNamespace(
+        extra={"gas_exact_edge_share": share})) == share
+    assert mod.read(types.SimpleNamespace(extra={})) is None
+
